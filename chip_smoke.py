@@ -6,17 +6,26 @@ Phases, each printed on its own line and each fatal on failure:
 
 1. device and packages: the card's name and power limit, and which of the
    optional host packages (yaml, regex, PIL, ftfy) import;
-2. build: compile every CUDA kernel of the zero-shot path from the sources
-   in this checkout, and print what ``ptxas -v`` reports;
-3. kernels: call each kernel's wrapper at the shapes the main path gives
+2. build: compile every CUDA kernel of the port from the sources in this
+   checkout (one ``nvcc`` per source, all started together), and print
+   what ``ptxas -v`` reports;
+3. kernels: call each kernel's wrapper at the shapes the main paths give
    it, hold the result against its plain PyTorch version, and time the
-   kernel, the plain version and the nearest PyTorch library call;
+   kernel, the plain version and the nearest PyTorch library call: the
+   attention forward (K1) and the attention backward (K2);
 4. slice: zero-shot eval of MS-CLIP-S ViT-B/32 at full width through
    ``msclip_torch.eval.zero_shot.run_zero_shot`` (random weights from a
    seed, bf16, BN folded, synthetic images), with each kernel's launches
    counted over that run;
 5. card against CPU: the same fp32 weights through both towers on the card
-   (kernels) and on the CPU (plain versions).
+   (kernels) and on the CPU (plain versions);
+6. train slice: full-width B/32 bf16 training steps at batch 256 through
+   ``msclip_torch.tools.train.train`` (synthetic pairs), with each kernel's
+   launches counted over the run, then the step time on a batch resident
+   on the card;
+7. card against CPU, training: one fp32 train step's loss and every
+   gradient of full-width B/32 on 4 synthetic pairs, the card (kernels)
+   against the CPU (plain versions), same weights.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -26,9 +35,11 @@ printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -44,6 +55,9 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
               torch.float32: 67e12}    # fp32 outside the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2: fp32 elementwise as the JAX package's grad tests; bf16 relative to
+# the largest gradient (W and dS are rounded to bf16 inside)
+BWD_ATOL, BWD_RTOL, BWD_BF16_REL = 2e-4, 1e-4, 3e-2
 B32_CONFIG = os.path.join(REPO, "msclip_torch", "config",
                           "b32-yfcc-msclips.json")
 L2_BYTES = 50 * 2 ** 20
@@ -77,13 +91,26 @@ def device_and_packages():
 
 
 def build_kernels():
+    """Every source at once, one nvcc each."""
     t0 = time.time()
-    path = cuda_build.build(A.SOURCE)
-    with open(path + ".log") as f:
-        report = sorted({ln.split(":", 1)[-1].strip() for ln in f
-                         if "ptxas info" in ln and "Used" in ln})
-    log("build", source=A.SOURCE, seconds=f"{time.time() - t0:.1f}",
-        ptxas=json.dumps(report))
+    sources = (A.SOURCE, A.BWD_SOURCE)
+    with cf.ThreadPoolExecutor(len(sources)) as pool:
+        paths = list(pool.map(cuda_build.build, sources))
+    for source, path in zip(sources, paths):
+        with open(path + ".log") as f:
+            lines = f.read().splitlines()
+        # per kernel: "Function properties for <mangled name>", then its
+        # stack and spills, then "Used <n> registers ..."
+        report = []
+        for i, ln in enumerate(lines):
+            if "ptxas info" in ln and "Used" in ln:
+                m = re.search(r"(attention_(?:fwd|bwd)_(?:bf16|f32)_kernel)"
+                              r"ILi(\d+)ELi(\d+)E", lines[i - 2])
+                name = f"{m[1]}<{m[2]},{m[3]}>" if m else lines[i - 2]
+                report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
+                              f"{lines[i - 1].strip()}")
+        log("build", source=source, seconds=f"{time.time() - t0:.1f}",
+            ptxas=json.dumps(report))
 
 
 def cuda_ms(fn, n_inputs, iters=30, warmup=3):
@@ -103,15 +130,19 @@ def cuda_ms(fn, n_inputs, iters=30, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def attention_bound(B, L, E, H, dtype, mask):
+def attention_bound(B, L, E, H, dtype, mask, backward=False):
     """``(ms, by)``: the least time for the attention function, the larger
-    of its I/O (each input byte read once, each output byte written once)
-    over the memory rate and its matrix work (the pairs this mask leaves:
-    masked -inf pairs need no product) over the peak rate of ``dtype``."""
+    of its I/O (each input byte read once, each output byte written once:
+    ``B L 4E`` elements forward, qkv and g read and dqkv written ``B L 7E``
+    backward, plus the mask) over the memory rate and its matrix work (two
+    products of ``2 D`` flops per (query, key) pair and head forward, five
+    backward, over the pairs this mask leaves: masked -inf pairs need no
+    product) over the peak rate of ``dtype``."""
     item = torch.finfo(dtype).bits // 8
-    nbytes = B * L * 4 * E * item + (0 if mask is None else L * L * 4)
+    io_cols, products = (7, 5) if backward else (4, 2)
+    nbytes = B * L * io_cols * E * item + (0 if mask is None else L * L * 4)
     pairs = L * L if mask is None else int(torch.isfinite(mask).sum())
-    flops = 4 * B * H * pairs * (E // H)
+    flops = 2 * products * B * H * pairs * (E // H)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
@@ -162,6 +193,72 @@ def check_attention(E=768, H=12):
                 bound_us=row["bound_ms"] * 1e3)
             rows.append(row)
             del qkv, heads
+    return rows
+
+
+BWD_SHAPES = [  # (B, L, causal): image and text at the train batch, B/16,
+    (256, 50, False), (256, 77, True), (64, 197, False), (5, 77, True)]
+
+
+def check_attention_bwd(E=768, H=12):
+    """K2 against its plain version, then the times of K2, the plain
+    version and SDPA's backward. SDPA's backward reuses the softmax
+    statistics its forward saved; K2 recomputes them from qkv."""
+    from msclip_torch.models.layers import build_causal_mask
+
+    F = torch.nn.functional
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for B, L, causal in BWD_SHAPES:
+        mask = build_causal_mask(L, device="cuda") if causal else None
+        for dtype in (torch.float32, torch.bfloat16):
+            item = torch.finfo(dtype).bits // 8
+            n_inputs = max(1, math.ceil(2 * L2_BYTES / (B * L * 4 * E * item)))
+            qkv = [torch.randn(B, L, 3 * E, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(n_inputs)]
+            g = [torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
+                 for _ in range(n_inputs)]
+            got = A.fused_attention_qkv_bwd(qkv[0], g[0], H, mask)
+            want = A.attention_qkv_bwd_plain(qkv[0], g[0], H, mask)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            if dtype == torch.float32:
+                ok = bool((diff <= BWD_ATOL + BWD_RTOL * want.abs()).all())
+                tol = f"atol {BWD_ATOL} rtol {BWD_RTOL}"
+            else:
+                limit = BWD_BF16_REL * max(1.0, want.float().abs().max().item())
+                ok, tol = err <= limit, f"{limit:.3g}"
+            if not (ok and torch.isfinite(got.float()).all()):
+                raise AssertionError(
+                    f"attention bwd kernel B={B} L={L} {dtype}: max |err| "
+                    f"{err} against {tol}")
+            # SDPA on head-split views; its forward runs once per input
+            sdpa = []
+            for t, gi in zip(qkv, g):
+                q, k, v = (x.detach().requires_grad_() for x in
+                           t.view(B, L, 3, H, E // H).permute(2, 0, 3, 1, 4))
+                out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+                sdpa.append((out, (q, k, v),
+                             gi.view(B, L, H, E // H).transpose(1, 2)))
+            row = {
+                "B": B, "L": L, "causal": causal,
+                "dtype": str(dtype).replace("torch.", ""),
+                "max_abs_err": err, "tolerance": tol,
+                "ms": cuda_ms(lambda i: A.fused_attention_qkv_bwd(
+                    qkv[i], g[i], H, mask), n_inputs),
+                "plain_ms": cuda_ms(lambda i: A.attention_qkv_bwd_plain(
+                    qkv[i], g[i], H, mask), n_inputs, iters=10),
+                "library_ms": cuda_ms(lambda i: torch.autograd.grad(
+                    sdpa[i][0], sdpa[i][1], sdpa[i][2], retain_graph=True),
+                    n_inputs),
+            }
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                B, L, E, H, dtype, mask, backward=True)
+            log("kernel", name="attention_bwd", **row,
+                bound_us=row["bound_ms"] * 1e3)
+            rows.append(row)
+            del qkv, g, sdpa
     return rows
 
 
@@ -234,14 +331,139 @@ def card_against_cpu(atol=1e-3):
         raise AssertionError(f"card and CPU features differ: {errs} > {atol}")
 
 
-def kernel_line(rows, launches):
+def train_config(*opts):
+    from msclip_torch.config import get_default_config, update_config
+
+    cfg = get_default_config()
+    update_config(cfg, B32_CONFIG, opts=[
+        "DATASET.DATASET", "synthetic", *opts])
+    return cfg
+
+
+def run_train_slice(steps=6, batch=256, timed_steps=5):
+    """Full-width B/32 bf16 training through the port's entry point, with
+    both kernels' launches counted over the run; then the step time on a
+    batch already on the card (CUDA events, after 2 warm-up steps)."""
+    from msclip_torch.models.msclip import build_spec, init_params
+    from msclip_torch.tools.train import train
+    from msclip_torch.train.trainer import MAX_LOGIT_SCALE, make_train_step
+
+    cfg = train_config(
+        "TRAIN.BATCH_SIZE_PER_GPU", batch, "TPU.COMPUTE_DTYPE", "bfloat16",
+        "DATASET.NUM_SAMPLES", steps * batch, "TRAIN.END_EPOCH", 1,
+        "TPU.SEED", 0)
+    spec = build_spec(cfg)
+    bn_key = f"{spec.stem_prefix}.bn1.running_mean"
+    bn_before = init_params(spec, torch.Generator().manual_seed(0))[bn_key]
+    A.fused_attention_qkv.launches = 0
+    A.fused_attention_qkv_bwd.launches = 0
+    state, stats = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches = (A.fused_attention_qkv.launches,
+                A.fused_attention_qkv_bwd.launches)
+    params = state.model.params()
+    bn_moved = (params[bn_key].cpu() - bn_before).abs().max().item()
+    logit_scale = params["logit_scale"].item()
+    per_step = spec.effective_vision_layers - 1 + spec.text_layers
+    log("train", model="b32-yfcc-msclips", dtype="bfloat16", batch=batch,
+        steps=stats["steps"], losses=json.dumps(stats["losses"]),
+        samples_per_s=stats["samples_per_s"], seconds=stats["seconds"],
+        peak_mem_gb=stats["peak_mem_gb"], fwd_launches=launches[0],
+        bwd_launches=launches[1], bn_running_mean_moved=bn_moved,
+        logit_scale=logit_scale)
+    if stats["steps"] != steps or not all(
+            math.isfinite(x) for x in stats["losses"]):
+        raise AssertionError(f"train run: {stats['steps']} steps, losses "
+                             f"{stats['losses']}")
+    if launches != (per_step * steps, per_step * steps):
+        raise AssertionError(f"attention kernels launched {launches} times "
+                             f"in {steps} steps, expected {per_step} per "
+                             "step each")
+    if not bn_moved > 0 or not logit_scale <= MAX_LOGIT_SCALE:
+        raise AssertionError(f"BN running mean moved {bn_moved}, "
+                             f"logit_scale {logit_scale}")
+
+    step_fn = make_train_step(spec)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    images = torch.randn(batch, 224, 224, 3, device="cuda", generator=gen)
+    tokens = torch.randint(1, 49406, (batch, 77), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    tokens[:, 0], tokens[:, 20] = 49406, 49407
+    tokens[:, 21:] = 0
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step_fn(state, images, tokens)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed_steps):
+        step_fn(state, images, tokens)
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / timed_steps
+    log("train_step", batch=batch, dtype="bfloat16", step_ms=step_ms,
+        samples_per_s_resident=batch / step_ms * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return launches
+
+
+def train_card_against_cpu(batch=4, loss_tol=1e-4, grad_rel=1e-3):
+    """One fp32 train step of full-width B/32 (TF32 off) on 4 synthetic
+    pairs: the loss and every parameter gradient on the card (K1, K2)
+    against the CPU (plain versions), from the same weights."""
+    from msclip_torch.data.pairs import make_train_dataset
+    from msclip_torch.models.msclip import (MSClipModel, build_spec,
+                                            init_params)
+    from msclip_torch.train.trainer import make_loss_fn
+
+    cfg = train_config("TPU.COMPUTE_DTYPE", "float32",
+                       "DATASET.NUM_SAMPLES", batch)
+    spec = build_spec(cfg)  # fp32: also turns TF32 off
+    ds = make_train_dataset(cfg)
+    images, tokens = (torch.from_numpy(np.stack(x))
+                      for x in zip(*(ds[i] for i in range(batch))))
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    loss_fn = make_loss_fn(spec)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = MSClipModel(spec, {k: v.clone() for k, v in params.items()},
+                            trainable=True).to(dev)
+        loss, _ = loss_fn(model.params(), images.to(dev), tokens.to(dev))
+        loss.backward()
+        results[dev] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                      model.named_parameters()
+                                      if p.grad is not None})
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = (results["cuda"],
+                                                    results["cpu"])
+    if set(grads_gpu) != set(grads_cpu) or len(grads_cpu) < 300:
+        raise AssertionError(f"gradients of {len(grads_gpu)} tensors on the "
+                             f"card, {len(grads_cpu)} on the CPU")
+    worst, worst_key = 0.0, None
+    for k, g in grads_cpu.items():
+        rel = (grads_gpu[k] - g).abs().max().item() / max(
+            1.0, g.abs().max().item())
+        if not rel <= worst:
+            worst, worst_key = rel, k
+    log("train_card_vs_cpu", dtype="float32", batch=batch, loss_card=loss_gpu,
+        loss_cpu=loss_cpu, loss_err=abs(loss_gpu - loss_cpu),
+        grad_tensors=len(grads_cpu), worst_grad_err=worst,
+        worst_tensor=worst_key, loss_tol=loss_tol, grad_tol=grad_rel)
+    if not (abs(loss_gpu - loss_cpu) <= loss_tol and worst <= grad_rel):
+        raise AssertionError(f"card and CPU train step differ: loss "
+                             f"{loss_gpu} vs {loss_cpu}, worst gradient "
+                             f"{worst_key} {worst}")
+
+
+def kernel_line(rows, launches, name="attention_fwd",
+                replaces="msclip_tpu/ops/attention.py:243"):
     """The per-kernel JSON entry: the headline row is the image tower's
     shape (B=256, L=50, bf16); every checked shape is under ``shapes``."""
     head = next(r for r in rows if r["L"] == 50 and r["dtype"] == "bfloat16")
     return {
-        "name": "attention_fwd", "route": "cuda",
-        "source": "msclip_torch/csrc/attention_fwd.cu",
-        "replaces": "msclip_tpu/ops/attention.py:243",
+        "name": name, "route": "cuda",
+        "source": f"msclip_torch/csrc/{name}.cu",
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -258,9 +480,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     attn_rows = check_attention()
+    bwd_rows = check_attention_bwd()
     launches = run_slice()
     card_against_cpu()
-    print(json.dumps({"kernels": [kernel_line(attn_rows, launches)]}))
+    train_launches = run_train_slice()
+    train_card_against_cpu()
+    print(json.dumps({"kernels": [
+        kernel_line(attn_rows, launches + train_launches[0]),
+        kernel_line(bwd_rows, train_launches[1], "attention_bwd",
+                    "msclip_tpu/ops/attention.py:146")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Core functional layers, the eval subset of ``msclip_tpu/models/layers.py``.
+"""Core functional layers, the eval and train subset of
+``msclip_tpu/models/layers.py``.
 
 Parameters use the reference MS-CLIP ``state_dict`` layout (PyTorch's own):
 linear weights ``[out, in]``, conv weights OIHW, activations NCHW inside the
@@ -10,8 +11,11 @@ Semantics that differ from PyTorch's defaults and are kept on purpose:
 * ``layer_norm``: statistics in fp32, ``rsqrt(var + 1e-12)``, the normalized
   value cast to the compute dtype *before* the affine, which is applied in
   that dtype (reference ``clip_openai_pe_res_v1.py:204-219``);
-* ``batch_norm``: eval only, running statistics folded into one fp32
-  scale/offset, then cast; its eps is the caller's (1e-5 or 1e-6).
+* ``batch_norm``: in eval the running statistics are folded into one fp32
+  scale/offset, then cast; in training the batch statistics are taken in
+  fp32 as ``E[x^2] - E[x]^2``, the normalisation and affine run in fp32,
+  and the new running statistics use momentum 0.1 and the unbiased
+  variance. Its eps is the caller's (1e-5 or 1e-6).
 """
 
 from __future__ import annotations
@@ -136,10 +140,29 @@ def attention(p, x, n_head, mask=None):
     return linear(out, p["attn.out_proj.weight"], p["attn.out_proj.bias"])
 
 
-def transformer_block(p, x, n_head, mask=None, eps=1e-12):
-    """Pre-LN residual attention block (reference ``:1027-1028``), eval."""
-    x = x + attention(p, layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
-                                    eps), n_head, mask)
+def drop_path(x, rate, generator):
+    """Stochastic depth on a residual branch (timm ``DropPath``): one keep
+    draw per sample from ``generator``, the kept samples scaled by
+    ``1 / (1 - rate)``."""
+    keep = 1.0 - rate
+    draw = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
+                      generator=generator)
+    return x * (draw < keep).to(x.dtype) / keep
+
+
+def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
+                      generator=None):
+    """Pre-LN residual attention block (reference ``:1027-1028``), with
+    stochastic depth on both branches in training, when a rate and a
+    ``torch.Generator`` are given."""
+    attn_out = attention(p, layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
+                                       eps), n_head, mask)
+    if drop_path_rate > 0.0 and generator is not None:
+        x = x + drop_path(attn_out, drop_path_rate, generator)
+        return x + drop_path(
+            mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"], eps)),
+            drop_path_rate, generator)
+    x = x + attn_out
     return x + mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"], eps))
 
 
@@ -154,8 +177,30 @@ def add_channel_bias(x, bias):
     return x + bias.to(x.dtype)[None, :, None, None]
 
 
-def batch_norm(x, params, prefix, eps=1e-5):
-    """Eval BatchNorm over NCHW with running stats; fp32 scale/offset."""
+BN_MOMENTUM = 0.1  # torch's default, the reference's BatchNorm2d
+
+
+def batch_norm(x, params, prefix, eps=1e-5, training=False):
+    """BatchNorm over NCHW. Eval: running stats folded into an fp32
+    scale/offset; returns ``y``. Training: batch statistics over N, H, W;
+    returns ``(y, (new_running_mean, new_running_var))``, the new stats
+    detached."""
+    if training:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        y = (xf - mean[None, :, None, None]) \
+            * torch.rsqrt(var + eps)[None, :, None, None]
+        y = params[f"{prefix}.weight"].float()[None, :, None, None] * y \
+            + params[f"{prefix}.bias"].float()[None, :, None, None]
+        n = x.numel() // x.shape[1]
+        unbiased = var.detach() * (n / max(n - 1, 1))
+        new_stats = (
+            (1 - BN_MOMENTUM) * params[f"{prefix}.running_mean"]
+            + BN_MOMENTUM * mean.detach(),
+            (1 - BN_MOMENTUM) * params[f"{prefix}.running_var"]
+            + BN_MOMENTUM * unbiased)
+        return y.to(x.dtype), new_stats
     scale = params[f"{prefix}.weight"].float() * torch.rsqrt(
         params[f"{prefix}.running_var"].float() + eps)
     offset = params[f"{prefix}.bias"].float() \

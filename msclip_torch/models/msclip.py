@@ -1,4 +1,4 @@
-"""MS-CLIP-S, the zero-shot eval path of ``msclip_tpu/models/msclip.py``.
+"""MS-CLIP-S, the eval and train paths of ``msclip_tpu/models/msclip.py``.
 
 Parameters are one flat dict in the reference MS-CLIP ``state_dict`` layout
 (``visual.transformer.resblocks.<i>.attn.in_proj_weight``, ...), holding
@@ -7,6 +7,10 @@ each tensor once: a text block that shares the visual trunk's attn/mlp
 :func:`resolve_text_block` reads the trunk's. Activations are batch-first
 ``[B, L, D]``; ``encode_image`` takes ``[B, H, W, 3]`` like the JAX
 function and runs the conv stem and branch in NCHW.
+
+:class:`MSClipModel` holds the dict as a module tree: buffers only for eval
+(``load_eval_model``), or, with ``trainable=True``, the trained tensors as
+``nn.Parameter``s and the BatchNorm running statistics as buffers.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ class MSClipSpec:
     share_bottom_layer: bool = False
 
     compute_dtype: str = "float32"
+    vision_drop_path: float = 0.0  # MODEL.SPEC.VISION.DROP_PATH
 
     @property
     def dtype(self) -> torch.dtype:
@@ -168,8 +173,9 @@ def _not_ported(what: str, roadmap: str):
 
 
 def _reject_unported(config, custom: _KeyRecorder) -> None:
-    """Raise for every configured feature outside the zero-shot MS-CLIP-S
-    path, naming the ROADMAP item that ports it."""
+    """Raise for every configured feature outside the ported MS-CLIP-S
+    paths (zero-shot eval, the one-card train step), naming the ROADMAP
+    item that ports it."""
     text = config.MODEL.SPEC.TEXT
     if text.get("STYLE", "clip") != "clip" or \
             text.get("TOKENIZER", "clip") != "clip":
@@ -223,6 +229,21 @@ def _reject_unported(config, custom: _KeyRecorder) -> None:
     if config.TPU.get("USE_FUSED_BLOCK", False):
         _not_ported("fused half-blocks (TPU.USE_FUSED_BLOCK, kernel K5)",
                     "K5")
+    # training features outside the one-card train step
+    if int(config.TPU.get("ACCUM_STEPS", 1)) > 1:
+        _not_ported("GradCache accumulation (TPU.ACCUM_STEPS > 1)", "M6")
+    for key, what in (("SHARDED_LOSS", "the sharded InfoNCE loss"),
+                      ("RING_LOSS", "the ring InfoNCE loss"),
+                      ("ZERO1", "ZeRO-1 optimizer sharding"),
+                      ("FSDP", "FSDP parameter sharding")):
+        if config.TPU.get(key, False):
+            _not_ported(f"{what} (TPU.{key})", "M7")
+    if config.TPU.get("REMAT", False):
+        _not_ported("rematerialised blocks (TPU.REMAT)", "M6")
+    if config.TRAIN.get("LARC", False):
+        _not_ported("LARC (TRAIN.LARC)", "M6")
+    if config.SWA.get("ENABLED", False):
+        _not_ported("SWA (SWA.ENABLED)", "M6")
 
 
 def spec_from_config(config) -> MSClipSpec:
@@ -274,6 +295,7 @@ def spec_from_config(config) -> MSClipSpec:
         share_n_layers=custom.get("N_LAYERS", -1),
         share_bottom_layer=custom.get("SHARE_BOTTOM_LAYER", False),
         compute_dtype=dtype,
+        vision_drop_path=vision.get("DROP_PATH", 0.0),
     )
     unread = (set(config.CUSTOM.keys()) - custom.seen
               - _CUSTOM_KEYS_CONSUMED_ELSEWHERE - _EXT_KNOBS)
@@ -354,10 +376,16 @@ def resolve_text_block(params, spec: MSClipSpec, i: int):
             for k in L.BLOCK_KEYS}
 
 
-def cast_params(params, dtype=torch.bfloat16,
-                keep_fp32=("running_mean", "running_var")):
+BN_STATS = ("running_mean", "running_var")
+
+
+def is_bn_stat(key: str) -> bool:
+    return key.rsplit(".", 1)[-1] in BN_STATS
+
+
+def cast_params(params, dtype=torch.bfloat16):
     """Cast every tensor to ``dtype`` except BN running statistics."""
-    return {k: v if k.rsplit(".", 1)[-1] in keep_fp32 else v.to(dtype)
+    return {k: v if is_bn_stat(k) else v.to(dtype)
             for k, v in params.items()}
 
 
@@ -365,15 +393,23 @@ def cast_params(params, dtype=torch.bfloat16,
 # Forward
 # ---------------------------------------------------------------------------
 
-def encode_image(params, spec: MSClipSpec, images, *, normalize=True):
+def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
+                 bn: S.BNState | None = None, generator=None):
     """``[B, H, W, 3]`` preprocessed images -> ``[B, embed_dim]``: stem ->
     tokens -> +CLS/+pos/ln_pre -> trunk blocks with the parallel branch
-    fused in at the lateral layers -> CLS pool -> ln_post -> proj."""
-    x = images.to(spec.dtype).permute(0, 3, 1, 2)  # NCHW
+    fused in at the lateral layers -> CLS pool -> ln_post -> proj.
+
+    ``bn``: the BatchNorm context (eval when None). ``generator``: a
+    ``torch.Generator`` on the images' device that drives DropPath
+    (``spec.vision_drop_path``) in the trunk blocks; None turns it off."""
+    bn = bn or S.BNState()
+    # NCHW, contiguous: the CPU build's oneDNN conv backward corrupts the
+    # heap when the stem's input keeps the permuted (channels-last) strides
+    x = images.to(spec.dtype).permute(0, 3, 1, 2).contiguous()
     B, W, g = x.shape[0], spec.vision_width, spec.grid
     fmap = S.apply_earlyconv_res(params, spec.stem_prefix, x,
                                  spec.early_conv_strides,
-                                 spec.early_conv_first_k)
+                                 spec.early_conv_first_k, bn)
     tokens = fmap.flatten(2).transpose(1, 2)  # [B, g*g, W]
     cls_tok = params["visual.class_embedding"].to(spec.dtype).expand(B, 1, W)
     tokens = torch.cat([cls_tok, tokens], dim=1)
@@ -389,15 +425,16 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True):
                 params, f"visual.transformer.parallel_branch_v.{li}",
                 x if li == 0 else parallel_x,
                 spec.parallel_strides[li], spec.parallel_paddings[li],
-                spec.parallel_resnet_layers[li])
+                spec.parallel_resnet_layers[li], bn)
             parallel_x, tokens = S.apply_lateral_adapter(
                 params, f"visual.transformer.parallel_lateral_adapter.{li}",
                 parallel_x, tokens, (g, g),
                 spec.t2b_strides[li], spec.t2b_paddings[li],
-                use_cls=spec.t2b_use_cls, eps=spec.ln_eps)
+                use_cls=spec.t2b_use_cls, eps=spec.ln_eps, bn=bn)
         tokens = L.transformer_block(
             L.block_params(params, f"visual.transformer.resblocks.{idx}"),
-            tokens, spec.vision_heads, None, spec.ln_eps)
+            tokens, spec.vision_heads, None, spec.ln_eps,
+            drop_path_rate=spec.vision_drop_path, generator=generator)
 
     pooled = _pool(tokens, spec)
     pooled = L.layer_norm(pooled, params["visual.ln_post.weight"],
@@ -429,6 +466,17 @@ def encode_text(params, spec: MSClipSpec, tokens, *, normalize=True):
     return L.l2_normalize(feats) if normalize else feats
 
 
+def forward(params, spec: MSClipSpec, images, tokens, *,
+            bn: S.BNState | None = None, generator=None):
+    """Training logits ``exp(logit_scale) * img @ txt.T`` ``[B, B]`` over
+    the one-card batch (``msclip_tpu/models/msclip.py:949-966`` without
+    the cross-device gather)."""
+    feats_i = encode_image(params, spec, images, bn=bn, generator=generator)
+    feats_t = encode_text(params, spec, tokens)
+    T = torch.exp(params["logit_scale"]).to(feats_i.dtype)
+    return T * feats_i @ feats_t.t()
+
+
 def _pool(tokens, spec: MSClipSpec):
     if spec.pool_type == "average":
         if spec.skip_cls:
@@ -443,9 +491,14 @@ def _pool(tokens, spec: MSClipSpec):
 
 class MSClipModel(nn.Module):
     """A spec and its parameters as a module tree whose ``state_dict()``
-    keys are the reference names; ``.to(device)`` moves every tensor."""
+    keys are the reference names; ``.to(device)`` moves every tensor.
 
-    def __init__(self, spec: MSClipSpec, params):
+    ``trainable=False`` (eval): every tensor is a buffer.
+    ``trainable=True``: every tensor but the BN running statistics is an
+    ``nn.Parameter``; the running statistics stay buffers, updated from
+    the forward's ``BNState`` and never by the optimizer."""
+
+    def __init__(self, spec: MSClipSpec, params, trainable: bool = False):
         super().__init__()
         self.spec = spec
         for key, tensor in params.items():
@@ -455,11 +508,14 @@ class MSClipModel(nn.Module):
                 if part not in mod._modules:
                     mod.add_module(part, nn.Module())
                 mod = mod._modules[part]
-            mod.register_buffer(leaf, tensor)
+            if trainable and not is_bn_stat(key):
+                mod.register_parameter(leaf, nn.Parameter(tensor))
+            else:
+                mod.register_buffer(leaf, tensor)
 
     def params(self):
         """The flat reference-layout dict the apply functions take."""
-        return dict(self.named_buffers())
+        return {**dict(self.named_parameters()), **dict(self.named_buffers())}
 
     def encode_image(self, images, **kw):
         return encode_image(self.params(), self.spec, images, **kw)

@@ -1,4 +1,4 @@
-"""MS-CLIP-S conv modules, the eval subset of ``msclip_tpu/models/stem.py``.
+"""MS-CLIP-S conv modules, the MS-CLIP-S subset of ``msclip_tpu/models/stem.py``.
 
 NCHW activations, OIHW weights, parameters in the reference ``state_dict``
 layout under a key prefix:
@@ -11,12 +11,17 @@ layout under a key prefix:
 * the released top-to-bottom lateral adapter
   (``visual.transformer.parallel_lateral_adapter.<i>``, ``:1752-1778``).
 
+BatchNorm runs through a :class:`BNState` context: in eval it reads the
+running statistics; in training it normalises with batch statistics and
+records the new running statistics under the BN's reference key prefix.
 Each apply function also takes the BN-folded form that
 :func:`..folding.fold_params_for_eval` makes: a conv whose BN was folded
 carries a ``.bias`` key and its BN keys are gone.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +37,25 @@ from .layers import (
 )
 
 CONV_RES_BN_EPS = 1e-6  # ConvResBlock's BatchNorms (reference :1831-1840)
+
+
+@dataclass
+class BNState:
+    """BatchNorm context (``msclip_tpu/models/stem.py:40-66``).
+
+    ``training=False``: the running statistics are read. ``training=True``:
+    batch statistics are used and the new running statistics are recorded
+    in ``updates`` as ``{prefix: (running_mean, running_var)}``."""
+
+    training: bool = False
+    updates: dict = field(default_factory=dict)
+
+    def __call__(self, x, params, prefix, eps=1e-5):
+        if not self.training:
+            return batch_norm(x, params, prefix, eps)
+        y, self.updates[prefix] = batch_norm(x, params, prefix, eps,
+                                             training=True)
+        return y
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +80,10 @@ def init_earlyconv_res(prefix, width, generator, first_conv_k=3, n_stages=4):
     return p
 
 
-def apply_earlyconv_res(params, prefix, x, strides, first_conv_k=3):
+def apply_earlyconv_res(params, prefix, x, strides, first_conv_k=3,
+                        bn: BNState | None = None):
     """NCHW image -> NCHW feature map at 1/(2*prod(strides))."""
+    bn = bn or BNState()
     pad = (first_conv_k - 1) // 2
     if f"{prefix}.bn1.weight" not in params:  # BN folded
         x = F.relu(add_channel_bias(
@@ -70,15 +96,14 @@ def apply_earlyconv_res(params, prefix, x, strides, first_conv_k=3):
                 params[f"{sp}.bias"]))
         return conv2d(x, params[f"{prefix}.last_conv.weight"])
     x = conv2d(x, params[f"{prefix}.conv1.weight"], 2, pad)
-    x = F.relu(batch_norm(x, params, f"{prefix}.bn1"))
+    x = F.relu(bn(x, params, f"{prefix}.bn1"))
     for i, s in enumerate(strides):
         # ResBasicBlock_v0: conv3x3(s)+BN, 1x1-downsample(s)+BN, add, ReLU
         sp = f"{prefix}.resnet_stage.conv_{i}"
-        out = batch_norm(conv2d(x, params[f"{sp}.conv1.weight"], s, 1),
-                         params, f"{sp}.bn1")
-        identity = batch_norm(
-            conv2d(x, params[f"{sp}.downsample.0.weight"], s, 0),
-            params, f"{sp}.downsample.1")
+        out = bn(conv2d(x, params[f"{sp}.conv1.weight"], s, 1),
+                 params, f"{sp}.bn1")
+        identity = bn(conv2d(x, params[f"{sp}.downsample.0.weight"], s, 0),
+                      params, f"{sp}.downsample.1")
         x = F.relu(out + identity)
     return conv2d(x, params[f"{prefix}.last_conv.weight"])
 
@@ -124,9 +149,11 @@ def init_parallel_branch(prefix, width, n_layers, resnet_layers, kernels,
     return p
 
 
-def apply_conv_res_block(params, prefix, x, stride, padding):
+def apply_conv_res_block(params, prefix, x, stride, padding,
+                         bn: BNState | None = None):
     """1x1 -> kxk(stride) -> 1x1 bottleneck with projected residual
     (reference ``ConvResBlock.forward`` ``:1842-1861``; BN eps 1e-6)."""
+    bn = bn or BNState()
     folded = f"{prefix}.bn1.weight" not in params
     geometry = {"1": (1, 0), "2": (stride, padding), "3": (1, 0)}
     out = x
@@ -135,8 +162,7 @@ def apply_conv_res_block(params, prefix, x, stride, padding):
         if folded:
             out = add_channel_bias(out, params[f"{prefix}.conv{name}.bias"])
         else:
-            out = batch_norm(out, params, f"{prefix}.bn{name}",
-                             CONV_RES_BN_EPS)
+            out = bn(out, params, f"{prefix}.bn{name}", CONV_RES_BN_EPS)
         if name != "3":
             out = F.relu(out)
     residual = x
@@ -147,21 +173,23 @@ def apply_conv_res_block(params, prefix, x, stride, padding):
             residual = add_channel_bias(
                 residual, params[f"{prefix}.residual_conv.bias"])
         else:
-            residual = batch_norm(residual, params, f"{prefix}.residual_bn",
-                                  CONV_RES_BN_EPS)
+            residual = bn(residual, params, f"{prefix}.residual_bn",
+                          CONV_RES_BN_EPS)
     return F.relu(out + residual)
 
 
-def apply_parallel_stage(params, prefix, x, stride, padding, n_blocks):
+def apply_parallel_stage(params, prefix, x, stride, padding, n_blocks,
+                         bn: BNState | None = None):
     """One branch stage: conv+BN+ReLU, or ``n_blocks`` ConvResBlocks."""
+    bn = bn or BNState()
     if f"{prefix}.conv.weight" in params:
         x = conv2d(x, params[f"{prefix}.conv.weight"], stride, padding)
         if f"{prefix}.bn.weight" not in params:  # folded
             return F.relu(add_channel_bias(x, params[f"{prefix}.conv.bias"]))
-        return F.relu(batch_norm(x, params, f"{prefix}.bn"))
+        return F.relu(bn(x, params, f"{prefix}.bn"))
     for j in range(n_blocks):
         x = apply_conv_res_block(params, f"{prefix}.resnet_stage.conv_{j}", x,
-                                 stride if j == 0 else 1, padding)
+                                 stride if j == 0 else 1, padding, bn)
     return x
 
 
@@ -182,33 +210,35 @@ def init_lateral_adapter(prefix, top_dim, bottom_dim, t2b_kernel, generator):
     return p
 
 
-def _dw_conv_bn(params, prefix, x, stride, padding):
+def _dw_conv_bn(params, prefix, x, stride, padding, bn: BNState):
     """Depthwise conv + BN (or its folded bias) over NCHW."""
     x = conv2d(x, params[f"{prefix}.conv.weight"], stride, padding,
                groups=x.shape[1])
     if f"{prefix}.bn.weight" not in params:  # folded
         return add_channel_bias(x, params[f"{prefix}.conv.bias"])
-    return batch_norm(x, params, f"{prefix}.bn")
+    return bn(x, params, f"{prefix}.bn")
 
 
 def apply_lateral_adapter(params, prefix, top, tokens, grid_hw, t2b_stride,
-                          t2b_padding, use_cls=True, eps=1e-12):
+                          t2b_padding, use_cls=True, eps=1e-12,
+                          bn: BNState | None = None):
     """Fuse the branch map ``top`` ``[B, C_top, Ht, Wt]`` into the trunk
     tokens ``[B, 1 + H*W, C]`` (CLS first). Returns ``(top, fused)``.
 
     The reference's CLS arithmetic is kept: with ``use_cls`` the CLS both
     passes through the bottom path and is prepended to the top-to-bottom
     injection, so the fused CLS is ``ln(2 * cls)``."""
+    bn = bn or BNState()
     B, _, C = tokens.shape
     H, W = grid_hw
     t2b = _dw_conv_bn(params, f"{prefix}.top2bottom_dw_conv", top,
-                      t2b_stride, t2b_padding)
+                      t2b_stride, t2b_padding, bn)
     t2b = conv2d(t2b, params[f"{prefix}.top2bottom_pw_conv.conv.weight"])
     t2b = t2b.flatten(2).transpose(1, 2)  # [B, H*W, C], row-major grid
 
     cls_tok = tokens[:, :1, :]
     grid = tokens[:, 1:, :].transpose(1, 2).reshape(B, C, H, W)
-    grid = _dw_conv_bn(params, f"{prefix}.bottom_dw_conv", grid, 1, 1)
+    grid = _dw_conv_bn(params, f"{prefix}.bottom_dw_conv", grid, 1, 1, bn)
     bottom_out = torch.cat([cls_tok, grid.flatten(2).transpose(1, 2)], dim=1)
 
     t2b_cls = cls_tok if use_cls else torch.zeros_like(cls_tok)

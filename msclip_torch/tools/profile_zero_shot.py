@@ -51,9 +51,10 @@ def device_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def kernel_breakdown(fn):
-    """Device time per kernel over one traced call, and the idle share of
-    the traced window (1 - summed kernel time / window)."""
+def kernel_breakdown(fn, names=("attention_fwd",)):
+    """Device time per kernel over one traced call, the time and share of
+    the kernels whose names contain each of ``names``, and the idle share
+    of the traced window (1 - summed kernel time / window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -73,13 +74,15 @@ def kernel_breakdown(fn):
             us = e.self_cuda_time_total
         kernels[e.key] = kernels.get(e.key, 0.0) + us
     total = sum(kernels.values())
-    attn = sum(v for k, v in kernels.items() if "attention_fwd" in k)
+    out = {"window_us": window_us, "kernel_us": total,
+           "idle_share": 1.0 - total / window_us if window_us else None}
+    for name in names:
+        us = sum(v for k, v in kernels.items() if name in k)
+        out[f"{name}_us"] = us
+        out[f"{name}_share"] = us / total if total else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {"window_us": window_us, "kernel_us": total,
-            "idle_share": 1.0 - total / window_us if window_us else None,
-            "attention_us": attn,
-            "attention_share": attn / total if total else None,
-            "top": [[k[:80], v] for k, v in top]}
+    out["top"] = [[k[:80], v] for k, v in top]
+    return out
 
 
 def main(argv=None):

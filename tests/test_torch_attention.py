@@ -1,16 +1,17 @@
 """The port's attention core against the JAX package's, fp32 on the CPU.
 
 ``msclip_torch.ops.attention.fused_attention_qkv`` on a CPU tensor runs the
-plain version of the CUDA kernel; it is held against the Pallas kernel in
-interpret mode and against the XLA path of ``layers._attention_core``.
-The kernel itself is checked on the card by ``chip_smoke.py`` and
-``tests/test_torch_kernels_gpu.py``.
+plain versions of the CUDA kernels (forward and backward); they are held
+against the Pallas kernels in interpret mode and against the XLA path of
+``layers._attention_core``. The kernels themselves are checked on the card
+by ``chip_smoke.py`` and ``tests/test_torch_kernels_gpu.py``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from msclip_tpu.models import layers as JL
@@ -72,13 +73,13 @@ def test_no_kernel_for_other_devices():
 
 @pytest.mark.parametrize("case", [
     "dtype", "layout", "contiguous", "head_dim", "seq_len", "mask_dtype",
-    "mask_shape"])
+    "mask_shape", "grad_dtype", "grad_shape", "grad_contiguous"])
 def test_kernel_input_checks(case):
-    """What the CUDA wrapper refuses, checked on CPU tensors (the checks
+    """What the CUDA wrappers refuse, checked on CPU tensors (the checks
     run before any launch)."""
     B, L, E, H = 2, 50, 128, 2
     qkv = torch.zeros(B, L, 3 * E)
-    mask = None
+    mask, g = None, None
     if case == "dtype":
         qkv = qkv.half()
     elif case == "layout":
@@ -94,11 +95,77 @@ def test_kernel_input_checks(case):
         mask = torch.zeros(L, L, dtype=torch.float64)
     elif case == "mask_shape":
         mask = torch.zeros(L + 1, L + 1)
+    elif case == "grad_dtype":
+        g = torch.zeros(B, L, E, dtype=torch.bfloat16)
+    elif case == "grad_shape":
+        g = torch.zeros(B, L, 3 * E)
+    elif case == "grad_contiguous":
+        g = torch.zeros(B, E, L).transpose(1, 2)
     with pytest.raises((TypeError, ValueError)):
-        TA._check_cuda_inputs(qkv, H, mask)
+        TA._check_cuda_inputs(qkv, H, mask, g)
 
 
-def test_kernel_refuses_grad():
-    qkv = torch.zeros(2, 50, 384, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        TA._check_cuda_inputs(qkv, 2, None)
+def test_kernel_takes_grad_and_cpu_backward_is_plain():
+    """The wrappers take a tensor that needs a gradient; on the CPU the
+    backward of ``fused_attention_qkv`` is the plain backward, and no
+    kernel is launched."""
+    TA._check_cuda_inputs(torch.zeros(2, 50, 384, requires_grad=True), 2,
+                          None, torch.zeros(2, 50, 128))
+    x = torch.from_numpy(_qkv(3, 50, 128, seed=3))
+    g = torch.from_numpy(_qkv(3, 50, 128, seed=4)[..., :128].copy())
+    qkv = x.clone().requires_grad_(True)
+    launches = (TA.fused_attention_qkv.launches,
+                TA.fused_attention_qkv_bwd.launches)
+    TA.fused_attention_qkv(qkv, 2).backward(g)
+    assert torch.equal(qkv.grad, TA.attention_qkv_bwd_plain(x, g, 2))
+    assert (TA.fused_attention_qkv.launches,
+            TA.fused_attention_qkv_bwd.launches) == launches
+
+
+@pytest.mark.parametrize("L_seq,causal", [(50, False), (77, True),
+                                          (21, True)])
+def test_plain_backward_matches_the_pallas_vjp(L_seq, causal):
+    """K2's plain version against the VJP of the JAX kernel in interpret
+    mode (its custom VJP is the Pallas backward kernel), with the JAX
+    package's grad-test tolerance."""
+    B, H, E = 3, 2, 128
+    qkv = _qkv(B, L_seq, E, seed=10 + L_seq)
+    g = np.random.default_rng(L_seq).standard_normal(
+        (B, L_seq, E)).astype(np.float32)
+    jmask = JL.build_causal_mask(L_seq) if causal else None
+    tmask = TL.build_causal_mask(L_seq) if causal else None
+    _, vjp = jax.vjp(lambda t: jax_fused_attention_qkv(
+        t, H, jmask, interpret=True, lane_pack=1), jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    got = TA.attention_qkv_bwd_plain(torch.from_numpy(qkv),
+                                     torch.from_numpy(g), H, tmask)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_is_the_gradient_of_the_plain_forward(causal):
+    x = torch.from_numpy(_qkv(2, 33, 128, seed=5))
+    g = torch.randn(2, 33, 128, generator=torch.Generator().manual_seed(0))
+    mask = TL.build_causal_mask(33) if causal else None
+    qkv = x.clone().requires_grad_(True)
+    TA.attention_qkv_plain(qkv, 2, mask).backward(g)
+    torch.testing.assert_close(TA.attention_qkv_bwd_plain(x, g, 2, mask),
+                               qkv.grad, atol=1e-5, rtol=1e-5)
+
+
+def test_gradcheck_of_the_plain_pair():
+    """``FusedAttentionQKV`` on float64 CPU tensors (its plain forward and
+    backward) against finite differences."""
+    qkv = torch.randn(1, 5, 3 * 64, dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(0),
+                      requires_grad=True)
+    mask = TL.build_causal_mask(5).double()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # ~2k tiny evaluations: threads only contend
+    try:
+        for m in (mask, None):
+            assert torch.autograd.gradcheck(
+                lambda t: TA.FusedAttentionQKV.apply(t, 1, m), (qkv,))
+    finally:
+        torch.set_num_threads(threads)

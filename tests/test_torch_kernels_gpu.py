@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (K1 forward, K2 backward) against their plain
+versions, on the card.
 
 JAX-free, so that it runs where JAX is absent:
 
@@ -59,3 +60,54 @@ def test_attention_kernel_refuses_a_bad_mask(cuda):
     qkv = torch.zeros(2, 77, 3 * 768, device=cuda)
     with pytest.raises(ValueError):
         A.fused_attention_qkv(qkv, 12, build_causal_mask(77))  # CPU mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("E,H", [(768, 12), (256, 4)])
+@pytest.mark.parametrize("L", [1, 17, 64, 65, 129, 256])
+def test_attention_bwd_kernel_edge_lengths(cuda, dtype, causal, E, H, L):
+    """K2 against its plain version at and around the padding buckets.
+    fp32 is held to the JAX package's grad-test tolerance (atol 2e-4, rtol
+    1e-4); bf16 to 3e-2 of the largest gradient, since W and dS are
+    rounded to bf16 inside and sums run in another order."""
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    qkv = torch.randn(3, L, 3 * E, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(3, L, E, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda) if causal else None
+    before = A.fused_attention_qkv_bwd.launches
+    got = A.fused_attention_qkv_bwd(qkv, g, H, mask)
+    torch.cuda.synchronize()
+    assert A.fused_attention_qkv_bwd.launches == before + 1
+    want = A.attention_qkv_bwd_plain(qkv, g, H, mask)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    assert torch.isfinite(got.float()).all()
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert (diff <= 2e-4 + 1e-4 * want.abs()).all(), diff.max().item()
+    else:
+        bound = 3e-2 * max(1.0, want.float().abs().max().item())
+        assert diff.max().item() <= bound
+
+
+def test_attention_autograd_round_trip_on_the_card(cuda):
+    """Gradients through FusedAttentionQKV on the card (K1 forward, K2
+    backward) against torch autograd of the plain forward."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, L, E, H = 4, 77, 768, 12
+    x = torch.randn(B, L, 3 * E, device=cuda, generator=gen)
+    g = torch.randn(B, L, E, device=cuda, generator=gen)
+    mask = build_causal_mask(L, device=cuda)
+    grads, launches = [], []
+    for fn in (A.fused_attention_qkv, A.attention_qkv_plain):
+        qkv = x.clone().requires_grad_(True)
+        before = (A.fused_attention_qkv.launches,
+                  A.fused_attention_qkv_bwd.launches)
+        (fn(qkv, H, mask) * g).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(qkv.grad)
+        launches.append((A.fused_attention_qkv.launches - before[0],
+                         A.fused_attention_qkv_bwd.launches - before[1]))
+    assert launches == [(1, 1), (0, 0)]
+    diff = (grads[0] - grads[1]).abs()
+    assert (diff <= 2e-4 + 1e-4 * grads[1].abs()).all(), diff.max().item()

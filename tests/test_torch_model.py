@@ -202,6 +202,15 @@ def test_released_configs_build_with_the_reference_key_set(name):
     ("MODEL.SPEC.POOL_TYPE", "linear", "M10"),
     ("TPU.INT8_EVAL", True, "M9"),
     ("TPU.USE_FUSED_BLOCK", True, "K5"),
+    ("TPU.ACCUM_STEPS", 2, "M6"),
+    ("TPU.SHARDED_LOSS", True, "M7"),
+    ("TPU.RING_LOSS", True, "M7"),
+    ("TPU.ZERO1", True, "M7"),
+    ("TPU.FSDP", True, "M7"),
+    ("TPU.REMAT", True, "M6"),
+    ("TRAIN.LARC", True, "M6"),
+    ("SWA.ENABLED", True, "M6"),
+    ("CUSTOM.GUMBEL_SELECT", True, "M10"),
 ])
 def test_unported_features_are_rejected(key, value, item):
     cfg = get_default_config()
@@ -214,6 +223,16 @@ def test_unported_features_are_rejected(key, value, item):
     node[leaf] = value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TM.spec_from_config(cfg)
+
+
+def test_spec_reads_the_drop_path_rate():
+    path = os.path.join(REPO, "experiments", "model", "b32-yfcc-msclips.yaml")
+    cfg, jcfg = get_default_config(), jax_default_config()
+    opts = ["MODEL.SPEC.VISION.DROP_PATH", 0.1]
+    update_config(cfg, path, opts=opts)
+    jax_update_config(jcfg, path, opts=opts)
+    assert TM.spec_from_config(cfg).vision_drop_path == \
+        jax_build_model(jcfg).spec.vision_drop_path == 0.1
 
 
 def test_compute_dtype_the_kernel_does_not_take_is_rejected():
