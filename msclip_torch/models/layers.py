@@ -155,15 +155,16 @@ def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
     """Pre-LN residual attention block (reference ``:1027-1028``), with
     stochastic depth on both branches in training, when a rate and a
     ``torch.Generator`` are given."""
-    attn_out = attention(p, layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
-                                       eps), n_head, mask)
     if drop_path_rate > 0.0 and generator is not None:
-        x = x + drop_path(attn_out, drop_path_rate, generator)
-        return x + drop_path(
-            mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"], eps)),
-            drop_path_rate, generator)
-    x = x + attn_out
-    return x + mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"], eps))
+        def dp(t):
+            return drop_path(t, drop_path_rate, generator)
+    else:
+        def dp(t):
+            return t
+    x = x + dp(attention(p, layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
+                                       eps), n_head, mask))
+    return x + dp(mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"],
+                                    eps)))
 
 
 def conv2d(x, weight, stride=1, padding=0, groups=1):

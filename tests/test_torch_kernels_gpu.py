@@ -16,6 +16,7 @@ from msclip_torch.ops import attention as A
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+BWD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -67,10 +68,11 @@ def test_attention_kernel_refuses_a_bad_mask(cuda):
 @pytest.mark.parametrize("E,H", [(768, 12), (256, 4)])
 @pytest.mark.parametrize("L", [1, 17, 64, 65, 129, 256])
 def test_attention_bwd_kernel_edge_lengths(cuda, dtype, causal, E, H, L):
-    """K2 against its plain version at and around the padding buckets.
-    fp32 is held to the JAX package's grad-test tolerance (atol 2e-4, rtol
-    1e-4); bf16 to 3e-2 of the largest gradient, since W and dS are
-    rounded to bf16 inside and sums run in another order."""
+    """K2 against its plain version at and around the padding buckets,
+    elementwise. fp32 is held to the JAX package's grad-test tolerance
+    (atol 2e-4, rtol 1e-4); bf16 to atol 1e-2, rtol 2e-2, room for one
+    bf16 ulp of the output (2^-7 relative at most) where the kernel and
+    the plain version, summing in another order, round to neighbours."""
     gen = torch.Generator(device=cuda).manual_seed(L)
     qkv = torch.randn(3, L, 3 * E, device=cuda, generator=gen).to(dtype)
     g = torch.randn(3, L, E, device=cuda, generator=gen).to(dtype)
@@ -82,12 +84,10 @@ def test_attention_bwd_kernel_edge_lengths(cuda, dtype, causal, E, H, L):
     want = A.attention_qkv_bwd_plain(qkv, g, H, mask)
     assert got.dtype == dtype and got.shape == qkv.shape
     assert torch.isfinite(got.float()).all()
+    atol, rtol = BWD_TOL[dtype]
     diff = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        assert (diff <= 2e-4 + 1e-4 * want.abs()).all(), diff.max().item()
-    else:
-        bound = 3e-2 * max(1.0, want.float().abs().max().item())
-        assert diff.max().item() <= bound
+    assert (diff <= atol + rtol * want.float().abs()).all(), \
+        diff.max().item()
 
 
 def test_attention_autograd_round_trip_on_the_card(cuda):
