@@ -26,7 +26,20 @@ Phases, each printed on its own line and each fatal on failure:
 7. card against CPU, training: one fp32 train step's loss and every
    gradient of full-width B/32 on 4 synthetic pairs, the card (kernels)
    against the CPU (plain versions), same weights, each gradient beside
-   how far fp32 rounding alone moves it on the CPU.
+   how far fp32 rounding alone moves it on the CPU;
+8. int8 slice: zero-shot eval of MS-CLIP-S ViT-B/16 with ``TPU.INT8_EVAL``
+   (W8A8 trunk GEMMs; the fused quantizers K3/K4 in the image tower at
+   L=197) through ``run_zero_shot``, with each kernel's launches counted
+   over that run, then the same configuration in bf16 and the drift of the
+   int8 image features from the bf16 ones;
+9. card against CPU, int8: full-width fp32 B/16 int8 features of 4
+   images and 16 prompts, the card (kernels) against the CPU (plain
+   versions), same weights, beside how far fp32 rounding alone moves them.
+
+Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
+QuickGELU + quant (K4), against their plain versions in fp32 and bf16,
+reads faults planted into a torch copy of the plain versions against the
+same check, and times both beside ``torch.compile`` of the plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -50,6 +63,7 @@ import torch
 
 from msclip_torch.ops import attention as A
 from msclip_torch.ops import cuda_build
+from msclip_torch.ops import quant as Q
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
@@ -64,6 +78,16 @@ BWD_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 BWD_FAULTS = ("no_D", "no_mask", "w_unrounded", "ds_unrounded")
 B32_CONFIG = os.path.join(REPO, "msclip_torch", "config",
                           "b32-yfcc-msclips.json")
+B16_CONFIG = os.path.join(REPO, "msclip_torch", "config",
+                          "b16-yfcc-msclips.json")
+# K3/K4 against their plain versions: q within 1; per row |s - s_plain| <=
+# S_RTOL s_plain (fp32: the LayerNorm's sums in another order; bf16: one
+# bf16 ulp of the row's largest |h|, 2^-7 relative at most); q s within one
+# quantization step of q_plain s_plain: the step of the larger scale, plus
+# what the two scales' difference moves the largest value, 127 |s - s_p|
+S_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+QUANT_FAULTS = ("roundf", "no_floor", "fused_affine", "reciprocal")
+TIES = (127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5)
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -97,7 +121,7 @@ def device_and_packages():
 def build_kernels():
     """Every source at once, one nvcc each."""
     t0 = time.time()
-    sources = (A.SOURCE, A.BWD_SOURCE)
+    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE)
     with cf.ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(cuda_build.build, sources))
     for source, path in zip(sources, paths):
@@ -110,7 +134,15 @@ def build_kernels():
             if "ptxas info" in ln and "Used" in ln:
                 m = re.search(r"(attention_(?:fwd|bwd)_(?:bf16|f32)_kernel)"
                               r"ILi(\d+)ELi(\d+)E", lines[i - 2])
-                name = f"{m[1]}<{m[2]},{m[3]}>" if m else lines[i - 2]
+                mq = re.search(r"((?:ln|gelu)_quant_kernel)I(f|13__nv_bfloat16)"
+                               r"Li(\d+)E(?:Lb([01])E)?", lines[i - 2])
+                if m:
+                    name = f"{m[1]}<{m[2]},{m[3]}>"
+                elif mq:
+                    name = (f"{mq[1]}<{'f32' if mq[2] == 'f' else 'bf16'},"
+                            f"{mq[3]}{',exact_rsqrt' if mq[4] == '1' else ''}>")
+                else:
+                    name = lines[i - 2]
                 report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
                               f"{lines[i - 1].strip()}")
         log("build", source=source, seconds=f"{time.time() - t0:.1f}",
@@ -152,8 +184,10 @@ def attention_bound(B, L, E, H, dtype, mask, backward=False):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-ATTN_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16, odd batch
-    (256, 50, False), (1024, 77, True), (64, 197, False), (5, 77, True)]
+ATTN_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16 (the int8
+    # slice's image batch, and a smaller one), odd batch
+    (256, 50, False), (1024, 77, True), (256, 197, False), (64, 197, False),
+    (5, 77, True)]
 
 
 def check_attention(E=768, H=12):
@@ -314,6 +348,215 @@ def check_attention_bwd(E=768, H=12):
             rows.append(row)
             del qkv, g, sdpa
     return rows
+
+
+QUANT_SHAPES = [(256, 197), (5, 77), (1, 1)]  # (B, L): B/16 image batch, ...
+QUANT_WIDTH = {"ln_quant": 768, "gelu_quant": 3072}  # E, and 4E after c_fc
+
+
+def quant_plain_with_fault(name, x, w, b, fault):
+    """The plain version of K3 (``ln_quant``) or K4 (``gelu_quant``) with
+    one fault planted: ``roundf`` rounds half away from zero, ``no_floor``
+    drops the 1e-8 floor of the scale, ``fused_affine`` rounds ``w n + b``
+    once (K3 only), ``reciprocal`` multiplies by ``1 / s``."""
+    xf = x.float()
+    if name == "ln_quant":
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        normed = ((xf - mean) * torch.rsqrt(var + 1e-12)).to(x.dtype)
+        if fault == "fused_affine":
+            h = (w.double() * normed.double() + b.double()).to(x.dtype)
+        else:
+            h = w.to(x.dtype) * normed + b.to(x.dtype)
+        h = h.float()
+    else:
+        h = xf / (1.0 + torch.exp(-1.702 * xf))
+    s = Q.div127(h.abs().amax(dim=-1, keepdim=True))
+    if fault != "no_floor":
+        s = torch.clamp_min(s, 1e-8)
+    r = h * (1.0 / s) if fault == "reciprocal" else h / s
+    r = torch.sign(r) * torch.floor(r.abs() + 0.5) if fault == "roundf" \
+        else torch.round(r)
+    return torch.clamp(r, -127, 127).to(torch.int8), s[..., 0]
+
+
+def quant_reading(got, want, dtype):
+    """What the K3/K4 check reads: the worst dequantized error |q s - q_p
+    s_p|, the share of q that differ, the worst |dq|, the worst per-row
+    |s - s_plain| / (S_RTOL s_plain) and the worst |q s - q_p s_p| over
+    one step, max(s, s_p) + 127 |s - s_p|; the check passes when the last
+    three are at most 1."""
+    (q, s), (qp, sp) = got, want
+    dq = (q.int() - qp.int()).abs()
+    # in fp64, where q s is exact: one step reads exactly 1
+    q, s, qp, sp = q.double(), s.double(), qp.double(), sp.double()
+    abs_err = (q * s[..., None] - qp * sp[..., None]).abs()
+    step = torch.maximum(s, sp) + 127 * (s - sp).abs()
+    deq = abs_err / step[..., None]
+    s_read = ((s - sp).abs() / (S_RTOL[dtype] * sp)).max().item()
+    return {"max_abs_err": abs_err.max().item(),
+            "q_mismatch_share": (dq > 0).float().mean().item(),
+            "max_dq": dq.max().item(), "s_reading": s_read,
+            "dequant_reading": deq.max().item()}
+
+
+def quant_passes(r):
+    return (r["max_dq"] <= 1 and r["s_reading"] <= 1.0
+            and r["dequant_reading"] <= 1.0)
+
+
+def quant_edge_inputs(name, W, dtype):
+    """Rows whose results are exact, ``[(x, w, b, (k, q_k, s_k))]`` with
+    the known q and s of the first k rows. K3: constant rows (h = bias
+    exactly) with the ties as bias (s = 1, q half to even: 127, 0, 2, 2,
+    0, -2, -2), then rows of zeros with one outlier W (mean 1 and variance
+    W - 1 are exact sums of integers); zero rows with a zero bias (s =
+    1e-8, q = 0). K4: rows of exact GELUs (x >= 61) with max 254 (s = 2,
+    the others on ties: 61 -> 30, 63 -> 32, 65 -> 32, 67 -> 34), zero rows,
+    and zero rows with one outlier."""
+    dev = "cuda"
+
+    def pattern(values, n):
+        return torch.tensor(values, device=dev).repeat(W // 7 + 1)[:W] \
+            .expand(n, W)
+
+    outlier = torch.zeros(3, W, device=dev)
+    outlier[torch.arange(3), torch.tensor([0, W // 2, W - 1])] = \
+        float(W) if name == "ln_quant" else 100.0
+    if name == "ln_quant":
+        w = torch.linspace(-2, 2, W, device=dev).to(dtype)
+        consts = torch.tensor([0.0, 1.0, -3.0, 0.5, 1024.0], device=dev)
+        x = torch.cat([consts[:, None].expand(5, W), outlier])[None]
+        x = x.to(dtype).contiguous()
+        zeros = torch.zeros(W, device=dev, dtype=dtype)
+        return [(x, w, pattern(TIES, 1)[0].to(dtype).contiguous(),
+                 (5, torch.round(pattern(TIES, 5)), 1.0)),
+                (torch.zeros_like(x), w, zeros, (8, torch.zeros(8, W), 1e-8))]
+    gelu = [254.0, 61.0, 63.0, 65.0, 67.0, 0.0, -61.0]
+    x = torch.cat([pattern(gelu, 4), torch.zeros(4, W, device=dev),
+                   outlier])[None].to(dtype).contiguous()
+    q_known = torch.cat([pattern([127.0, 30.0, 32.0, 32.0, 34.0, 0.0, 0.0], 4),
+                         torch.zeros(4, W, device=dev)])
+    s_known = torch.tensor([2.0] * 4 + [1e-8] * 4, device=dev)
+    return [(x, None, None, (8, q_known, s_known))]
+
+
+def check_quant():
+    """K3 and K4 against their plain versions in fp32 and bf16 at the
+    shapes of the int8 slice (and an odd batch and one row), on edge rows
+    that must match exactly, and with faults planted into a torch copy of
+    the plain version read against the same check (the run fails unless
+    ``roundf`` and ``no_floor`` are caught); K3 also beside its other rsqrt
+    (``EXACT_RSQRT``). Times the kernels, the plain versions and, at the
+    headline bf16 shape, ``torch.compile`` of the plain version."""
+    rows = {"ln_quant": [], "gelu_quant": []}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, W in QUANT_WIDTH.items():
+        plain = Q.ln_quant_plain if name == "ln_quant" else \
+            Q.gelu_quant_plain
+        for dtype in (torch.float32, torch.bfloat16):
+            item = torch.finfo(dtype).bits // 8
+            cases = []  # (label, x, w, b, known results of the edge rows)
+            for B, L in QUANT_SHAPES:
+                x = torch.randn(B, L, W, device="cuda", generator=gen)
+                x = (x if name == "ln_quant" else 2 * x).to(dtype)
+                w = (1 + 0.1 * torch.randn(W, device="cuda",
+                                           generator=gen)).to(dtype)
+                b = (0.1 * torch.randn(W, device="cuda",
+                                       generator=gen)).to(dtype)
+                cases.append((f"{B}x{L}", x, w, b, None))
+            cases += [("edge", *c) for c in quant_edge_inputs(name, W, dtype)]
+            faults = {f: [] for f in QUANT_FAULTS
+                      if name == "ln_quant" or f != "fused_affine"}
+            edge_ok = True
+            for label, x, w, b, known in cases:
+                args = (x, w, b) if name == "ln_quant" else (x,)
+                got = (Q.ln_quant if name == "ln_quant" else Q.gelu_quant)(
+                    *args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                reading = quant_reading(got, want, dtype)
+                if label == "edge":
+                    k, q_k, s_k = known
+                    exact = bool((got[0] == want[0]).all()
+                                 and (got[1] == want[1]).all()
+                                 and (got[0][0, :k].float() == q_k.cuda()).all()
+                                 and (got[1][0, :k] == torch.as_tensor(
+                                     s_k, device="cuda")).all())
+                    edge_ok &= exact
+                    reading["exact"] = exact
+                if name == "ln_quant":
+                    other = Q.launch_ln_quant(x, w, b, 1e-12,
+                                              not Q.EXACT_RSQRT)
+                    reading["other_rsqrt_q_mismatch_share"] = quant_reading(
+                        other, want, dtype)["q_mismatch_share"]
+                for f in faults:
+                    bad = quant_plain_with_fault(name, x, w, b, f)
+                    faults[f].append(quant_reading(bad, want, dtype))
+                    if label == "edge":
+                        faults[f][-1]["exact"] = bool(
+                            (bad[0] == want[0]).all()
+                            and (bad[1] == want[1]).all())
+                if not quant_passes(reading):
+                    raise AssertionError(f"{name} kernel {label} {dtype}: "
+                                         f"{reading}")
+                row = {"shape": label, "W": W,
+                       "dtype": str(dtype).replace("torch.", ""), **reading}
+                log("kernel_check", name=name, **row)
+                rows[name].append(row)
+            if not edge_ok:
+                raise AssertionError(f"{name} {dtype}: the edge rows differ "
+                                     "from the plain version's")
+            # a fault is caught where a row fails the check or an edge row
+            # is not exact
+            caught = {f: not all(quant_passes(r) and r.get("exact", True)
+                                 for r in rs) for f, rs in faults.items()}
+            log("planted_faults", name=name, dtype=str(dtype),
+                caught=json.dumps(caught), readings=json.dumps(
+                    {f: [{k: r[k] for k in ("max_dq", "s_reading",
+                                            "dequant_reading", "exact")
+                          if k in r} for r in rs]
+                     for f, rs in faults.items()}))
+            if not (caught["roundf"] and caught["no_floor"]):
+                raise AssertionError(f"{name} {dtype}: the check misses a "
+                                     f"planted fault: {caught}")
+            # times at the slice's shape, inputs cycled past the L2 cache
+            B, L = QUANT_SHAPES[0]
+            n_inputs = max(1, math.ceil(2 * L2_BYTES / (B * L * W * item)))
+            xs = [torch.randn(B, L, W, device="cuda", generator=gen)
+                  .to(dtype) for _ in range(n_inputs)]
+            w, b = cases[0][2], cases[0][3]
+            kernel = Q.ln_quant if name == "ln_quant" else Q.gelu_quant
+            extra = (w, b) if name == "ln_quant" else ()
+            timing = {
+                "shape": f"{B}x{L}", "W": W,
+                "dtype": str(dtype).replace("torch.", ""),
+                "ms": cuda_ms(lambda i: kernel(xs[i], *extra), n_inputs),
+                "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra), n_inputs,
+                                    iters=10),
+                "library_ms": None,
+                "bound_ms": B * L * (W * item + W + 4) / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+            }
+            if dtype == torch.bfloat16:
+                timing["compile_ms"] = compiled_ms(plain, xs, extra, n_inputs)
+            log("kernel", name=name, **timing,
+                bound_us=timing["bound_ms"] * 1e3)
+            rows[name].append(timing)
+            del xs, cases
+    return rows
+
+
+def compiled_ms(plain, xs, extra, n_inputs):
+    """``torch.compile`` of the plain version at the headline shape, a
+    baseline only (the port never calls it); None where it does not
+    compile here, with the error printed."""
+    try:
+        fn = torch.compile(plain)
+        return cuda_ms(lambda i: fn(xs[i], *extra), n_inputs)
+    except Exception as e:  # a baseline may fail; the kernels may not
+        log("compile_baseline", error=repr(e)[:300])
+        return None
 
 
 def run_slice():
@@ -534,23 +777,192 @@ def train_card_against_cpu(batch=4, loss_tol=1e-4, grad_rel=1e-4,
                              f"{readings[worst]} (card, noise) of its largest")
 
 
-def kernel_line(rows, launches, name="attention_fwd",
-                replaces="msclip_tpu/ops/attention.py:243"):
-    """The per-kernel JSON entry: the headline row is the image tower's
-    shape (B=256, L=50, bf16); every checked shape is under ``shapes``."""
-    head = next(r for r in rows if r["L"] == 50 and r["dtype"] == "bfloat16")
-    return {
+def b16_config(*opts):
+    from msclip_torch.config import get_default_config, update_config
+
+    cfg = get_default_config()
+    update_config(cfg, B16_CONFIG, opts=[
+        "MODEL.PRETRAINED_MODEL", "", "TPU.SEED", 0, *opts])
+    return cfg
+
+
+def reset_launches():
+    A.fused_attention_qkv.launches = 0
+    Q.ln_quant.launches = Q.gelu_quant.launches = 0
+
+
+def read_launches():
+    return (A.fused_attention_qkv.launches, Q.ln_quant.launches,
+            Q.gelu_quant.launches)
+
+
+def run_int8_slice(batch=256):
+    """Int8 zero-shot MS-CLIP-S B/16 at full width through the port's entry
+    point (bf16, W8A8 trunk GEMMs), with the launches of K1, K3 and K4
+    counted over the run; then the same configuration in bf16, and the
+    int8 image features of one batch against the bf16 ones."""
+    from msclip_torch.data.datasets import SyntheticImageDataset
+    from msclip_torch.eval.zero_shot import load_eval_model, run_zero_shot
+    from msclip_torch.models.layers import GEMM_KEYS
+    from msclip_torch.models.msclip import build_spec
+
+    zs = ["DATASET.DATASET", "synthetic", "DATASET.NUM_SAMPLES", 512,
+          "TEST.BATCH_SIZE_PER_GPU", batch, "TEST.SUBSET_CLASSES", 100,
+          "TPU.COMPUTE_DTYPE", "bfloat16"]
+    runs = {}
+    for int8 in (True, False):
+        cfg = b16_config(*zs, "TPU.INT8_EVAL", int8)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        value, stats = run_zero_shot(cfg, device="cuda")
+        torch.cuda.synchronize()
+        runs[int8] = (read_launches(), stats)
+        log("int8_slice" if int8 else "b16_bf16", model="b16-yfcc-msclips",
+            int8=int8, top1=value, n_images=stats["n_images"],
+            images_per_s=stats["images_per_sec"],
+            classifier_s=stats["classifier_s"],
+            image_batches=stats["n_image_batches"],
+            text_chunks=stats["n_text_chunks"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=json.dumps(dict(zip(("attention_fwd", "ln_quant",
+                                          "gelu_quant"), read_launches()))))
+        if stats["n_images"] != 512 or not 0.0 <= value <= 100.0:
+            raise AssertionError(f"B/16 zero-shot (int8={int8}) gave {value} "
+                                 f"on {stats['n_images']} images")
+    launches, stats = runs[True]
+    nb, nc = stats["n_image_batches"], stats["n_text_chunks"]
+    expected = (11 * nb + 12 * nc, 22 * nb, 11 * nb)
+    if launches != expected or 0 in launches:
+        raise AssertionError(f"int8 slice launched (K1, K3, K4) {launches} "
+                             f"times, expected {expected} for {nb} image "
+                             f"batches and {nc} text chunks")
+    if runs[False][0][1:] != (0, 0):
+        raise AssertionError(f"the bf16 run launched K3/K4: {runs[False][0]}")
+
+    # the model of the run: every trunk GEMM in int8; the text tower
+    # (L=77 < 96) launches K1 and no quantizer
+    cfg = b16_config(*zs, "TPU.INT8_EVAL", True)
+    spec = build_spec(cfg)
+    models = {int8: load_eval_model(b16_config(*zs, "TPU.INT8_EVAL", int8),
+                                    spec, "cuda") for int8 in (True, False)}
+    params = models[True].params()
+    own_text = sum(not spec.text_layer_is_shared(i)
+                   for i in range(spec.text_layers))
+    int8_keys = [k for k, v in params.items() if v.dtype == torch.int8]
+    fp_left = [k for k in params if k.endswith(GEMM_KEYS)]
+    if fp_left or len(int8_keys) != 4 * (spec.effective_vision_layers - 1
+                                         + own_text):
+        raise AssertionError(f"int8 model holds fp GEMM weights {fp_left[:4]}"
+                             f" and {len(int8_keys)} int8 tensors")
+    from msclip_torch.data import ClipTokenizer, get_classnames, get_templates
+
+    texts = [t.format(c) for c in get_classnames("imagenet")[:4]
+             for t in get_templates("imagenet")[:64]]
+    tokens = torch.from_numpy(ClipTokenizer()(texts)).cuda()
+    ds = SyntheticImageDataset(n=batch, size=spec.image_resolution)
+    images = torch.from_numpy(np.stack([ds[i][0] for i in range(batch)]))
+    with torch.inference_mode():
+        reset_launches()
+        models[True].encode_text(tokens)
+        torch.cuda.synchronize()
+        text_launches = read_launches()
+        feats = {k: m.encode_image(images.cuda()).float()
+                 for k, m in models.items()}
+    if text_launches != (12, 0, 0):
+        raise AssertionError(f"the int8 text tower launched (K1, K3, K4) "
+                             f"{text_launches}, expected (12, 0, 0)")
+    cos = (feats[True] * feats[False]).sum(-1) / (
+        feats[True].norm(dim=-1) * feats[False].norm(dim=-1))
+    ips = runs[True][1]["images_per_sec"], runs[False][1]["images_per_sec"]
+    log("int8_drift", batch=batch, min_cos=cos.min().item(),
+        mean_cos=cos.mean().item(), int8_images_per_s=ips[0],
+        bf16_images_per_s=ips[1], int8_over_bf16=ips[0] / ips[1],
+        int8_int8_tensors=len(int8_keys),
+        text_launches=json.dumps(text_launches))
+    if not cos.min().item() > 0.99:
+        raise AssertionError(f"int8 image features drift from bf16: least "
+                             f"cosine {cos.min().item()}")
+    return launches
+
+
+def int8_card_against_cpu(atol=1e-3, noise_room=4.0):
+    """Full-width fp32 B/16 int8 features of 4 images and 16 prompts (TF32
+    off): the card with its kernels against the CPU with the plain
+    versions, same weights. A quantized value next to a tie moves by one
+    step when an input moves by one ulp, so two more CPU runs, with the
+    images and the token embedding nudged by +-2^-22 of themselves, read
+    how far fp32 rounding alone moves the features; each tower passes
+    within ``atol``, or within ``noise_room`` times its own noise where
+    that is larger."""
+    from msclip_torch.data import ClipTokenizer, get_classnames, get_templates
+    from msclip_torch.data.datasets import SyntheticImageDataset
+    from msclip_torch.eval.zero_shot import load_eval_model
+    from msclip_torch.models.msclip import MSClipModel, build_spec
+
+    cfg = b16_config("TPU.INT8_EVAL", True)
+    spec = build_spec(cfg)  # fp32: also turns TF32 off
+    ds = SyntheticImageDataset(n=4, size=spec.image_resolution)
+    images = torch.from_numpy(np.stack([ds[i][0] for i in range(4)]))
+    texts = [t.format(c) for c in get_classnames("imagenet")[:4]
+             for t in get_templates("imagenet")[:4]]
+    tokens = torch.from_numpy(ClipTokenizer()(texts))
+    params = load_eval_model(cfg, spec, "cpu").params()
+    feats, card_launches = {}, None
+    for run, dev, nudge in (("card", "cuda", 0.0), ("cpu", "cpu", 0.0),
+                            ("up", "cpu", 2.0 ** -22),
+                            ("down", "cpu", -2.0 ** -22)):
+        emb = "token_embedding.weight"
+        p = {**params, emb: params[emb] * (1 + nudge)}
+        model = MSClipModel(spec, {k: v.to(dev) for k, v in p.items()})
+        reset_launches()
+        with torch.inference_mode():
+            feats[run] = (model.encode_image((images * (1 + nudge)).to(dev))
+                          .cpu(), model.encode_text(tokens.to(dev)).cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            card_launches = read_launches()
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(feats["card"], feats["cpu"])]
+    noise = [max((a - b).abs().max().item() for a in (feats["up"][i],
+                                                       feats["down"][i]))
+             for i, b in enumerate(feats["cpu"])]
+    limits = [max(atol, noise_room * n) for n in noise]
+    log("int8_card_vs_cpu", dtype="float32", image_err=errs[0],
+        text_err=errs[1], image_noise=noise[0], text_noise=noise[1],
+        image_limit=limits[0], text_limit=limits[1], atol=atol,
+        noise_room=noise_room, card_launches=json.dumps(card_launches))
+    if card_launches[1:] != (22, 11):
+        raise AssertionError(f"the card's int8 run launched (K1, K3, K4) "
+                             f"{card_launches}")
+    if not all(math.isfinite(e) and e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"card and CPU int8 features differ: {errs} > "
+                             f"{limits}")
+
+
+def headline(rows, **match):
+    return next(r for r in rows if "ms" in r
+                and all(r[k] == v for k, v in match.items()))
+
+
+def kernel_line(rows, launches, name, replaces, head, shape, source=None):
+    """The per-kernel JSON entry: times and bound from the headline row
+    ``head``; every checked shape is under ``shapes``."""
+    line = {
         "name": name, "route": "cuda",
-        "source": f"msclip_torch/csrc/{name}.cu",
+        "source": source or f"msclip_torch/csrc/{name}.cu",
         "replaces": replaces,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if "max_abs_err" in r),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "shape": f"B={head['B']} L=50 E=768 H=12 bfloat16",
+        "shape": shape,
         "shapes": rows,
     }
+    if "compile_ms" in head:
+        line["compile_ms"] = head["compile_ms"]
+    return line
 
 
 def main():
@@ -560,14 +972,31 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     attn_rows = check_attention()
     bwd_rows = check_attention_bwd()
+    quant_rows = check_quant()
     launches = run_slice()
     card_against_cpu()
     train_launches = run_train_slice()
     train_card_against_cpu()
+    int8_launches = run_int8_slice()
+    int8_card_against_cpu()
+    quant = "msclip_torch/csrc/quant.cu"
     print(json.dumps({"kernels": [
-        kernel_line(attn_rows, launches + train_launches[0]),
+        kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0],
+                    "attention_fwd", "msclip_tpu/ops/attention.py:243",
+                    headline(attn_rows, B=256, L=50, dtype="bfloat16"),
+                    "B=256 L=50 E=768 H=12 bfloat16"),
         kernel_line(bwd_rows, train_launches[1], "attention_bwd",
-                    "msclip_tpu/ops/attention.py:146")]}))
+                    "msclip_tpu/ops/attention.py:146",
+                    headline(bwd_rows, B=256, L=50, dtype="bfloat16"),
+                    "B=256 L=50 E=768 H=12 bfloat16"),
+        kernel_line(quant_rows["ln_quant"], int8_launches[1], "ln_quant",
+                    "msclip_tpu/ops/quant.py:109",
+                    headline(quant_rows["ln_quant"], dtype="bfloat16"),
+                    "B=256 L=197 E=768 bfloat16", quant),
+        kernel_line(quant_rows["gelu_quant"], int8_launches[2], "gelu_quant",
+                    "msclip_tpu/ops/quant.py:124",
+                    headline(quant_rows["gelu_quant"], dtype="bfloat16"),
+                    "B=256 L=197 F=3072 bfloat16", quant)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,10 @@
 
 The ``TPU`` node keeps its name so that configs written for the JAX
 package parse unchanged; the port reads ``TPU.COMPUTE_DTYPE``,
-``TPU.FOLD_BN`` and ``TPU.SEED`` from it and rejects ``TPU.INT8_EVAL`` and
-``TPU.USE_FUSED_BLOCK`` until their kernels are ported. There is no
-``TPU.USE_PALLAS``: a CUDA tensor always takes the port's kernels. The
-other keys mirror the reference MS-CLIP yacs defaults
+``TPU.FOLD_BN``, ``TPU.SEED`` and, in zero-shot eval, ``TPU.INT8_EVAL``
+from it and rejects ``TPU.USE_FUSED_BLOCK`` until its kernel is ported.
+There is no ``TPU.USE_PALLAS``: a CUDA tensor always takes the port's
+kernels. The other keys mirror the reference MS-CLIP yacs defaults
 (``lib/config/default.py:14-192``) key for key, so the released YAML files
 (``experiments/model/*.yaml``) parse unchanged; keys the zero-shot path
 does not read are inert.
@@ -207,7 +207,7 @@ def get_default_config() -> CfgNode:
                                       # XLA all-gathers weights at use
                                       # (parallel/mesh.py)
     c.TPU.INT8_EVAL = False           # W8A8 trunk GEMMs at eval
-                                      # (models/quantize.py; int8 MXU)
+                                      # (models/quantize.py; K3/K4)
     c.TPU.XLA_VMEM_KIB = 24576        # xla_tpu_scoped_vmem_limit_kib for
                                       # the train-step compile. Measured
                                       # (experiments/xla_options_sweep.py,

@@ -113,15 +113,20 @@ def make_dataset(config):
 
 def load_eval_model(config, spec: MSClipSpec, device) -> MSClipModel:
     """Parameters from the config, BN folded (``TPU.FOLD_BN``, default
-    on), cast to the compute dtype (BN running stats stay fp32; every
-    weight is cast to the compute dtype at use anyway, so casting once
-    changes no result), on ``device``."""
+    on), with ``TPU.INT8_EVAL`` the trunk's GEMM weights quantized from the
+    fp32 weights (as ``msclip_tpu/eval/zero_shot.py:200-207``), then cast
+    to the compute dtype (BN running stats and the int8 weights with their
+    scales stay as they are; every weight is cast to the compute dtype at
+    use anyway, so casting once changes no result), on ``device``."""
     from ..models.folding import fold_params_for_eval
+    from ..models.quantize import quantize_params_for_eval
     from .checkpoint_load import load_model_params
 
     params = load_model_params(config, spec)
     if config.TPU.get("FOLD_BN", True):
         params = fold_params_for_eval(params, spec)
+    if config.TPU.get("INT8_EVAL", False):
+        params = quantize_params_for_eval(params, spec)
     params = cast_params(params, spec.dtype)
     return MSClipModel(spec, params).to(device)
 

@@ -16,6 +16,13 @@ Semantics that differ from PyTorch's defaults and are kept on purpose:
   fp32 as ``E[x^2] - E[x]^2``, the normalisation and affine run in fp32,
   and the new running statistics use momentum 0.1 and the unbiased
   variance. Its eps is the caller's (1e-5 or 1e-6).
+
+A block quantized for eval (``models/quantize.py``, ``TPU.INT8_EVAL``)
+holds each GEMM weight ``<key>`` as ``<key>_int8`` and ``<key>_scale``;
+its linears then run W8A8 (``msclip_tpu/models/layers.py:117-145,
+218-288``): per-token activation scales, the int8 GEMM with int32
+accumulate (``torch._int_mm``), and the dequant ``y * s_a * w_scale`` in
+fp32, cast to the compute dtype before the bias is added.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import fused_attention_qkv
+from ..ops.quant import gelu_quant, ln_quant, quantize_rows_plain
 
 BLOCK_KEYS = (
     "ln_1.weight", "ln_1.bias",
@@ -35,6 +43,14 @@ BLOCK_KEYS = (
     "mlp.c_fc.weight", "mlp.c_fc.bias",
     "mlp.c_proj.weight", "mlp.c_proj.bias",
 )
+# the block's GEMM weights, which int8 eval stores as <key>_int8, <key>_scale
+GEMM_KEYS = ("attn.in_proj_weight", "attn.out_proj.weight",
+             "mlp.c_fc.weight", "mlp.c_proj.weight")
+INT8_SUFFIXES = ("_int8", "_scale")
+# the shortest sequence whose quantized block takes the fused quantizers
+# K3/K4 (msclip_tpu/ops/tuning.py:63-66, ``int8_min_seq``); shorter ones
+# quantize each GEMM input on the fly
+INT8_MIN_SEQ = 96
 
 
 # ---------------------------------------------------------------------------
@@ -97,9 +113,18 @@ def init_block(prefix, dim, generator, std=0.02):
     return p
 
 
+def stored_names(params, prefix, key):
+    """The names under which the block at ``prefix`` stores ``key``: the
+    key itself, or a quantized GEMM weight's int8 tensor and scale."""
+    if key in GEMM_KEYS and f"{prefix}.{key}" not in params:
+        return tuple(key + suffix for suffix in INT8_SUFFIXES)
+    return (key,)
+
+
 def block_params(params, prefix):
-    """The twelve tensors of the block at ``prefix``, under local names."""
-    return {k: params[f"{prefix}.{k}"] for k in BLOCK_KEYS}
+    """The tensors of the block at ``prefix``, under local names."""
+    return {name: params[f"{prefix}.{name}"] for k in BLOCK_KEYS
+            for name in stored_names(params, prefix, k)}
 
 
 # ---------------------------------------------------------------------------
@@ -127,17 +152,77 @@ def linear(x, weight, bias=None):
     return y
 
 
+def _int_mm(a, b):
+    """int8 ``[M, K] @ [K, N]`` -> int32 ``[M, N]``. cuBLAS's int8 GEMM
+    takes ``M > 16``, so on the card a shorter ``a`` is zero-padded."""
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = torch.cat([a, a.new_zeros(17 - m, a.shape[1])])
+    return torch._int_mm(a, b)[:m]
+
+
+def int8_matmul(xq, s, w_int8, w_scale, bias, out_dtype):
+    """Quantized activations ``xq`` int8 ``[..., in]`` with per-token
+    scales ``s`` ``[...]`` times int8 weights ``[out, in]`` with scales
+    ``[out]``: int32 accumulate, ``(y * s * w_scale)`` in fp32, cast to
+    ``out_dtype``, then ``+ bias`` in ``out_dtype``."""
+    y = _int_mm(xq.reshape(-1, xq.shape[-1]), w_int8.t())
+    y = y.reshape(*xq.shape[:-1], -1)
+    y = (y.float() * s[..., None] * w_scale).to(out_dtype)
+    if bias is not None:
+        y = y + bias.to(out_dtype)
+    return y
+
+
+def int8_linear(x, w_int8, w_scale, bias=None):
+    """W8A8 linear: ``x`` quantized per token in fp32 on the fly, then
+    :func:`int8_matmul` back to ``x.dtype``."""
+    xq, s = quantize_rows_plain(x.float())
+    return int8_matmul(xq, s, w_int8, w_scale, bias, x.dtype)
+
+
+def block_linear(p, x, weight, bias):
+    """The block's linear ``weight``/``bias`` (local names): W8A8 when the
+    block holds the weight quantized, else :func:`linear`."""
+    if weight + "_int8" in p:
+        return int8_linear(x, p[weight + "_int8"], p[weight + "_scale"],
+                           p[bias])
+    return linear(x, p[weight], p[bias])
+
+
 def mlp(p, x):
-    h = quick_gelu(linear(x, p["mlp.c_fc.weight"], p["mlp.c_fc.bias"]))
-    return linear(h, p["mlp.c_proj.weight"], p["mlp.c_proj.bias"])
+    h = quick_gelu(block_linear(p, x, "mlp.c_fc.weight", "mlp.c_fc.bias"))
+    return block_linear(p, h, "mlp.c_proj.weight", "mlp.c_proj.bias")
 
 
 def attention(p, x, n_head, mask=None):
     """Multi-head self-attention, batch-first ``[B, L, E]``; the core
     runs in :func:`msclip_torch.ops.attention.fused_attention_qkv`."""
-    qkv = linear(x, p["attn.in_proj_weight"], p["attn.in_proj_bias"])
+    qkv = block_linear(p, x, "attn.in_proj_weight", "attn.in_proj_bias")
     out = fused_attention_qkv(qkv, n_head, mask)
-    return linear(out, p["attn.out_proj.weight"], p["attn.out_proj.bias"])
+    return block_linear(p, out, "attn.out_proj.weight", "attn.out_proj.bias")
+
+
+def int8_block(p, x, n_head, mask=None, eps=1e-12):
+    """Pre-LN block of a quantized eval model with the quantizers fused
+    (``_int8_block``): K3 quantizes the LayerNorm outputs and K4 the
+    QuickGELU output straight to int8; the out-projection's input (the
+    attention context, from K1) is quantized on the fly."""
+    xq, s = ln_quant(x, p["ln_1.weight"], p["ln_1.bias"], eps)
+    qkv = int8_matmul(xq, s, p["attn.in_proj_weight_int8"],
+                      p["attn.in_proj_weight_scale"], p["attn.in_proj_bias"],
+                      x.dtype)
+    ctx = fused_attention_qkv(qkv, n_head, mask)
+    x = x + int8_linear(ctx, p["attn.out_proj.weight_int8"],
+                        p["attn.out_proj.weight_scale"],
+                        p["attn.out_proj.bias"])
+    hq, s = ln_quant(x, p["ln_2.weight"], p["ln_2.bias"], eps)
+    mid = int8_matmul(hq, s, p["mlp.c_fc.weight_int8"],
+                      p["mlp.c_fc.weight_scale"], p["mlp.c_fc.bias"], x.dtype)
+    mq, s = gelu_quant(mid)
+    return x + int8_matmul(mq, s, p["mlp.c_proj.weight_int8"],
+                           p["mlp.c_proj.weight_scale"], p["mlp.c_proj.bias"],
+                           x.dtype)
 
 
 def drop_path(x, rate, generator):
@@ -154,8 +239,13 @@ def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
                       generator=None):
     """Pre-LN residual attention block (reference ``:1027-1028``), with
     stochastic depth on both branches in training, when a rate and a
-    ``torch.Generator`` are given."""
-    if drop_path_rate > 0.0 and generator is not None:
+    ``torch.Generator`` are given. A quantized block without drop-path at
+    ``L >= INT8_MIN_SEQ`` runs :func:`int8_block`."""
+    dropping = drop_path_rate > 0.0 and generator is not None
+    if "attn.in_proj_weight_int8" in p and not dropping \
+            and x.shape[1] >= INT8_MIN_SEQ:
+        return int8_block(p, x, n_head, mask, eps)
+    if dropping:
         def dp(t):
             return drop_path(t, drop_path_rate, generator)
     else:

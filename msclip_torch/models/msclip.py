@@ -4,7 +4,9 @@ Parameters are one flat dict in the reference MS-CLIP ``state_dict`` layout
 (``visual.transformer.resblocks.<i>.attn.in_proj_weight``, ...), holding
 each tensor once: a text block that shares the visual trunk's attn/mlp
 (``CUSTOM.SHARE_MODULES``) has no keys of its own for them, and
-:func:`resolve_text_block` reads the trunk's. Activations are batch-first
+:func:`resolve_text_block` reads the trunk's. For int8 eval
+(``TPU.INT8_EVAL``, ``models/quantize.py``) each trunk GEMM weight is held
+as an int8 tensor and its fp32 scale instead. Activations are batch-first
 ``[B, L, D]``; ``encode_image`` takes ``[B, H, W, 3]`` like the JAX
 function and runs the conv stem and branch in NCHW.
 
@@ -224,9 +226,12 @@ def _reject_unported(config, custom: _KeyRecorder) -> None:
         _not_ported("t2b pooling (CUSTOM.PARALLEL_T2B_POOL_SIZE)", "M10")
     if config.MODEL.SPEC.get("POOL_TYPE", "default") == "linear":
         _not_ported("the conv1d pooling head (POOL_TYPE 'linear')", "M10")
-    if config.TPU.get("INT8_EVAL", False):
-        _not_ported("int8 eval (TPU.INT8_EVAL, kernels K3/K4)", "M9")
     if config.TPU.get("USE_FUSED_BLOCK", False):
+        if config.TPU.get("INT8_EVAL", False):
+            raise ValueError(
+                "TPU.INT8_EVAL and TPU.USE_FUSED_BLOCK are mutually exclusive "
+                "(the bf16 half-block megakernel reads full-precision "
+                "weights; msclip_tpu/models/quantize.py:71-75)")
         _not_ported("fused half-blocks (TPU.USE_FUSED_BLOCK, kernel K5)",
                     "K5")
     # training features outside the one-card train step
@@ -372,8 +377,12 @@ def resolve_text_block(params, spec: MSClipSpec, i: int):
     vis = "visual.transformer.resblocks." \
         f"{i - (1 if spec.visual_layer_minus1 else 0)}"
     shared = set(spec.shared_block_keys())
-    return {k: params[f"{vis if k in shared else own}.{k}"]
-            for k in L.BLOCK_KEYS}
+    out = {}
+    for k in L.BLOCK_KEYS:
+        src = vis if k in shared else own
+        for name in L.stored_names(params, src, k):  # int8 eval: two each
+            out[name] = params[f"{src}.{name}"]
+    return out
 
 
 BN_STATS = ("running_mean", "running_var")
@@ -383,9 +392,14 @@ def is_bn_stat(key: str) -> bool:
     return key.rsplit(".", 1)[-1] in BN_STATS
 
 
+_QUANTIZED = tuple(k + suffix for k in L.GEMM_KEYS
+                   for suffix in L.INT8_SUFFIXES)
+
+
 def cast_params(params, dtype=torch.bfloat16):
-    """Cast every tensor to ``dtype`` except BN running statistics."""
-    return {k: v if is_bn_stat(k) else v.to(dtype)
+    """Cast every tensor to ``dtype`` except BN running statistics and the
+    int8 GEMM weights of int8 eval with their fp32 scales."""
+    return {k: v if is_bn_stat(k) or k.endswith(_QUANTIZED) else v.to(dtype)
             for k, v in params.items()}
 
 

@@ -1,16 +1,19 @@
-"""Where the time of zero-shot MS-CLIP-S B/32 eval goes on one CUDA card.
+"""Where the time of zero-shot MS-CLIP-S eval goes on one CUDA card.
 
-    python -m msclip_torch.tools.profile_zero_shot [--iters 10]
+    python -m msclip_torch.tools.profile_zero_shot [--iters 10] \
+        [--cfg msclip_torch/config/b16-yfcc-msclips.json] [KEY VALUE ...]
 
-At full B/32 width, random weights from a seed, bf16, BN folded, it times
-on the device (CUDA events, after warm-up, inputs resident on the card):
+At full width (B/32 unless ``--cfg`` names another config; the trailing
+overrides, e.g. ``TPU.INT8_EVAL True``, are merged last), random weights
+from a seed, bf16, BN folded, it times on the device (CUDA events, after
+warm-up, inputs resident on the card):
 
 * ``encode_image`` of a batch of 256 images at 224 px;
 * ``encode_text`` of a chunk of 1024 prompts (the classifier build's unit);
 
 then traces one call of each with ``torch.profiler`` and prints the device
-time by kernel, the share of the attention kernel, and the device's idle
-share of the traced window. Last, it runs ``run_zero_shot`` end to end on
+time by kernel, the shares of the port's kernels (attention, and the int8
+quantizers), and the device's idle share of the traced window. Last, it runs ``run_zero_shot`` end to end on
 2048 synthetic images. Each result is one JSON line on stdout.
 """
 
@@ -51,7 +54,7 @@ def device_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def kernel_breakdown(fn, names=("attention_fwd",)):
+def kernel_breakdown(fn, names=("attention_fwd", "ln_quant", "gelu_quant")):
     """Device time per kernel over one traced call, the time and share of
     the kernels whose names contain each of ``names``, and the idle share
     of the traced window (1 - summed kernel time / window)."""
@@ -80,7 +83,7 @@ def kernel_breakdown(fn, names=("attention_fwd",)):
         us = sum(v for k, v in kernels.items() if name in k)
         out[f"{name}_us"] = us
         out[f"{name}_share"] = us / total if total else None
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     out["top"] = [[k[:80], v] for k, v in top]
     return out
 
@@ -88,6 +91,10 @@ def kernel_breakdown(fn, names=("attention_fwd",)):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--cfg", default=CONFIG,
+                        help="model config (resolved JSON or YAML)")
+    parser.add_argument("opts", nargs=argparse.REMAINDER,
+                        help="config overrides, KEY VALUE ...")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_zero_shot needs a CUDA device")
@@ -97,12 +104,14 @@ def main(argv=None):
         check=True).stdout.strip())
 
     cfg = get_default_config()
-    update_config(cfg, CONFIG, opts=["TPU.COMPUTE_DTYPE", "bfloat16",
-                                     "MODEL.PRETRAINED_MODEL", ""])
+    update_config(cfg, args.cfg, opts=["TPU.COMPUTE_DTYPE", "bfloat16",
+                                       "MODEL.PRETRAINED_MODEL", "",
+                                       *args.opts])
     spec = build_spec(cfg)
     model = load_eval_model(cfg, spec, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    images = torch.randn(256, 224, 224, 3, device="cuda", generator=gen)
+    size = spec.image_resolution
+    images = torch.randn(256, size, size, 3, device="cuda", generator=gen)
     texts = [t.format(c) for c in get_classnames("imagenet")[:13]
              for t in get_templates("imagenet")][:1024]
     tokens = torch.from_numpy(ClipTokenizer()(texts)).cuda()
@@ -112,8 +121,8 @@ def main(argv=None):
                 ("encode_image", lambda: model.encode_image(images), 256),
                 ("encode_text", lambda: model.encode_text(tokens), 1024)):
             ms = device_ms(fn, args.iters)
-            emit(phase=name, batch=n, ms=ms, items_per_s=n / ms * 1e3,
-                 **kernel_breakdown(fn))
+            emit(phase=name, config=cfg.NAME, opts=args.opts, batch=n, ms=ms,
+                 items_per_s=n / ms * 1e3, **kernel_breakdown(fn))
 
     cfg.merge_from_list(["DATASET.DATASET", "synthetic",
                          "DATASET.NUM_SAMPLES", 2048,

@@ -12,7 +12,11 @@ so a released ``.pth`` loads without transposes. What loading checks:
 
 ``params_from_jax`` carries a ``msclip_tpu`` ``init_params`` tree (as numpy
 arrays) across through the same key map: JAX linear weights are
-``[in, out]`` and convs HWIO, the port's ``[out, in]`` and OIHW.
+``[in, out]`` and convs HWIO, the port's ``[out, in]`` and OIHW. A tree
+that ``msclip_tpu.models.quantize.quantize_params_for_eval`` produced
+carries its int8 GEMM weights across too: JAX's ``qkv_w_int8`` /
+``qkv_w_scale`` (or ``w_int8`` / ``w_scale``, ``[in, out]``) become the
+port's ``<key>_int8`` (``[out, in]``) / ``<key>_scale``.
 """
 
 from __future__ import annotations
@@ -149,11 +153,22 @@ def _from_jax(arr, kind):
 
 
 def params_from_jax(tree, spec: MSClipSpec):
-    """A ``msclip_tpu.models.init_params`` tree (leaves as numpy arrays)
-    -> the port's parameter dict."""
+    """A ``msclip_tpu.models.init_params`` tree (leaves as numpy arrays),
+    int8-quantized for eval or not, -> the port's parameter dict."""
     stored, _ = build_key_map(spec)
-    return {k: _from_jax(_get_path(tree, path), kind)
-            for k, (path, kind) in stored.items()}
+    out = {}
+    for k, (path, kind) in stored.items():
+        *parent, leaf = path
+        node = _get_path(tree, parent)
+        if leaf in node or kind != LINEAR:
+            out[k] = _from_jax(node[leaf], kind)
+            continue
+        q = np.asarray(node[leaf + "_int8"])
+        if q.dtype != np.int8:
+            raise TypeError(f"{k}: the JAX int8 weight is {q.dtype}")
+        out[k + "_int8"] = torch.from_numpy(np.ascontiguousarray(q.T))
+        out[k + "_scale"] = _from_jax(node[leaf + "_scale"], SAME)
+    return out
 
 
 def load_state_dict(state_dict, spec: MSClipSpec, expected_shapes=None):

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 forward, K2 backward) against their plain
-versions, on the card.
+"""The port's CUDA kernels (K1 attention forward, K2 attention backward, K3
+and K4 the int8 quantizers) against their plain versions, on the card.
 
 JAX-free, so that it runs where JAX is absent:
 
@@ -13,6 +13,7 @@ import torch
 
 from msclip_torch.models.layers import build_causal_mask
 from msclip_torch.ops import attention as A
+from msclip_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -111,3 +112,81 @@ def test_attention_autograd_round_trip_on_the_card(cuda):
     assert launches == [(1, 1), (0, 0)]
     diff = (grads[0] - grads[1]).abs()
     assert (diff <= 2e-4 + 1e-4 * grads[1].abs()).all(), diff.max().item()
+
+
+# K3/K4: q within 1 of the plain version's where the LayerNorm sums in
+# another order; per row |s - s_plain| <= 1e-6 s_plain in fp32 and one bf16
+# ulp of the row's largest |h| (2^-7 relative) in bf16; q * s within one
+# quantization step of the plain dequant: the step of the larger scale
+# (each rounds h to its own grid, half a step either way), plus what the
+# two scales' difference moves the largest value, 127 |s - s_plain|
+S_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+TIES = (127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5)
+
+
+def _assert_quant_close(got, want, dtype):
+    (q, s), (qp, sp) = got, want
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == qp.shape and s.shape == sp.shape
+    assert (q.int() - qp.int()).abs().max().item() <= 1
+    assert ((s - sp).abs() <= S_RTOL[dtype] * sp).all()
+    # in fp64, where q s is exact: one step reads exactly one step
+    q, s, qp, sp = q.double(), s.double(), qp.double(), sp.double()
+    deq = (q * s[..., None] - qp * sp[..., None]).abs()
+    step = torch.maximum(s, sp) + 127 * (s - sp).abs()
+    assert (deq <= step[..., None]).all()
+
+
+def _ln_inputs(B, L, E, dtype, gen, cuda):
+    x = torch.randn(B, L, E, device=cuda, generator=gen).to(dtype)
+    w = 1 + 0.1 * torch.randn(E, device=cuda, generator=gen)
+    b = 0.1 * torch.randn(E, device=cuda, generator=gen)
+    return x, w.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E", [64, 768, 3072])
+@pytest.mark.parametrize("L", [1, 17, 96, 197, 256])
+def test_quant_kernels_match_plain(cuda, dtype, E, L):
+    gen = torch.Generator(device=cuda).manual_seed(L + E)
+    x, w, b = _ln_inputs(3, L, E, dtype, gen, cuda)
+    before = (Q.ln_quant.launches, Q.gelu_quant.launches)
+    got_ln, got_gelu = Q.ln_quant(x, w, b), Q.gelu_quant(x)
+    torch.cuda.synchronize()
+    assert (Q.ln_quant.launches, Q.gelu_quant.launches) == \
+        (before[0] + 1, before[1] + 1)
+    _assert_quant_close(got_ln, Q.ln_quant_plain(x, w, b), dtype)
+    _assert_quant_close(got_gelu, Q.gelu_quant_plain(x), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E", [64, 768, 3072])
+def test_quant_kernels_edge_rows(cuda, dtype, E):
+    """Constant rows give h = bias exactly: with the ties as bias, s = 1
+    and q rounds half to even; zero rows with a zero bias (K3) or zero
+    input (K4) give s = 1e-8 and q = 0."""
+    ties = torch.tensor(TIES, device=cuda).repeat(E // len(TIES) + 1)[:E]
+    x = torch.tensor([0.0, 1.0, -3.0, 0.5, 1024.0], device=cuda)[:, None]
+    x = x.expand(5, E).contiguous().to(dtype)
+    w = torch.linspace(-2, 2, E, device=cuda).to(dtype)
+    q, s = Q.ln_quant(x, w, ties.to(dtype))
+    want = torch.round(ties).to(torch.int8)
+    assert (q == want).all() and (s == 1.0).all()
+    assert want[:7].tolist() == [127, 0, 2, 2, 0, -2, -2]
+    q, s = Q.ln_quant(x, w, torch.zeros_like(w))
+    assert (q == 0).all() and (s == 1e-8).all()
+    q, s = Q.gelu_quant(torch.zeros(4, E, device=cuda, dtype=dtype))
+    assert (q == 0).all() and (s == torch.tensor(1e-8)).all()
+
+
+def test_quant_kernels_refuse_bad_inputs(cuda):
+    x = torch.randn(2, 8, 772, device=cuda)
+    w = torch.ones(772, device=cuda)
+    with pytest.raises(ValueError, match="E % 8"):
+        Q.ln_quant(x, w, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.gelu_quant(torch.randn(2, 8, 776, device=cuda)[..., 8:])
+    with pytest.raises(TypeError):
+        Q.gelu_quant(torch.randn(2, 8, 768, device=cuda).half())
+    with pytest.raises(ValueError, match="weight and bias"):
+        Q.ln_quant(torch.randn(2, 8, 768, device=cuda), w, w)

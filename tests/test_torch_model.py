@@ -200,7 +200,6 @@ def test_released_configs_build_with_the_reference_key_set(name):
     ("CUSTOM.EARLY_CONV_RES", False, "M10"),
     ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False, "M10"),
     ("MODEL.SPEC.POOL_TYPE", "linear", "M10"),
-    ("TPU.INT8_EVAL", True, "M9"),
     ("TPU.USE_FUSED_BLOCK", True, "K5"),
     ("TPU.ACCUM_STEPS", 2, "M6"),
     ("TPU.SHARDED_LOSS", True, "M7"),

@@ -1,0 +1,462 @@
+"""The port's int8 eval (``TPU.INT8_EVAL``) against the JAX package's, on the
+CPU: the plain versions of K3/K4 against the Pallas kernels in interpret
+mode, weight quantization, the int8 blocks, the towers, the resolved B/16
+config and the zero-shot CLI, on inputs made with numpy from a seed."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from msclip_tpu.models import build_model as jax_build_model
+from msclip_tpu.models import layers as JL
+from msclip_tpu.models.folding import fold_params_for_eval as jax_fold
+from msclip_tpu.models.quantize import _quantize_block as jax_quantize_block
+from msclip_tpu.models.quantize import (
+    quantize_linear_weight as jax_quantize_linear_weight,
+)
+from msclip_tpu.models.quantize import (
+    quantize_params_for_eval as jax_quantize_params,
+)
+from msclip_tpu.ops import quant as JQ
+from msclip_tpu.utils import export_torch_state_dict
+from msclip_torch.config import get_default_config, update_config
+from msclip_torch.models import layers as TL
+from msclip_torch.models import msclip as TM
+from msclip_torch.models.folding import fold_params_for_eval
+from msclip_torch.models.quantize import (
+    quantize_linear_weight,
+    quantize_params_for_eval,
+)
+from msclip_torch.ops import quant as Q
+from msclip_torch.utils.convert import params_from_jax
+
+from reference_oracle import tiny_msclips_config
+from torch_port_params import random_jax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+TIES = (127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5)
+BLOCK_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_quantize.py:137
+
+
+def _np(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _strict(fn, *args):
+    """``fn`` jitted without excess precision. XLA on the CPU otherwise
+    skips the bf16 rounding of a value that is converted to fp32 next (the
+    kernel's ``h``), which the TPU kernel and torch both do."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def _assert_quant_matches(got, want):
+    """Equal ``s`` at rtol 1e-6 and equal ``q``, but that where the
+    LayerNorm's sums run in another order (torch against XLA) a value of
+    ``h`` can move by one ulp and a ``q`` next to a tie by one: |dq| <= 1
+    on at most 0.1% of the elements."""
+    (q, s), (jq, js) = got, [np.asarray(a) for a in want]
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_allclose(s.numpy(), js, rtol=1e-6)
+    dq = np.abs(q.numpy().astype(np.int32) - jq.astype(np.int32))
+    assert dq.max() <= 1 and (dq > 0).mean() <= 1e-3, (dq.max(), dq.mean())
+
+
+def _ln_rows(rng, kind, E=256):
+    """``(x [3, 20, E], weight, bias)``: random rows, constant rows with
+    the ties as bias (h = bias exactly: s = 1, q half to even), or zero
+    rows with a zero bias (s = 1e-8, q = 0)."""
+    w = 1 + _np(rng, E, scale=0.1)
+    if kind == "random":
+        return _np(rng, 3, 20, E), w, _np(rng, E, scale=0.1)
+    consts = np.array([0.0, 1.0, -3.0, 0.5, 1024.0], np.float32)
+    x = np.broadcast_to(np.resize(consts, (3, 20, 1)), (3, 20, E)).copy()
+    if kind == "zeros":
+        return np.zeros_like(x), w, np.zeros(E, np.float32)
+    return x, w, np.resize(np.array(TIES, np.float32), E)
+
+
+def _gelu_rows(rng, kind, F=512):
+    """Random rows; rows whose GELU is exact (x >= 61: exp(-1.702 x)
+    underflows) with max 254, so s = 2 and the others sit on ties
+    (61 -> 30.5 -> 30, 63 -> 31.5 -> 32, ...); zero rows."""
+    if kind == "random":
+        return _np(rng, 3, 20, F, scale=2.0)
+    if kind == "zeros":
+        return np.zeros((3, 20, F), np.float32)
+    row = np.resize(np.array([254.0, 61.0, 63.0, 65.0, 67.0, 0.0, -61.0],
+                             np.float32), F)
+    return np.broadcast_to(row, (3, 20, F)).copy()
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_quant_plain_matches_jax_kernel(dtype, kind):
+    tdt, jdt = DTYPES[dtype]
+    x, w, b = _ln_rows(np.random.default_rng(0), kind)
+    got = Q.ln_quant(_t(x).to(tdt), _t(w), _t(b))
+    want = _strict(lambda x, w, b: JQ.ln_quant(
+        x, {"scale": w, "bias": b}, 1e-12, interpret=True),
+        jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(b))
+    _assert_quant_matches(got, want)
+    if kind == "ties":
+        ties = torch.round(_t(b)).to(torch.int8)
+        assert (got[0] == ties).all() and (got[1] == 1.0).all()
+        assert ties[:7].tolist() == [127, 0, 2, 2, 0, -2, -2]
+    if kind == "zeros":
+        assert (got[0] == 0).all() and (got[1] == torch.tensor(1e-8)).all()
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_quant_plain_matches_jax_kernel(dtype, kind):
+    tdt, jdt = DTYPES[dtype]
+    x = _gelu_rows(np.random.default_rng(1), kind)
+    got = Q.gelu_quant(_t(x).to(tdt))
+    want = _strict(lambda x: JQ.gelu_quant(x, interpret=True),
+                   jnp.asarray(x).astype(jdt))
+    _assert_quant_matches(got, want)
+    if kind == "ties":
+        assert got[0][0, 0, :7].tolist() == [127, 30, 32, 32, 34, 0, 0]
+        assert (got[1] == 2.0).all()
+    if kind == "zeros":
+        assert (got[0] == 0).all() and (got[1] == torch.tensor(1e-8)).all()
+
+
+def test_quantize_linear_weight_matches_jax():
+    """The port's ``[out, in]`` weight against JAX's ``[in, out]``."""
+    rng = np.random.default_rng(2)
+    w = _np(rng, 96, 64, scale=0.05)
+    w[3] = 0.0  # an all-zero output channel: scale 1e-8
+    q, s = quantize_linear_weight(_t(w))
+    jq, js = jax_quantize_linear_weight(jnp.asarray(w.T))
+    assert q.dtype == torch.int8 and q.shape == (96, 64)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq).T)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert s[3] == torch.tensor(1e-8) and (q[3] == 0).all()
+
+
+def _jax_block(rng, E):
+    return {
+        "attn": {"qkv_w": _np(rng, E, 3 * E, scale=0.05),
+                 "qkv_b": _np(rng, 3 * E, scale=0.1),
+                 "out_w": _np(rng, E, E, scale=0.05),
+                 "out_b": _np(rng, E, scale=0.1)},
+        "ln_1": {"scale": 1 + _np(rng, E, scale=0.1),
+                 "bias": _np(rng, E, scale=0.1)},
+        "ln_2": {"scale": 1 + _np(rng, E, scale=0.1),
+                 "bias": _np(rng, E, scale=0.1)},
+        "mlp": {"c_fc": {"w": _np(rng, E, 4 * E, scale=0.05),
+                         "b": _np(rng, 4 * E, scale=0.1)},
+                "c_proj": {"w": _np(rng, 4 * E, E, scale=0.05),
+                           "b": _np(rng, E, scale=0.1)}},
+    }
+
+
+def _port_block(qb):
+    """A JAX block quantized by ``_quantize_block`` under the port's local
+    names: the very same int8 tensors, transposed to ``[out, in]``."""
+    a, m = qb["attn"], qb["mlp"]
+
+    def i8(v):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(v).T))
+
+    p = {"ln_1.weight": _t(qb["ln_1"]["scale"]),
+         "ln_1.bias": _t(qb["ln_1"]["bias"]),
+         "ln_2.weight": _t(qb["ln_2"]["scale"]),
+         "ln_2.bias": _t(qb["ln_2"]["bias"]),
+         "attn.in_proj_bias": _t(a["qkv_b"]),
+         "attn.out_proj.bias": _t(a["out_b"]),
+         "mlp.c_fc.bias": _t(m["c_fc"]["b"]),
+         "mlp.c_proj.bias": _t(m["c_proj"]["b"])}
+    for key, (q, s) in {
+            "attn.in_proj_weight": (a["qkv_w_int8"], a["qkv_w_scale"]),
+            "attn.out_proj.weight": (a["out_w_int8"], a["out_w_scale"]),
+            "mlp.c_fc.weight": (m["c_fc"]["w_int8"], m["c_fc"]["w_scale"]),
+            "mlp.c_proj.weight": (m["c_proj"]["w_int8"],
+                                  m["c_proj"]["w_scale"])}.items():
+        p[f"{key}_int8"], p[f"{key}_scale"] = i8(q), _t(s)
+    return p
+
+
+@pytest.fixture(scope="module")
+def int8_block_pair():
+    rng = np.random.default_rng(3)
+    qb = jax.tree.map(np.asarray, jax_quantize_block(_jax_block(rng, 128)))
+    return qb, _port_block(qb), rng
+
+
+def test_int8_block_matches_jax_fused_block(int8_block_pair):
+    """The fused form against ``_int8_block`` with the Pallas kernels in
+    interpret mode, fp32, at the JAX package's tolerance."""
+    qb, tp, rng = int8_block_pair
+    x = _np(rng, 2, 100, 128, scale=0.5)
+    want = jax.jit(lambda x: JL._int8_block(
+        qb, x, 2, None, 1e-12, use_pallas=True, pallas_interpret=True))(
+        jnp.asarray(x))
+    got = TL.int8_block(tp, _t(x), 2, None, 1e-12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
+
+
+@pytest.mark.parametrize("L,causal,fused", [(77, True, False),
+                                            (95, False, False),
+                                            (96, False, True),
+                                            (197, False, True)])
+def test_transformer_block_on_int8_weights_matches_jax(
+        int8_block_pair, monkeypatch, L, causal, fused):
+    """Below ``INT8_MIN_SEQ`` = 96 every GEMM quantizes its input on the
+    fly and QuickGELU runs in the compute dtype, as JAX's
+    ``transformer_block`` with ``use_pallas=False``; from 96 on the block
+    takes the fused form, held against JAX's with the Pallas kernels in
+    interpret mode (JAX's gate is the same 96). The unfused form computes
+    QuickGELU as ``x * sigmoid(1.702 x)``, the fused one as
+    ``x / (1 + exp(-1.702 x))``: an ulp apart, which moves a quantized
+    value next to a tie by one step, beyond this tolerance."""
+    qb, tp, rng = int8_block_pair
+    fused_calls, real = [], TL.int8_block
+
+    def spy(*args):
+        fused_calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(TL, "int8_block", spy)
+    x = _np(rng, 2, L, 128, scale=0.5)
+    mask = JL.build_causal_mask(L) if causal else None
+    want = jax.jit(lambda x: JL.transformer_block(
+        qb, x, 2, mask, 1e-12, use_pallas=fused, pallas_interpret=True))(
+        jnp.asarray(x))
+    got = TL.transformer_block(
+        tp, _t(x), 2, TL.build_causal_mask(L) if causal else None, 1e-12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
+    assert bool(fused_calls) == fused
+
+
+
+def _tiny_b16_config():
+    """Tiny MS-CLIP-S with B/16's strides (stem, branch, adapters) at
+    160 px: a grid of 10, so the image tower runs at L = 101 >= 96 and
+    takes the fused form in the port; the text tower runs at 77."""
+    cfg = tiny_msclips_config(image_size=160)
+    cfg.merge_from_dict({"CUSTOM": {
+        "EARLY_CONV_RES_STRIDES": [2, 2, 2, 1],
+        "PARALLEL_STRIDES": [2, 2, 2, 2, 1],
+        "PRALLEL_T2B_KERNELS": [8, 4, 2, 1, 1],
+        "PRALLEL_T2B_STRIDES": [8, 4, 2, 1, 1]}})
+    return cfg
+
+
+def _inputs(image, vocab=512, batch=2):
+    rng = np.random.default_rng(42)
+    images = rng.standard_normal((batch, image, image, 3)).astype(np.float32)
+    tokens = np.zeros((batch, 77), dtype=np.int32)
+    for i in range(batch):
+        n = int(rng.integers(5, 20))
+        tokens[i, 0] = vocab - 2
+        tokens[i, 1:n] = rng.integers(1, vocab - 2, n - 1)
+        tokens[i, n] = vocab - 1
+    return images, tokens
+
+
+@pytest.fixture(scope="module")
+def tiny_int8():
+    """The tiny model quantized by the JAX package and folded there (the
+    eval order, fold then quantize, gives the same tensors: folding touches
+    no trunk block), and the same int8 tensors carried across to the port,
+    folded there."""
+    cfg = _tiny_b16_config()
+    jm = jax_build_model(cfg)
+    jp = random_jax_params(jm, seed=0)
+    jq = jax.jit(lambda p: jax_quantize_params(p, jm.spec))(jp)
+    spec = TM.spec_from_config(cfg)
+    assert spec.vision_seq_len == jm.spec.vision_seq_len == 101
+    tp = params_from_jax(jax.tree.map(np.asarray, jq), spec)
+    return (jm, jax.jit(lambda p: jax_fold(p, jm.spec))(jq), spec,
+            fold_params_for_eval(tp, spec))
+
+
+def _nudged(tree, path, scale):
+    """``tree`` with the leaf at ``path`` scaled by ``scale``."""
+    if not path:
+        return tree * scale
+    return {**tree, path[0]: _nudged(tree[path[0]], path[1:], scale)}
+
+
+def test_int8_towers_match_jax(tiny_int8, monkeypatch):
+    """Whole towers on the same int8 tensors. A quantized value next to a
+    tie moves by one step when its input moves by one ulp (the order of a
+    LayerNorm or attention sum, the stem's convs), and the blocks after it
+    carry that on: nudging JAX's own input by 2^-22 of itself moves its
+    int8 features by as much as the port differs from it (about 4e-3 on
+    unit-norm features here, against 1e-4 in fp32). So each tower is held
+    within 4x how far the larger of two nudges (+-2^-22: the images, or the
+    token embedding for the text tower) moves JAX's features, and every
+    trunk block is shown to run its GEMMs in int8: the fused form in the
+    image tower (L = 101), the unfused one in the text tower (L = 77). The
+    blocks themselves are held to 2e-5 above."""
+    jm, jq, spec, tp = tiny_int8
+    images, tokens = _inputs(160)
+    calls, fused, real_mm, real_block = [], [], TL._int_mm, TL.int8_block
+    monkeypatch.setattr(TL, "_int_mm", lambda *a: calls.append(1) or
+                        real_mm(*a))
+    monkeypatch.setattr(TL, "int8_block", lambda *a: fused.append(1) or
+                        real_block(*a))
+    n_vis = spec.effective_vision_layers - spec.first_block
+    for encode, port_encode, x, path in (
+            (jm.encode_image, TM.encode_image, images, None),
+            (jm.encode_text, TM.encode_text, tokens,
+             ("text", "token_embedding"))):
+        fn = jax.jit(encode)
+        want = np.asarray(fn(jq, jnp.asarray(x)))
+        noise = max(np.abs(np.asarray(
+            fn(jq, jnp.asarray(x * (1 + d))) if path is None else
+            fn(_nudged(jq, path, 1 + d), jnp.asarray(x))) - want).max()
+            for d in (2.0 ** -22, -2.0 ** -22))
+        calls.clear()
+        got = port_encode(tp, spec, torch.from_numpy(x)).numpy()
+        n_blocks = n_vis if path is None else spec.text_layers
+        assert len(calls) == 4 * n_blocks
+        np.testing.assert_allclose(got, want, atol=max(4 * noise, 1e-4))
+    assert len(fused) == n_vis
+
+
+def test_quantize_params_matches_jax_and_carries_across(tiny_int8):
+    """The port's quantization of the carried-across fp32 weights equals
+    JAX's int8 tree carried across: the same keys and the same tensors."""
+    jm, _, spec, _ = tiny_int8
+    jp = jax.tree.map(np.asarray, random_jax_params(jm, seed=0))
+    mine = quantize_params_for_eval(params_from_jax(jp, spec), spec)
+    theirs = params_from_jax(jax.tree.map(np.asarray, jax_quantize_params(
+        jp, jm.spec)), spec)
+    assert set(mine) == set(theirs)
+    n_int8 = sum(v.dtype == torch.int8 for v in mine.values())
+    # 4 GEMMs in each of the 11 trunk blocks and in text block 0, the one
+    # text block that shares nothing (N_LAYERS 1)
+    assert n_int8 == 4 * (spec.effective_vision_layers - 1 + 1)
+    for k in mine:
+        torch.testing.assert_close(mine[k], theirs[k], atol=0, rtol=0)
+
+
+def test_shared_text_block_resolves_the_trunk_int8_tensors(tiny_int8):
+    _, _, spec, tp = tiny_int8
+    blk = TM.resolve_text_block(tp, spec, 3)
+    vis = "visual.transformer.resblocks.3"
+    for name in ("mlp.c_fc.weight", "attn.in_proj_weight"):
+        for suffix in ("_int8", "_scale"):
+            assert blk[name + suffix] is tp[f"{vis}.{name}{suffix}"]
+        assert name not in blk
+    assert blk["ln_1.weight"] is tp["transformer.resblocks.3.ln_1.weight"]
+    own = TM.resolve_text_block(tp, spec, 0)
+    assert own["attn.in_proj_weight_int8"] is \
+        tp["transformer.resblocks.0.attn.in_proj_weight_int8"]
+    assert set(own) == set(blk)
+
+
+def test_cast_params_leaves_int8_weights_and_scales(tiny_int8):
+    _, _, _, tp = tiny_int8
+    cast = TM.cast_params(tp, torch.bfloat16)
+    for k, v in cast.items():
+        if k.endswith("_int8"):
+            want = torch.int8
+        elif k.endswith(("weight_scale", "running_mean", "running_var")):
+            want = torch.float32
+        else:
+            want = torch.bfloat16
+        assert v.dtype == want, k
+    assert cast["logit_scale"].dtype == torch.bfloat16
+
+
+def test_int8_with_fused_blocks_is_refused():
+    cfg = get_default_config()
+    update_config(cfg, os.path.join(REPO, "experiments", "model",
+                                    "b16-yfcc-msclips.yaml"),
+                  opts=["TPU.INT8_EVAL", True, "TPU.USE_FUSED_BLOCK", True])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        TM.spec_from_config(cfg)
+
+
+def test_resolved_b16_json_config_equals_yaml():
+    """The resolved JSON copy of the B/16 config (read without PyYAML)
+    merges to the same tree as the YAML with its BASE, and runs the image
+    tower at L = 197."""
+    a, b = get_default_config(), get_default_config()
+    update_config(a, os.path.join(REPO, "experiments", "model",
+                                  "b16-yfcc-msclips.yaml"))
+    update_config(b, os.path.join(REPO, "msclip_torch", "config",
+                                  "b16-yfcc-msclips.json"))
+    assert a.to_dict() == b.to_dict()
+    assert TM.spec_from_config(b).vision_seq_len == 197
+
+
+# MS-CLIP-S B/32's geometry cut to width 128 and 6 layers at 320 px: a grid
+# of 10, so the port's image tower takes the fused int8 form (L = 101)
+CLI_OPTS = [
+    "TRAIN.IMAGE_SIZE", "[320,320]", "TEST.IMAGE_SIZE", "[320,320]",
+    "TEST.BATCH_SIZE_PER_GPU", "4", "TEST.SUBSET_CLASSES", "10",
+    "MODEL.SPEC.VISION.WIDTH", "128", "MODEL.SPEC.VISION.LAYERS", "6",
+    "MODEL.SPEC.TEXT.WIDTH", "128", "MODEL.SPEC.TEXT.HEADS", "2",
+    "MODEL.SPEC.TEXT.LAYERS", "6", "MODEL.SPEC.EMBED_DIM", "32",
+    "WORKERS", "2", "TPU.INT8_EVAL", "True",
+]
+
+
+def test_int8_cli_matches_jax_cli_per_image(tmp_path):
+    """``--device cpu ... TPU.INT8_EVAL True``: the same per-image top-1 as
+    the JAX CLI on the same JPEG folder and the same exported weights."""
+    from PIL import Image
+
+    from msclip_tpu.config import get_default_config as jax_default_config
+    from msclip_tpu.config import update_config as jax_update_config
+
+    model_yaml = os.path.join(REPO, "experiments", "model",
+                              "b32-yfcc-msclips.yaml")
+    root = tmp_path / "val"
+    rng = np.random.default_rng(0)
+    for cls in ("n01440764", "n01443537"):
+        (root / cls).mkdir(parents=True)
+        for i in range(3):
+            arr = np.kron(rng.random((4, 5, 3)), np.ones((20, 20, 1)))
+            Image.fromarray((arr * 255).astype(np.uint8)).save(
+                root / cls / f"{cls}_{i}.JPEG")
+    cfg = jax_default_config()
+    jax_update_config(cfg, model_yaml, opts=CLI_OPTS)
+    jm = jax_build_model(cfg)
+    sd = export_torch_state_dict(random_jax_params(jm, seed=0), jm.spec)
+    ckpt = tmp_path / "model.pth"
+    torch.save({k: torch.tensor(np.array(v)) for k, v in sd.items()}, ckpt)
+    common = ["--ds", os.path.join(REPO, "experiments", "dataset",
+                                   "imagenet.yaml"),
+              "--model", model_yaml, "MODEL.PRETRAINED_MODEL", str(ckpt),
+              "DATASET.ROOT", str(tmp_path), "DATASET.TEST_SET", "val"]
+    common += CLI_OPTS
+    env = dict(os.environ, MSCLIP_PLATFORM="cpu")
+    cmds = ([sys.executable, "tools/zero_shot.py"] + common + [
+        "OUTPUT_DIR", str(tmp_path / "out"),
+        "TEST.SAVE_PRED", str(tmp_path / "jax.npz")],
+        [sys.executable, "-m", "msclip_torch.tools.zero_shot",
+         "--device", "cpu"] + common + [
+        "TEST.SAVE_PRED", str(tmp_path / "port.npz")])
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for cmd in cmds]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "RESULT imagenet accuracy=" in out
+    jax_res, port_res = (np.load(tmp_path / f"{n}.npz")
+                         for n in ("jax", "port"))
+    np.testing.assert_array_equal(port_res["label"], jax_res["label"])
+    np.testing.assert_array_equal(port_res["pred"], jax_res["pred"])
+    assert len(set(port_res["pred"].tolist())) > 1  # not a constant guess
