@@ -135,12 +135,12 @@ def build_kernels():
                 m = re.search(r"(attention_(?:fwd|bwd)_(?:bf16|f32)_kernel)"
                               r"ILi(\d+)ELi(\d+)E", lines[i - 2])
                 mq = re.search(r"((?:ln|gelu)_quant_kernel)I(f|13__nv_bfloat16)"
-                               r"Li(\d+)E(?:Lb([01])E)?", lines[i - 2])
+                               r"Li(\d+)E", lines[i - 2])
                 if m:
                     name = f"{m[1]}<{m[2]},{m[3]}>"
                 elif mq:
                     name = (f"{mq[1]}<{'f32' if mq[2] == 'f' else 'bf16'},"
-                            f"{mq[3]}{',exact_rsqrt' if mq[4] == '1' else ''}>")
+                            f"{mq[3]}>")
                 else:
                     name = lines[i - 2]
                 report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
@@ -446,9 +446,9 @@ def check_quant():
     shapes of the int8 slice (and an odd batch and one row), on edge rows
     that must match exactly, and with faults planted into a torch copy of
     the plain version read against the same check (the run fails unless
-    ``roundf`` and ``no_floor`` are caught); K3 also beside its other rsqrt
-    (``EXACT_RSQRT``). Times the kernels, the plain versions and, at the
-    headline bf16 shape, ``torch.compile`` of the plain version."""
+    ``roundf`` and ``no_floor`` are caught). Times the kernels, the plain
+    versions and, at the headline bf16 shape, ``torch.compile`` of the
+    plain version."""
     rows = {"ln_quant": [], "gelu_quant": []}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, W in QUANT_WIDTH.items():
@@ -485,11 +485,6 @@ def check_quant():
                                      s_k, device="cuda")).all())
                     edge_ok &= exact
                     reading["exact"] = exact
-                if name == "ln_quant":
-                    other = Q.launch_ln_quant(x, w, b, 1e-12,
-                                              not Q.EXACT_RSQRT)
-                    reading["other_rsqrt_q_mismatch_share"] = quant_reading(
-                        other, want, dtype)["q_mismatch_share"]
                 for f in faults:
                     bad = quant_plain_with_fault(name, x, w, b, f)
                     faults[f].append(quant_reading(bad, want, dtype))

@@ -28,9 +28,6 @@ from . import cuda_build
 SOURCE = "quant.cu"
 MAX_WIDTH = 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the LayerNorm kernel's rsqrt: rsqrtf, the one torch's rsqrt runs on the
-# card (False), or the correctly rounded 1 / sqrt (True)
-EXACT_RSQRT = False
 
 
 def div127(t: torch.Tensor) -> torch.Tensor:
@@ -72,7 +69,7 @@ def _lib():
     lib.msclip_ln_quant.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.msclip_ln_quant.restype = ctypes.c_int
     lib.msclip_gelu_quant.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -115,21 +112,6 @@ def _outputs(x):
             torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device))
 
 
-def launch_ln_quant(x, weight, bias, eps=1e-12, exact_rsqrt=EXACT_RSQRT):
-    """One launch of K3 on CUDA tensors (``weight`` and ``bias`` in
-    ``x.dtype``); not counted. :func:`ln_quant` is the wrapper."""
-    _check_cuda_input(x, weight, bias)
-    q, s = _outputs(x)
-    lib = _lib()
-    err = lib.msclip_ln_quant(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(),
-        s.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], eps,
-        _DTYPE_CODE[x.dtype], int(exact_rsqrt),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, err, "msclip_ln_quant")
-    return q, s
-
-
 def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              eps: float = 1e-12):
     """LayerNorm + per-token int8 quantization, fused: ``x [..., E]`` ->
@@ -138,10 +120,18 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``ln_quant.launches``."""
     if _device_type(x) == "cpu":
         return ln_quant_plain(x, weight, bias, eps)
-    out = launch_ln_quant(x, weight.to(x.dtype).contiguous(),
-                          bias.to(x.dtype).contiguous(), eps)
+    weight = weight.to(x.dtype).contiguous()
+    bias = bias.to(x.dtype).contiguous()
+    _check_cuda_input(x, weight, bias)
+    q, s = _outputs(x)
+    lib = _lib()
+    err = lib.msclip_ln_quant(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(),
+        s.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], eps,
+        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, err, "msclip_ln_quant")
     ln_quant.launches += 1
-    return out
+    return q, s
 
 
 ln_quant.launches = 0
