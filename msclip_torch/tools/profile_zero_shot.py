@@ -8,13 +8,14 @@ overrides, e.g. ``TPU.INT8_EVAL True``, are merged last), random weights
 from a seed, bf16, BN folded, it times on the device (CUDA events, after
 warm-up, inputs resident on the card):
 
-* ``encode_image`` of a batch of 256 images at 224 px;
+* ``encode_image`` of a batch of 256 images at the config's resolution;
 * ``encode_text`` of a chunk of 1024 prompts (the classifier build's unit);
 
 then traces one call of each with ``torch.profiler`` and prints the device
 time by kernel, the shares of the port's kernels (attention, and the int8
-quantizers), and the device's idle share of the traced window. Last, it runs ``run_zero_shot`` end to end on
-2048 synthetic images. Each result is one JSON line on stdout.
+quantizers), and the device's idle share of the traced window. Last, it
+runs ``run_zero_shot`` end to end on 2048 synthetic images. Each result is
+one JSON line on stdout.
 """
 
 from __future__ import annotations
