@@ -34,12 +34,25 @@ Phases, each printed on its own line and each fatal on failure:
    int8 image features from the bf16 ones;
 9. card against CPU, int8: full-width fp32 B/16 int8 features of 4
    images and 16 prompts, the card (kernels) against the CPU (plain
-   versions), same weights, beside how far fp32 rounding alone moves them.
+   versions), same weights, beside how far fp32 rounding alone moves them;
+10. fused slice: zero-shot eval of MS-CLIP-S ViT-B/32 with
+   ``TPU.USE_FUSED_BLOCK`` (every trunk and text block through the fused
+   attention half-block K5, the MLP half unfused) through ``run_zero_shot``,
+   with each kernel's launches counted over that run, then the fused
+   image features of one batch against the unfused ones, same weights;
+11. card against CPU, fused: full-width fp32 B/32 features of 8 images and
+   16 prompts with ``TPU.USE_FUSED_BLOCK``, the card (K5) against the CPU
+   (its plain version), same weights.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16,
 reads faults planted into a torch copy of the plain versions against the
-same check, and times both beside ``torch.compile`` of the plain version.
+same check, and times both beside ``torch.compile`` of the plain version;
+and it holds the fused half-blocks, attention (K5) and MLP (K6), against
+their plain versions in fp32 and bf16, reads faults planted into a torch
+copy of the plain versions against the same check, and times both beside
+the port's unfused half (with K1, and with SDPA in K1's place, for K5) and
+``torch.compile`` of the plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -62,6 +75,7 @@ import numpy as np
 import torch
 
 from msclip_torch.ops import attention as A
+from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import cuda_build
 from msclip_torch.ops import quant as Q
 
@@ -89,6 +103,23 @@ S_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
 QUANT_FAULTS = ("roundf", "no_floor", "fused_affine", "reciprocal")
 TIES = (127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5)
 L2_BYTES = 50 * 2 ** 20
+# K5/K6, elementwise |got - plain| <= atol + rtol max(|plain|, |plain - x|):
+# fp32 at the JAX package's block tolerance (tests/test_kernels.py:250);
+# bf16 with room for a few bf16 ulps (2^-7 relative at most each) of the
+# residual branch, plain - x, where kernel and plain, summing in another
+# order, round it to neighbours: where the branch cancels x, one ulp of the
+# branch is many ulps of the result
+HALF_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+# and in bf16 mean |got - plain| <= 2^-10 mean |plain - x|, a quarter of
+# bf16's unit roundoff of the branch: sums in another order move a few
+# elements by an ulp, a rounding point moved or dropped moves most of them.
+# In fp32 the planted rounding faults change nothing and the sums' order
+# alone sets the mean, so fp32 has no such limit
+HALF_MEAN_TOL = {torch.bfloat16: 2.0 ** -10}
+# the faults planted into a copy of the plain half-blocks
+HALF_FAULTS = {"attention_halfblock": ("bias_after_cast", "no_mask",
+                                       "weights_unrounded"),
+               "mlp_halfblock": ("bias_after_cast", "gelu_rounded_first")}
 
 
 def log(phase, **kw):
@@ -121,7 +152,7 @@ def device_and_packages():
 def build_kernels():
     """Every source at once, one nvcc each."""
     t0 = time.time()
-    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE)
+    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE)
     with cf.ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(cuda_build.build, sources))
     for source, path in zip(sources, paths):
@@ -136,11 +167,17 @@ def build_kernels():
                               r"ILi(\d+)ELi(\d+)E", lines[i - 2])
                 mq = re.search(r"((?:ln|gelu)_quant_kernel)I(f|13__nv_bfloat16)"
                                r"Li(\d+)E", lines[i - 2])
+                mh = re.search(r"((?:attention|mlp)_halfblock_kernel)"
+                               r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                               lines[i - 2])
                 if m:
                     name = f"{m[1]}<{m[2]},{m[3]}>"
                 elif mq:
                     name = (f"{mq[1]}<{'f32' if mq[2] == 'f' else 'bf16'},"
                             f"{mq[3]}>")
+                elif mh:
+                    name = (f"{mh[1]}<{'f32' if mh[2] == 'f' else 'bf16'}"
+                            f"{',' + mh[3] if mh[3] else ''}>")
                 else:
                     name = lines[i - 2]
                 report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
@@ -554,19 +591,226 @@ def compiled_ms(plain, xs, extra, n_inputs):
         return None
 
 
-def run_slice():
-    """Zero-shot MS-CLIP-S B/32 at full width through the port's entry
-    point, with the attention kernel's launches counted over the run."""
+HALF_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16, odd shapes
+    (256, 50, False), (1024, 77, True), (256, 197, False), (5, 77, True),
+    (1, 1, False)]
+
+
+def half_params(gen, dtype, E=BF.WIDTH):
+    """One block's tensors under the port's local names, drawn on the card:
+    LayerNorm affines near (1, 0), weights of std fan_in^-1/2, biases of std
+    0.1, all in ``dtype`` as the eval model holds them."""
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    p = {"ln_1.weight": 1 + r(E, scale=0.1), "ln_1.bias": r(E, scale=0.1),
+         "ln_2.weight": 1 + r(E, scale=0.1), "ln_2.bias": r(E, scale=0.1),
+         "attn.in_proj_weight": r(3 * E, E, scale=E ** -0.5),
+         "attn.in_proj_bias": r(3 * E, scale=0.1),
+         "attn.out_proj.weight": r(E, E, scale=E ** -0.5),
+         "attn.out_proj.bias": r(E, scale=0.1),
+         "mlp.c_fc.weight": r(4 * E, E, scale=E ** -0.5),
+         "mlp.c_fc.bias": r(4 * E, scale=0.1),
+         "mlp.c_proj.weight": r(E, 4 * E, scale=(4 * E) ** -0.5),
+         "mlp.c_proj.bias": r(E, scale=0.1)}
+    return {k: v.to(dtype) for k, v in p.items()}
+
+
+def half_reading(got, want, x, dtype):
+    """``(worst, mean, mean |err|)``: the worst ``|got - want| / (atol +
+    rtol max(|want|, |want - x|))``, in bf16 ``mean |got - want| / (2^-10
+    mean |want - x|)`` (0 in fp32), and the mean ``|got - want|``. The
+    check passes where both readings are at most 1."""
+    atol, rtol = HALF_TOL[dtype]
+    want = want.float()
+    err = (got.float() - want).abs()
+    branch = (want - x.float()).abs()
+    worst = (err / (atol + rtol * torch.maximum(want.abs(), branch))).max()
+    mean = 0.0
+    if dtype in HALF_MEAN_TOL:
+        mean = err.mean().item() / max(
+            HALF_MEAN_TOL[dtype] * branch.mean().item(), 1e-30)
+    return worst.item(), mean, err.mean().item()
+
+
+def half_with_fault(name, x, p, mask, fault):
+    """The plain K5 (``attention_halfblock``) or K6 (``mlp_halfblock``) with
+    one fault planted: ``bias_after_cast`` rounds each projection to the
+    compute dtype and adds its bias in that dtype (the unfused block's
+    ``linear``), ``no_mask`` ignores the mask, ``weights_unrounded`` keeps
+    the softmax weights fp32 for PV, ``gelu_rounded_first`` rounds c_fc's
+    output to the compute dtype before the QuickGELU."""
+    dt, E = x.dtype, x.shape[-1]
+
+    def proj(h, w, b):
+        y = h.float() @ w.to(dt).float().t()
+        if fault == "bias_after_cast":
+            return y.to(dt) + b.to(dt)
+        return (y + b.float()).to(dt)
+
+    if name == "mlp_halfblock":
+        h = BF.layer_norm(x, p["ln_2.weight"], p["ln_2.bias"])
+        mid = proj(h, p["mlp.c_fc.weight"], p["mlp.c_fc.bias"]).float() \
+            if fault == "bias_after_cast" else \
+            h.float() @ p["mlp.c_fc.weight"].to(dt).float().t() \
+            + p["mlp.c_fc.bias"].float()
+        if fault == "gelu_rounded_first":
+            mid = mid.to(dt).float()
+        mid = (mid * torch.sigmoid(1.702 * mid)).to(dt)
+        return x + proj(mid, p["mlp.c_proj.weight"], p["mlp.c_proj.bias"])
+    B, L, _ = x.shape
+    H = E // 64
+    h = BF.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
+    w, b = p["attn.in_proj_weight"], p["attn.in_proj_bias"]
+    q, k, v = (proj(h, w[i * E:(i + 1) * E], b[i * E:(i + 1) * E]).float()
+               .view(B, L, H, 64) for i in range(3))
+    s = torch.einsum("blhd,bmhd->bhlm", q, k) * 0.125
+    if mask is not None and fault != "no_mask":
+        s = s + mask
+    wts = torch.softmax(s, dim=-1)
+    if fault != "weights_unrounded":
+        wts = wts.to(dt).float()
+    ctx = torch.einsum("bhlm,bmhd->blhd", wts, v).reshape(B, L, E).to(dt)
+    return x + proj(ctx, p["attn.out_proj.weight"], p["attn.out_proj.bias"])
+
+
+def halfblock_bound(name, B, L, dtype, mask):
+    """``(ms, by)``: the least time for K5 or K6, the larger of its I/O (x
+    read and the output written once, the weights, LayerNorm and biases
+    once, the mask) over the memory rate and its products (K5: four
+    projections of ``2 L E^2`` a sample, and ``4 D`` flops per (query, key)
+    pair and head the mask leaves; K6: two of ``8 L E^2``) over the peak
+    rate of ``dtype``."""
+    E, item = BF.WIDTH, torch.finfo(dtype).bits // 8
+    if name == "attention_halfblock":
+        pairs = L * L if mask is None else int(torch.isfinite(mask).sum())
+        flops = 8 * B * L * E * E + 4 * B * (E // 64) * pairs * 64
+        nbytes = (2 * B * L * E + 4 * E * E + 2 * E) * item + 4 * E * 4 \
+            + (0 if mask is None else L * L * 4)
+    else:
+        flops = 16 * B * L * E * E
+        nbytes = (2 * B * L * E + 8 * E * E + 2 * E) * item + 5 * E * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def check_halfblocks():
+    """K5 and K6 against their plain versions in fp32 and bf16 at the shapes
+    of the fused slice (the image tower, a text chunk), B/16's and two odd
+    ones, with the faults of :func:`half_with_fault` read against the same
+    check, each as :func:`half_reading` gives it (the run fails unless every
+    fault that changes the output is caught). Times each
+    kernel, its plain version and the port's unfused half: for K5
+    ``layer_norm`` + ``linear`` + K1 + ``linear`` + residual, and the same
+    with SDPA in K1's place; for K6 the cuBLAS MLP half; at the image shape
+    in bf16 also ``torch.compile`` of the plain version."""
+    from msclip_torch.models import layers as TL
+
+    F = torch.nn.functional
+    rows = {"attention_halfblock": [], "mlp_halfblock": []}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    E, H = BF.WIDTH, BF.WIDTH // 64
+    for dtype in (torch.float32, torch.bfloat16):
+        p = half_params(gen, dtype)
+        item = torch.finfo(dtype).bits // 8
+        for B, L, causal in HALF_SHAPES:
+            mask = TL.build_causal_mask(L, device="cuda") if causal else None
+            n_inputs = max(1, math.ceil(2 * L2_BYTES / (B * L * E * item)))
+            xs = [torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
+                  for _ in range(n_inputs)]
+
+            def sdpa_half(x):
+                h = TL.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
+                qkv = TL.linear(h, p["attn.in_proj_weight"],
+                                p["attn.in_proj_bias"])
+                q, k, v = qkv.view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4)
+                o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+                return x + TL.linear(o.transpose(1, 2).reshape(B, L, E),
+                                     p["attn.out_proj.weight"],
+                                     p["attn.out_proj.bias"])
+
+            kinds = {
+                "attention_halfblock": (
+                    BF.fused_attention_halfblock,
+                    BF.attention_halfblock_plain, (p, H, mask),
+                    {"unfused_ms": lambda x: x + TL.attention(p, TL.layer_norm(
+                        x, p["ln_1.weight"], p["ln_1.bias"]), H, mask),
+                     "unfused_sdpa_ms": sdpa_half}),
+                "mlp_halfblock": (
+                    BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,),
+                    {"unfused_ms": lambda x: x + TL.mlp(p, TL.layer_norm(
+                        x, p["ln_2.weight"], p["ln_2.bias"]))})}
+            for name, (kernel, plain, extra, baselines) in kinds.items():
+                got = kernel(xs[0], *extra)
+                want = plain(xs[0], *extra)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                reading, mean_reading, mean_err = half_reading(
+                    got, want, xs[0], dtype)
+                tol = "atol {} rtol {}".format(*HALF_TOL[dtype])
+                if dtype in HALF_MEAN_TOL:
+                    tol += f", mean {HALF_MEAN_TOL[dtype]} mean |plain - x|"
+                if not (reading <= 1.0 and mean_reading <= 1.0
+                        and torch.isfinite(got.float()).all()):
+                    raise AssertionError(
+                        f"{name} kernel B={B} L={L} {dtype}: max |err| {err}, "
+                        f"{reading} and {mean_reading} of the limits {tol}")
+                faults = {f: half_reading(half_with_fault(
+                    name, xs[0], p, mask, f), want, xs[0], dtype)
+                    for f in HALF_FAULTS[name] if f != "no_mask" or causal}
+                missed = [f for f, (worst, mean, ferr) in faults.items()
+                          if ferr > 0 and worst <= 1.0 and mean <= 1.0]
+                if missed:
+                    raise AssertionError(f"{name} {dtype} B={B} L={L}: the "
+                                         f"check misses {missed}: {faults}")
+                row = {"B": B, "L": L, "causal": causal,
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "max_abs_err": err, "mean_abs_err": mean_err,
+                       "tolerance": tol, "limit_reading": reading,
+                       "mean_reading": mean_reading,
+                       "planted_faults": faults,
+                       "ms": cuda_ms(lambda i: kernel(xs[i], *extra),
+                                     n_inputs),
+                       "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
+                                           n_inputs, iters=10),
+                       "library_ms": None}
+                for key, fn in baselines.items():
+                    row[key] = cuda_ms(lambda i: fn(xs[i]), n_inputs)
+                if dtype == torch.bfloat16 and (B, L) == (256, 50):
+                    row["compile_ms"] = compiled_ms(plain, xs, extra, n_inputs)
+                row["bound_ms"], row["bound_by"] = halfblock_bound(
+                    name, B, L, dtype, mask)
+                log("kernel", name=name, **row,
+                    bound_us=row["bound_ms"] * 1e3)
+                rows[name].append(row)
+            del xs
+    return rows
+
+
+def b32_zero_shot_config(fused=False):
+    """Full-width B/32 zero-shot on 512 synthetic images, 100 classes, batch
+    256, bf16, seed 0; with ``fused``, ``TPU.USE_FUSED_BLOCK`` set as an
+    attribute (as ``bench.py`` does)."""
     from msclip_torch.config import get_default_config, update_config
-    from msclip_torch.eval.zero_shot import run_zero_shot
 
     cfg = get_default_config()
-    update_config(cfg, B32_CONFIG)
-    cfg.merge_from_list([
+    update_config(cfg, B32_CONFIG, opts=[
         "DATASET.DATASET", "synthetic", "DATASET.NUM_SAMPLES", 512,
         "TEST.BATCH_SIZE_PER_GPU", 256, "TEST.SUBSET_CLASSES", 100,
         "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEED", 0,
         "MODEL.PRETRAINED_MODEL", ""])
+    if fused:
+        cfg.TPU.USE_FUSED_BLOCK = True
+    return cfg
+
+
+def run_slice():
+    """Zero-shot MS-CLIP-S B/32 at full width through the port's entry
+    point, with the attention kernel's launches counted over the run."""
+    from msclip_torch.eval.zero_shot import run_zero_shot
+
+    cfg = b32_zero_shot_config()
     torch.cuda.reset_peak_memory_stats()
     A.fused_attention_qkv.launches = 0
     value, stats = run_zero_shot(cfg, device="cuda")
@@ -592,9 +836,11 @@ def run_slice():
     return launches
 
 
-def card_against_cpu(atol=1e-3):
+def card_against_cpu(atol=1e-3, fused=False):
     """Full-width fp32 features of 8 images and 16 prompts: the card with
-    its kernels against the CPU with the plain versions, same weights."""
+    its kernels against the CPU with the plain versions, same weights. With
+    ``fused``, under ``TPU.USE_FUSED_BLOCK``: the card's towers launch K5
+    once per block and K1 never."""
     from msclip_torch.config import get_default_config, update_config
     from msclip_torch.data import ClipTokenizer, get_classnames, get_templates
     from msclip_torch.data.datasets import SyntheticImageDataset
@@ -603,6 +849,8 @@ def card_against_cpu(atol=1e-3):
 
     cfg = get_default_config()
     update_config(cfg, B32_CONFIG, opts=["MODEL.PRETRAINED_MODEL", ""])
+    if fused:
+        cfg.TPU.USE_FUSED_BLOCK = True
     spec = build_spec(cfg)  # fp32: also turns TF32 off
     ds = SyntheticImageDataset(n=8, size=spec.image_resolution)
     images = torch.from_numpy(np.stack([ds[i][0] for i in range(8)]))
@@ -612,15 +860,23 @@ def card_against_cpu(atol=1e-3):
     feats = {}
     for dev in ("cuda", "cpu"):
         model = load_eval_model(cfg, spec, dev)
+        reset_launches()
         with torch.inference_mode():
             feats[dev] = (model.encode_image(images.to(dev)).cpu(),
                           model.encode_text(tokens.to(dev)).cpu())
+        if dev == "cuda":
+            launches = fused_launches()
     errs = [(a - b).abs().max().item()
             for a, b in zip(feats["cuda"], feats["cpu"])]
-    log("card_vs_cpu", dtype="float32", image_err=errs[0], text_err=errs[1],
-        atol=atol)
+    log("fused_card_vs_cpu" if fused else "card_vs_cpu", dtype="float32",
+        image_err=errs[0], text_err=errs[1], atol=atol,
+        card_launches_k1_k5_k6=json.dumps(launches))
     if not all(math.isfinite(e) and e <= atol for e in errs):
         raise AssertionError(f"card and CPU features differ: {errs} > {atol}")
+    blocks = spec.effective_vision_layers - 1 + spec.text_layers
+    if fused and launches != (0, blocks, 0):
+        raise AssertionError(f"the card's fused towers launched (K1, K5, K6) "
+                             f"{launches}, expected (0, {blocks}, 0)")
 
 
 def train_config(*opts):
@@ -784,11 +1040,20 @@ def b16_config(*opts):
 def reset_launches():
     A.fused_attention_qkv.launches = 0
     Q.ln_quant.launches = Q.gelu_quant.launches = 0
+    BF.fused_attention_halfblock.launches = 0
+    BF.fused_mlp_halfblock.launches = 0
 
 
 def read_launches():
     return (A.fused_attention_qkv.launches, Q.ln_quant.launches,
             Q.gelu_quant.launches)
+
+
+def fused_launches():
+    """Launches of K1, K5 and K6 since :func:`reset_launches`."""
+    return (A.fused_attention_qkv.launches,
+            BF.fused_attention_halfblock.launches,
+            BF.fused_mlp_halfblock.launches)
 
 
 def run_int8_slice(batch=256):
@@ -934,6 +1199,57 @@ def int8_card_against_cpu(atol=1e-3, noise_room=4.0):
                              f"{limits}")
 
 
+def run_fused_slice(batch=256):
+    """Zero-shot MS-CLIP-S B/32 with ``TPU.USE_FUSED_BLOCK`` through the
+    port's entry point, with K1, K5 and K6 counted over the run (K5 in every
+    trunk and text block; K1 never; K6 never, as in the JAX package's
+    ``fused_block``); then the fused image features of one batch against
+    the unfused ones, same weights."""
+    from msclip_torch.data.datasets import SyntheticImageDataset
+    from msclip_torch.eval.zero_shot import load_eval_model, run_zero_shot
+    from msclip_torch.models.msclip import build_spec
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    value, stats = run_zero_shot(b32_zero_shot_config(fused=True),
+                                 device="cuda")
+    torch.cuda.synchronize()
+    launches = fused_launches()
+    nb, nc = stats["n_image_batches"], stats["n_text_chunks"]
+    expected = (0, 11 * nb + 12 * nc, 0)
+    log("fused_slice", model="b32-yfcc-msclips", dtype="bfloat16",
+        top1=value, n_images=stats["n_images"],
+        images_per_s=stats["images_per_sec"],
+        classifier_s=stats["classifier_s"], image_batches=nb,
+        text_chunks=nc,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_k1_k5_k6=json.dumps(launches))
+    if stats["n_images"] != 512 or not 0.0 <= value <= 100.0:
+        raise AssertionError(f"fused zero-shot run gave {value} on "
+                             f"{stats['n_images']} images")
+    if launches != expected or launches[1] == 0:
+        raise AssertionError(f"fused slice launched (K1, K5, K6) {launches} "
+                             f"times, expected {expected} for {nb} image "
+                             f"batches and {nc} text chunks")
+
+    ds = SyntheticImageDataset(n=batch, size=224)
+    images = torch.from_numpy(np.stack([ds[i][0] for i in range(batch)]))
+    feats = {}
+    for fused in (True, False):
+        cfg = b32_zero_shot_config(fused)
+        model = load_eval_model(cfg, build_spec(cfg), "cuda")
+        with torch.inference_mode():
+            feats[fused] = model.encode_image(images.cuda()).float()
+    cos = (feats[True] * feats[False]).sum(-1) / (
+        feats[True].norm(dim=-1) * feats[False].norm(dim=-1))
+    log("fused_drift", batch=batch, min_cos=cos.min().item(),
+        mean_cos=cos.mean().item())
+    if not cos.min().item() > 0.999:
+        raise AssertionError(f"fused image features drift from the unfused "
+                             f"ones: least cosine {cos.min().item()}")
+    return launches[1]
+
+
 def headline(rows, **match):
     return next(r for r in rows if "ms" in r
                 and all(r[k] == v for k, v in match.items()))
@@ -955,8 +1271,9 @@ def kernel_line(rows, launches, name, replaces, head, shape, source=None):
         "shape": shape,
         "shapes": rows,
     }
-    if "compile_ms" in head:
-        line["compile_ms"] = head["compile_ms"]
+    for key in ("compile_ms", "unfused_ms", "unfused_sdpa_ms"):
+        if key in head:
+            line[key] = head[key]
     return line
 
 
@@ -968,13 +1285,17 @@ def main():
     attn_rows = check_attention()
     bwd_rows = check_attention_bwd()
     quant_rows = check_quant()
+    half_rows = check_halfblocks()
     launches = run_slice()
     card_against_cpu()
     train_launches = run_train_slice()
     train_card_against_cpu()
     int8_launches = run_int8_slice()
     int8_card_against_cpu()
+    k5_launches = run_fused_slice()
+    card_against_cpu(fused=True)
     quant = "msclip_torch/csrc/quant.cu"
+    fused_src = "msclip_torch/csrc/block_fused.cu"
     print(json.dumps({"kernels": [
         kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0],
                     "attention_fwd", "msclip_tpu/ops/attention.py:243",
@@ -991,7 +1312,17 @@ def main():
         kernel_line(quant_rows["gelu_quant"], int8_launches[2], "gelu_quant",
                     "msclip_tpu/ops/quant.py:124",
                     headline(quant_rows["gelu_quant"], dtype="bfloat16"),
-                    "B=256 L=197 F=3072 bfloat16", quant)]}))
+                    "B=256 L=197 F=3072 bfloat16", quant),
+        kernel_line(half_rows["attention_halfblock"], k5_launches,
+                    "attention_halfblock", "msclip_tpu/ops/block_fused.py:132",
+                    headline(half_rows["attention_halfblock"], B=256, L=50,
+                             dtype="bfloat16"),
+                    "B=256 L=50 E=768 H=12 bfloat16", fused_src),
+        kernel_line(half_rows["mlp_halfblock"], 0, "mlp_halfblock",
+                    "msclip_tpu/ops/block_fused.py:185",
+                    headline(half_rows["mlp_halfblock"], B=256, L=50,
+                             dtype="bfloat16"),
+                    "B=256 L=50 E=768 F=3072 bfloat16", fused_src)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,10 @@
 The ``TPU`` node keeps its name so that configs written for the JAX
 package parse unchanged; the port reads ``TPU.COMPUTE_DTYPE``,
 ``TPU.FOLD_BN``, ``TPU.SEED`` and, in zero-shot eval, ``TPU.INT8_EVAL``
-from it and rejects ``TPU.USE_FUSED_BLOCK`` until its kernel is ported.
+from it, and ``TPU.USE_FUSED_BLOCK`` (eval only; refused by the train
+step). Like the JAX package's tree this one has no default for that key;
+``TPU`` is an open node, so a command-line override or an attribute
+(``cfg.TPU.USE_FUSED_BLOCK = True``, as ``bench.py`` does) sets it.
 There is no ``TPU.USE_PALLAS``: a CUDA tensor always takes the port's
 kernels. The other keys mirror the reference MS-CLIP yacs defaults
 (``lib/config/default.py:14-192``) key for key, so the released YAML files

@@ -6,7 +6,9 @@ each tensor once: a text block that shares the visual trunk's attn/mlp
 (``CUSTOM.SHARE_MODULES``) has no keys of its own for them, and
 :func:`resolve_text_block` reads the trunk's. For int8 eval
 (``TPU.INT8_EVAL``, ``models/quantize.py``) each trunk GEMM weight is held
-as an int8 tensor and its fp32 scale instead. Activations are batch-first
+as an int8 tensor and its fp32 scale instead. With ``TPU.USE_FUSED_BLOCK``
+(eval only) every trunk and text block runs ``ops.block_fused.fused_block``
+(the fused attention half-block K5, then the MLP half unfused). Activations are batch-first
 ``[B, L, D]``; ``encode_image`` takes ``[B, H, W, 3]`` like the JAX
 function and runs the conv stem and branch in NCHW.
 
@@ -25,6 +27,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from ..ops.block_fused import fused_block
 from . import layers as L
 from . import stem as S
 
@@ -85,6 +88,7 @@ class MSClipSpec:
 
     compute_dtype: str = "float32"
     vision_drop_path: float = 0.0  # MODEL.SPEC.VISION.DROP_PATH
+    use_fused_block: bool = False  # TPU.USE_FUSED_BLOCK: eval through K5
 
     @property
     def dtype(self) -> torch.dtype:
@@ -226,14 +230,12 @@ def _reject_unported(config, custom: _KeyRecorder) -> None:
         _not_ported("t2b pooling (CUSTOM.PARALLEL_T2B_POOL_SIZE)", "M10")
     if config.MODEL.SPEC.get("POOL_TYPE", "default") == "linear":
         _not_ported("the conv1d pooling head (POOL_TYPE 'linear')", "M10")
-    if config.TPU.get("USE_FUSED_BLOCK", False):
-        if config.TPU.get("INT8_EVAL", False):
-            raise ValueError(
-                "TPU.INT8_EVAL and TPU.USE_FUSED_BLOCK are mutually exclusive "
-                "(the bf16 half-block megakernel reads full-precision "
-                "weights; msclip_tpu/models/quantize.py:71-75)")
-        _not_ported("fused half-blocks (TPU.USE_FUSED_BLOCK, kernel K5)",
-                    "K5")
+    if config.TPU.get("USE_FUSED_BLOCK", False) and \
+            config.TPU.get("INT8_EVAL", False):
+        raise ValueError(
+            "TPU.INT8_EVAL and TPU.USE_FUSED_BLOCK are mutually exclusive "
+            "(the bf16 half-block megakernel reads full-precision "
+            "weights; msclip_tpu/models/quantize.py:71-75)")
     # training features outside the one-card train step
     if int(config.TPU.get("ACCUM_STEPS", 1)) > 1:
         _not_ported("GradCache accumulation (TPU.ACCUM_STEPS > 1)", "M6")
@@ -301,6 +303,7 @@ def spec_from_config(config) -> MSClipSpec:
         share_bottom_layer=custom.get("SHARE_BOTTOM_LAYER", False),
         compute_dtype=dtype,
         vision_drop_path=vision.get("DROP_PATH", 0.0),
+        use_fused_block=bool(config.TPU.get("USE_FUSED_BLOCK", False)),
     )
     unread = (set(config.CUSTOM.keys()) - custom.seen
               - _CUSTOM_KEYS_CONSUMED_ELSEWHERE - _EXT_KNOBS)
@@ -407,6 +410,16 @@ def cast_params(params, dtype=torch.bfloat16):
 # Forward
 # ---------------------------------------------------------------------------
 
+def _block_fn(spec: MSClipSpec, dropping: bool = False):
+    """The trunk/text block (``_block_fn``): the fused block with
+    ``use_fused_block`` and no drop-path, else ``layers.transformer_block``."""
+    if spec.use_fused_block and not dropping:
+        return lambda p, x, n_head, mask, **kw: fused_block(
+            x, p, n_head, mask, spec.ln_eps)
+    return lambda p, x, n_head, mask, **kw: L.transformer_block(
+        p, x, n_head, mask, spec.ln_eps, **kw)
+
+
 def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
                  bn: S.BNState | None = None, generator=None):
     """``[B, H, W, 3]`` preprocessed images -> ``[B, embed_dim]``: stem ->
@@ -431,6 +444,8 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
     tokens = L.layer_norm(tokens, params["visual.ln_pre.weight"],
                           params["visual.ln_pre.bias"], spec.ln_eps)
 
+    block = _block_fn(spec, spec.vision_drop_path > 0.0
+                      and generator is not None)
     parallel_x = None
     for idx in range(spec.first_block, spec.effective_vision_layers):
         if spec.parallel and idx in spec.lateral_layers:
@@ -445,9 +460,9 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
                 parallel_x, tokens, (g, g),
                 spec.t2b_strides[li], spec.t2b_paddings[li],
                 use_cls=spec.t2b_use_cls, eps=spec.ln_eps, bn=bn)
-        tokens = L.transformer_block(
+        tokens = block(
             L.block_params(params, f"visual.transformer.resblocks.{idx}"),
-            tokens, spec.vision_heads, None, spec.ln_eps,
+            tokens, spec.vision_heads, None,
             drop_path_rate=spec.vision_drop_path, generator=generator)
 
     pooled = _pool(tokens, spec)
@@ -464,9 +479,10 @@ def encode_text(params, spec: MSClipSpec, tokens, *, normalize=True):
     x = params["token_embedding.weight"][tokens.long()].to(spec.dtype)
     x = x + params["positional_embedding"].to(spec.dtype)
     mask = L.build_causal_mask(spec.context_length, device=x.device)
+    block = _block_fn(spec)
     for i in range(spec.text_layers):
-        x = L.transformer_block(resolve_text_block(params, spec, i), x,
-                                spec.text_heads, mask, spec.ln_eps)
+        x = block(resolve_text_block(params, spec, i), x, spec.text_heads,
+                  mask)
     if spec.pool_type != "default":
         pooled = x.mean(dim=1)
     else:

@@ -4,18 +4,18 @@
         [--cfg msclip_torch/config/b16-yfcc-msclips.json] [KEY VALUE ...]
 
 At full width (B/32 unless ``--cfg`` names another config; the trailing
-overrides, e.g. ``TPU.INT8_EVAL True``, are merged last), random weights
-from a seed, bf16, BN folded, it times on the device (CUDA events, after
-warm-up, inputs resident on the card):
+overrides, e.g. ``TPU.INT8_EVAL True`` or ``TPU.USE_FUSED_BLOCK True``, are
+merged last), random weights from a seed, bf16, BN folded, it times on the
+device (CUDA events, after warm-up, inputs resident on the card):
 
 * ``encode_image`` of a batch of 256 images at the config's resolution;
 * ``encode_text`` of a chunk of 1024 prompts (the classifier build's unit);
 
 then traces one call of each with ``torch.profiler`` and prints the device
-time by kernel, the shares of the port's kernels (attention, and the int8
-quantizers), and the device's idle share of the traced window. Last, it
-runs ``run_zero_shot`` end to end on 2048 synthetic images. Each result is
-one JSON line on stdout.
+time by kernel, the shares of the port's kernels (attention, the int8
+quantizers, the fused half-blocks), and the device's idle share of the
+traced window. Last, it runs ``run_zero_shot`` end to end on 2048
+synthetic images. Each result is one JSON line on stdout.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ def device_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def kernel_breakdown(fn, names=("attention_fwd", "ln_quant", "gelu_quant")):
+def kernel_breakdown(fn, names=("attention_fwd", "ln_quant", "gelu_quant",
+                                "attention_halfblock", "mlp_halfblock")):
     """Device time per kernel over one traced call, the time and share of
     the kernels whose names contain each of ``names``, and the idle share
     of the traced window (1 - summed kernel time / window)."""

@@ -37,6 +37,9 @@ def train(config, device="cuda"):
     only, else None)."""
     device = resolve_device(device)
     spec = build_spec(config)
+    step_fn = make_train_step(  # refuses an eval-only spec before any work
+        spec, clip_grad_norm=config.TRAIN.CLIP_GRAD_NORM,
+        label_smoothing=config.LOSS.LABEL_SMOOTHING)
     dataset = make_train_dataset(config)
     if config.DATASET.SAMPLER not in ("default", ""):
         raise NotImplementedError(
@@ -49,9 +52,6 @@ def train(config, device="cuda"):
     steps_per_epoch = max(len(dataset) // batch, 1)
     params = init_params(spec, torch.Generator().manual_seed(config.TPU.SEED))
     state = init_train_state(config, spec, params, steps_per_epoch, device)
-    step_fn = make_train_step(
-        spec, clip_grad_norm=config.TRAIN.CLIP_GRAD_NORM,
-        label_smoothing=config.LOSS.LABEL_SMOOTHING)
     logging.info(f"=> training on {device}: {steps_per_epoch} steps/epoch x "
                  f"{config.TRAIN.END_EPOCH} epochs, batch {batch}")
     if device.type == "cuda":

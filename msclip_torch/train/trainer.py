@@ -9,7 +9,9 @@ updated when ``TRAIN.EMA_DECAY > 0``. Parameters stay fp32 and are cast to
 the compute dtype at use.
 
 ``TPU.ACCUM_STEPS > 1`` (GradCache), the sharded/ring losses and the
-multi-card meshes wait for later slices (ROADMAP M6, M7).
+multi-card meshes wait for later slices (ROADMAP M6, M7). A spec with
+``TPU.USE_FUSED_BLOCK`` is refused: the fused half-block kernels are
+inference-only and have no backward.
 """
 
 from __future__ import annotations
@@ -30,7 +32,14 @@ MAX_LOGIT_SCALE = 4.6052
 def make_encode_fn(spec: MM.MSClipSpec):
     """``encode(params, images, tokens, generator) -> (fi, ft, bn_updates)``
     with BatchNorm in training mode. ``generator`` drives DropPath in the
-    image tower (when ``spec.vision_drop_path > 0``)."""
+    image tower (when ``spec.vision_drop_path > 0``). Raises ValueError for
+    a spec with ``use_fused_block``: K5 has no backward (the JAX package's
+    ``fused_attention_halfblock`` has no VJP either)."""
+    if spec.use_fused_block:
+        raise ValueError(
+            "TPU.USE_FUSED_BLOCK is for eval only: the fused half-block "
+            "kernels (K5, K6) have no backward, so the train step cannot "
+            "run with it")
 
     def encode(params, images, tokens, generator=None):
         bn = BNState(training=True)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 attention forward, K2 attention backward, K3
-and K4 the int8 quantizers) against their plain versions, on the card.
+and K4 the int8 quantizers, K5 and K6 the fused half-blocks) against their
+plain versions, on the card.
 
 JAX-free, so that it runs where JAX is absent:
 
@@ -13,6 +14,7 @@ import torch
 
 from msclip_torch.models.layers import build_causal_mask
 from msclip_torch.ops import attention as A
+from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
@@ -190,3 +192,91 @@ def test_quant_kernels_refuse_bad_inputs(cuda):
         Q.gelu_quant(torch.randn(2, 8, 768, device=cuda).half())
     with pytest.raises(ValueError, match="weight and bias"):
         Q.ln_quant(torch.randn(2, 8, 768, device=cuda), w, w)
+
+
+# K5/K6, elementwise |got - plain| <= atol + rtol max(|plain|, |plain - x|):
+# fp32 at the JAX package's block tolerance (tests/test_kernels.py); bf16
+# with room for a few bf16 ulps (2^-7 relative at most each) of the
+# residual branch, plain - x, where the kernel and the plain version,
+# summing in another order, round it to neighbours (where the branch
+# cancels x, one ulp of the branch is many ulps of the result)
+HALF_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+
+
+def _block(E, gen, cuda):
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=cuda, generator=gen)
+
+    return {"ln_1.weight": 1 + r(E, scale=0.1), "ln_1.bias": r(E, scale=0.1),
+            "ln_2.weight": 1 + r(E, scale=0.1), "ln_2.bias": r(E, scale=0.1),
+            "attn.in_proj_weight": r(3 * E, E, scale=E ** -0.5),
+            "attn.in_proj_bias": r(3 * E, scale=0.1),
+            "attn.out_proj.weight": r(E, E, scale=E ** -0.5),
+            "attn.out_proj.bias": r(E, scale=0.1),
+            "mlp.c_fc.weight": r(4 * E, E, scale=E ** -0.5),
+            "mlp.c_fc.bias": r(4 * E, scale=0.1),
+            "mlp.c_proj.weight": r(E, 4 * E, scale=(4 * E) ** -0.5),
+            "mlp.c_proj.bias": r(E, scale=0.1)}
+
+
+def _assert_half_close(got, want, x, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    atol, rtol = HALF_TOL[dtype]
+    want = want.float()
+    scale = torch.maximum(want.abs(), (want - x.float()).abs())
+    diff = (got.float() - want).abs()
+    assert (diff <= atol + rtol * scale).all(), diff.max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [1, 17, 50, 64, 65, 77, 80, 81, 128, 129, 197,
+                               208, 209, 256])
+def test_attention_halfblock_kernel_matches_plain(cuda, dtype, causal, L):
+    """K5 at every padding bucket of its attention and every split of its
+    GEMM rows (passes of 64, 80 and 128), odd batch."""
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(3, L, 768, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda) if causal else None
+    before = BF.fused_attention_halfblock.launches
+    got = BF.fused_attention_halfblock(x, p, 12, mask)
+    torch.cuda.synchronize()
+    assert BF.fused_attention_halfblock.launches == before + 1
+    _assert_half_close(got, BF.attention_halfblock_plain(x, p, 12, mask), x,
+                       dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(1, 1), (3, 17), (5, 50), (3, 77), (2, 197)])
+def test_mlp_halfblock_kernel_matches_plain(cuda, dtype, B, L):
+    """K6 over token counts that fill and leave ragged its 32-row tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(B * L)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    before = BF.fused_mlp_halfblock.launches
+    got = BF.fused_mlp_halfblock(x, p)
+    torch.cuda.synchronize()
+    assert BF.fused_mlp_halfblock.launches == before + 1
+    _assert_half_close(got, BF.mlp_halfblock_plain(x, p), x, dtype)
+
+
+def test_halfblock_kernels_refuse_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = _block(768, gen, cuda)
+    x = torch.randn(2, 50, 768, device=cuda, generator=gen)
+    with pytest.raises(ValueError, match="x \\[B, L, 768\\]"):
+        BF.fused_attention_halfblock(torch.randn(2, 50, 512, device=cuda),
+                                     _block(512, gen, cuda), 8)
+    with pytest.raises(ValueError, match="heads of width 64"):
+        BF.fused_attention_halfblock(x, p, 8)  # D = 96
+    with pytest.raises(ValueError, match="L <= 256"):
+        BF.fused_attention_halfblock(torch.randn(1, 257, 768, device=cuda),
+                                     p, 12)
+    with pytest.raises(TypeError):
+        BF.fused_mlp_halfblock(x.half(), p)
+    with pytest.raises(ValueError, match="mask"):
+        BF.fused_attention_halfblock(x, p, 12, build_causal_mask(50))
+    with pytest.raises(ValueError, match="contiguous"):
+        BF.fused_mlp_halfblock(x.transpose(0, 1), p)

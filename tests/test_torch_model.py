@@ -200,7 +200,6 @@ def test_released_configs_build_with_the_reference_key_set(name):
     ("CUSTOM.EARLY_CONV_RES", False, "M10"),
     ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False, "M10"),
     ("MODEL.SPEC.POOL_TYPE", "linear", "M10"),
-    ("TPU.USE_FUSED_BLOCK", True, "K5"),
     ("TPU.ACCUM_STEPS", 2, "M6"),
     ("TPU.SHARDED_LOSS", True, "M7"),
     ("TPU.RING_LOSS", True, "M7"),
@@ -222,6 +221,39 @@ def test_unported_features_are_rejected(key, value, item):
     node[leaf] = value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TM.spec_from_config(cfg)
+
+
+@pytest.mark.parametrize("how", ["attribute", "override", "unset"])
+def test_fused_block_switch_is_read_for_eval(how):
+    """``TPU.USE_FUSED_BLOCK`` has no default in either package's tree; set
+    as an attribute (``bench.py``) or as an override of the open ``TPU``
+    node, it turns the spec's ``use_fused_block`` on, as in the JAX
+    package."""
+    path = os.path.join(REPO, "experiments", "model", "b32-yfcc-msclips.yaml")
+    cfg, jcfg = get_default_config(), jax_default_config()
+    opts = ["TPU.USE_FUSED_BLOCK", "True"] if how == "override" else []
+    update_config(cfg, path, opts=opts)
+    jax_update_config(jcfg, path, opts=opts)
+    if how == "attribute":
+        cfg.TPU.USE_FUSED_BLOCK = jcfg.TPU.USE_FUSED_BLOCK = True
+    assert TM.spec_from_config(cfg).use_fused_block == \
+        jax_build_model(jcfg).spec.use_fused_block == (how != "unset")
+
+
+@pytest.mark.parametrize("entry", ["make_train_step", "train"])
+def test_train_step_refuses_fused_blocks(entry):
+    """K5 has no backward: the train step refuses the switch before any
+    step (the JAX train step fails inside its backward instead)."""
+    from msclip_torch.tools.train import train
+    from msclip_torch.train.trainer import make_train_step
+
+    cfg = tiny_msclips_config(layers=4)
+    cfg.TPU.USE_FUSED_BLOCK = True
+    with pytest.raises(ValueError, match="USE_FUSED_BLOCK is for eval only"):
+        if entry == "train":
+            train(cfg, device="cpu")
+        else:
+            make_train_step(TM.spec_from_config(cfg))
 
 
 def test_spec_reads_the_drop_path_rate():
