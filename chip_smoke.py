@@ -42,7 +42,15 @@ Phases, each printed on its own line and each fatal on failure:
    image features of one batch against the unfused ones, same weights;
 11. card against CPU, fused: full-width fp32 B/32 features of 8 images and
    16 prompts with ``TPU.USE_FUSED_BLOCK``, the card (K5) against the CPU
-   (its plain version), same weights.
+   (its plain version), same weights;
+12. half-block tuning: the tuning kernels E1 (the attention half-block's
+   variants, ``ops.halfblock_tuning.attention_halfblock_variant``) and E2
+   (the core + out-projection of the hybrid, ``core_out_halfblock``)
+   against their plain versions in fp32 and bf16 with planted faults, timed
+   beside their plain versions, K5, the unfused half with K1 and, for E2,
+   K1 or SDPA with the out-projection in torch; then the tool's full-width
+   sweep, ``msclip_torch.tools.halfblock_tuning.main``, with each row's
+   launches counted.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16,
@@ -77,6 +85,7 @@ import torch
 from msclip_torch.ops import attention as A
 from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import cuda_build
+from msclip_torch.ops import halfblock_tuning as HT
 from msclip_torch.ops import quant as Q
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -152,7 +161,7 @@ def device_and_packages():
 def build_kernels():
     """Every source at once, one nvcc each."""
     t0 = time.time()
-    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE)
+    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE, HT.SOURCE)
     with cf.ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(cuda_build.build, sources))
     for source, path in zip(sources, paths):
@@ -167,8 +176,9 @@ def build_kernels():
                               r"ILi(\d+)ELi(\d+)E", lines[i - 2])
                 mq = re.search(r"((?:ln|gelu)_quant_kernel)I(f|13__nv_bfloat16)"
                                r"Li(\d+)E", lines[i - 2])
-                mh = re.search(r"((?:attention|mlp)_halfblock_kernel)"
-                               r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                mh = re.search(r"((?:attention|mlp)_halfblock_kernel|"
+                               r"attn_half_variant_kernel|core_out_kernel)"
+                               r"I(f|13__nv_bfloat16)((?:Li\d+E)*)",
                                lines[i - 2])
                 if m:
                     name = f"{m[1]}<{m[2]},{m[3]}>"
@@ -176,8 +186,9 @@ def build_kernels():
                     name = (f"{mq[1]}<{'f32' if mq[2] == 'f' else 'bf16'},"
                             f"{mq[3]}>")
                 elif mh:
-                    name = (f"{mh[1]}<{'f32' if mh[2] == 'f' else 'bf16'}"
-                            f"{',' + mh[3] if mh[3] else ''}>")
+                    ints = "".join("," + n
+                                   for n in re.findall(r"Li(\d+)E", mh[3]))
+                    name = f"{mh[1]}<{'f32' if mh[2] == 'f' else 'bf16'}{ints}>"
                 else:
                     name = lines[i - 2]
                 report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
@@ -1042,6 +1053,8 @@ def reset_launches():
     Q.ln_quant.launches = Q.gelu_quant.launches = 0
     BF.fused_attention_halfblock.launches = 0
     BF.fused_mlp_halfblock.launches = 0
+    HT.attention_halfblock_variant.launches = 0
+    HT.core_out_halfblock.launches = 0
 
 
 def read_launches():
@@ -1250,6 +1263,199 @@ def run_fused_slice(batch=256):
     return launches[1]
 
 
+TUNING_SHAPES = [(256, 50), (256, 197), (5, 77), (1, 1)]  # (B, L)
+# E1's four kernels; v0 and v3 are v2's function and launch v2's kernel
+TUNING_VARIANTS = ("v2", "v1", "v2c", "v2a")
+# E1's faults, each the plain version of another variant read against the
+# variant's own: v1's rounding (the qkv GEMM rounded before its bias) in v2
+# and v2's in v1 must be caught in bf16; v2c's reciprocal softmax read
+# against v2 is recorded, and expected within the limits
+VARIANT_FAULTS = {"v2": {"v1_rounding": "v1", "v2c_softmax": "v2c"},
+                  "v1": {"v2_rounding": "v2"}}
+CAUGHT_VARIANT_FAULTS = ("v1_rounding", "v2_rounding")
+CORE_OUT_FAULTS = ("weights_unrounded", "bias_after_cast")
+
+
+def core_out_with_fault(x, qkv, p, fault):
+    """The plain E2 with one fault planted: ``weights_unrounded`` keeps the
+    softmax weights fp32 for PV, ``bias_after_cast`` rounds the
+    out-projection to the compute dtype before adding its bias in it."""
+    dt, (B, L, E) = x.dtype, x.shape
+    q, k, v = qkv.float().view(B, L, 3, E // 64, 64).unbind(2)
+    w = torch.softmax(torch.einsum("blhd,bmhd->bhlm", q, k) * 0.125, dim=-1)
+    if fault != "weights_unrounded":
+        w = w.to(dt).float()
+    ctx = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(B, L, E).to(dt)
+    y = ctx.float() @ p["attn.out_proj.weight"].to(dt).float().t()
+    if fault == "bias_after_cast":
+        return x + (y.to(dt) + p["attn.out_proj.bias"].to(dt))
+    return x + (y + p["attn.out_proj.bias"].float()).to(dt)
+
+
+def tuning_bound(kind, B, L, dtype):
+    """``(ms, by)`` for E1 (``kind`` "variant", as K5 without a mask; "v2a"
+    without the attention's products) or E2 (``kind`` "core_out": x, the
+    ``3E``-wide qkv and the output once, the out-projection's weight and
+    bias once; ``2 L E^2`` flops a sample and ``4 D`` per (query, key) pair
+    and head)."""
+    E, item = BF.WIDTH, torch.finfo(dtype).bits // 8
+    if kind != "core_out":
+        ms, by = halfblock_bound("attention_halfblock", B, L, dtype, None)
+        if kind != "v2a":
+            return ms, by
+        flops = 8 * B * L * E * E
+        nbytes = (2 * B * L * E + 4 * E * E + 2 * E) * item + 4 * E * 4
+    else:
+        flops = 2 * B * L * E * E + 4 * B * (E // 64) * L * L * 64
+        nbytes = (5 * B * L * E + E * E) * item + E * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def tuning_check(name, got, want, x, dtype, faults, caught, label):
+    """One kernel's reading against its plain version, and its faults'
+    (``{fault: plain output with it}``); raises where the kernel reads
+    above a limit, or where in bf16 a fault of ``caught`` that changes the
+    output reads within both."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    reading, mean_reading, mean_err = half_reading(got, want, x, dtype)
+    tol = "atol {} rtol {}".format(*HALF_TOL[dtype])
+    if dtype in HALF_MEAN_TOL:
+        tol += f", mean {HALF_MEAN_TOL[dtype]} mean |plain - x|"
+    if not (reading <= 1.0 and mean_reading <= 1.0
+            and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name} kernel {label} {dtype}: max |err| {err}, "
+                             f"{reading} and {mean_reading} of the limits {tol}")
+    readings = {f: half_reading(bad, want, x, dtype) for f, bad in faults.items()}
+    missed = [f for f, (worst, mean, ferr) in readings.items()
+              if f in caught and dtype in HALF_MEAN_TOL and ferr > 0
+              and worst <= 1.0 and mean <= 1.0]
+    if missed:
+        raise AssertionError(f"{name} {dtype} {label}: the check misses "
+                             f"{missed}: {readings}")
+    return {"max_abs_err": err, "mean_abs_err": mean_err, "tolerance": tol,
+            "limit_reading": reading, "mean_reading": mean_reading,
+            "planted_faults": readings}
+
+
+def check_tuning():
+    """E1 (each numeric variant at its default batch tile) and E2 against
+    their plain versions in fp32 and bf16 at ``TUNING_SHAPES``, with the
+    faults of ``VARIANT_FAULTS`` and :func:`core_out_with_fault` read
+    against the same check. E2's qkv is the hybrid's own (LayerNorm and
+    the library GEMM of ``hybrid_b``). Times each kernel, its plain version,
+    K5, the unfused half with K1, the whole hybrid and, for E2, K1 or SDPA
+    on the same qkv with the out-projection, bias and residual in torch."""
+    from msclip_torch.models import layers as TL
+
+    F = torch.nn.functional
+    rows = {"attention_halfblock_variants": [], "core_out_halfblock": []}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    E, H = BF.WIDTH, BF.WIDTH // 64
+    for dtype in (torch.float32, torch.bfloat16):
+        p = half_params(gen, dtype)
+        item = torch.finfo(dtype).bits // 8
+        for B, L in TUNING_SHAPES:
+            label = f"B={B} L={L}"
+            # inputs cycled past the L2; a timing touches at most 33
+            n_inputs = min(33, max(1, math.ceil(2 * L2_BYTES
+                                                / (B * L * 4 * E * item))))
+            xs = [torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
+                  for _ in range(n_inputs)]
+            qkvs = [(TL.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
+                     @ p["attn.in_proj_weight"].t() + p["attn.in_proj_bias"])
+                    .contiguous() for x in xs]
+            x, qkv = xs[0], qkvs[0]
+            base = {
+                "k5_ms": cuda_ms(lambda i: BF.fused_attention_halfblock(
+                    xs[i], p, H), n_inputs),
+                "unfused_ms": cuda_ms(lambda i: xs[i] + TL.attention(
+                    p, TL.layer_norm(xs[i], p["ln_1.weight"],
+                                     p["ln_1.bias"]), H), n_inputs)}
+            plain = {v: HT.attention_halfblock_variant_plain(x, p, v)
+                     for v in ("v2", "v1", "v2c", "v2a")}
+            for variant in TUNING_VARIANTS:
+                got = HT.attention_halfblock_variant(x, p, variant)
+                row = tuning_check(
+                    "attention_halfblock_variants", got, plain[variant], x,
+                    dtype, {f: plain[v] for f, v in
+                            VARIANT_FAULTS.get(variant, {}).items()},
+                    CAUGHT_VARIANT_FAULTS, f"{variant} {label}")
+                row = {"variant": variant, "B": B, "L": L,
+                       "tb": HT.default_tb(B, L),
+                       "dtype": str(dtype).replace("torch.", ""), **row,
+                       "ms": cuda_ms(lambda i: HT.attention_halfblock_variant(
+                           xs[i], p, variant), n_inputs),
+                       "plain_ms": cuda_ms(
+                           lambda i: HT.attention_halfblock_variant_plain(
+                               xs[i], p, variant), n_inputs, iters=10),
+                       "library_ms": None, **base}
+                row["bound_ms"], row["bound_by"] = tuning_bound(
+                    "v2a" if variant == "v2a" else "variant", B, L, dtype)
+                log("kernel", name="attention_halfblock_variants", **row,
+                    bound_us=row["bound_ms"] * 1e3)
+                rows["attention_halfblock_variants"].append(row)
+
+            got = HT.core_out_halfblock(x, qkv, p)
+            row = tuning_check(
+                "core_out_halfblock", got, HT.core_out_plain(x, qkv, p), x,
+                dtype, {f: core_out_with_fault(x, qkv, p, f)
+                        for f in CORE_OUT_FAULTS}, CORE_OUT_FAULTS, label)
+
+            def sdpa_out(i):
+                q, k, v = qkvs[i].view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4)
+                o = F.scaled_dot_product_attention(q, k, v)
+                return xs[i] + TL.linear(o.transpose(1, 2).reshape(B, L, E),
+                                         p["attn.out_proj.weight"],
+                                         p["attn.out_proj.bias"])
+
+            row = {"B": B, "L": L, "tb": HT.default_tb(B, L),
+                   "dtype": str(dtype).replace("torch.", ""), **row,
+                   "ms": cuda_ms(lambda i: HT.core_out_halfblock(
+                       xs[i], qkvs[i], p), n_inputs),
+                   "plain_ms": cuda_ms(lambda i: HT.core_out_plain(
+                       xs[i], qkvs[i], p), n_inputs, iters=10),
+                   "library_ms": None,
+                   "k1_matmul_ms": cuda_ms(lambda i: xs[i] + TL.linear(
+                       A.fused_attention_qkv(qkvs[i], H),
+                       p["attn.out_proj.weight"], p["attn.out_proj.bias"]),
+                       n_inputs),
+                   "sdpa_matmul_ms": cuda_ms(sdpa_out, n_inputs),
+                   "hybrid_ms": cuda_ms(lambda i: HT.hybrid_b(xs[i], p),
+                                        n_inputs), **base}
+            row["bound_ms"], row["bound_by"] = tuning_bound(
+                "core_out", B, L, dtype)
+            log("kernel", name="core_out_halfblock", **row,
+                bound_us=row["bound_ms"] * 1e3)
+            rows["core_out_halfblock"].append(row)
+            del xs, qkvs
+    return rows
+
+
+def run_tuning_sweep():
+    """The tool's full-width sweep (B=256, L=50, E=768, bf16, K=32) through
+    ``msclip_torch.tools.halfblock_tuning.main``, every launch count set to
+    0 before it; each row must have launched its kernel 11 x (K + warm-up)
+    times. Returns the launches of E1 and E2 over the sweep."""
+    from msclip_torch.tools import halfblock_tuning as tool
+
+    reset_launches()
+    rows = tool.main([])
+    torch.cuda.synchronize()
+    launches = (HT.attention_halfblock_variant.launches,
+                HT.core_out_halfblock.launches)
+    want = tool.LAYERS * (tool.K + tool.WARMUP)
+    log("tuning_sweep", rows=json.dumps(rows),
+        launches_e1_e2=json.dumps(launches))
+    wrong = [r for r in rows if r["launches"] != want]
+    if wrong or 0 in launches:
+        raise AssertionError(f"tuning sweep rows launched other than {want} "
+                             f"times: {wrong}; E1, E2 {launches}")
+    return launches, rows
+
+
 def headline(rows, **match):
     return next(r for r in rows if "ms" in r
                 and all(r[k] == v for k, v in match.items()))
@@ -1271,7 +1477,8 @@ def kernel_line(rows, launches, name, replaces, head, shape, source=None):
         "shape": shape,
         "shapes": rows,
     }
-    for key in ("compile_ms", "unfused_ms", "unfused_sdpa_ms"):
+    for key in ("compile_ms", "unfused_ms", "unfused_sdpa_ms", "k5_ms",
+                "k1_matmul_ms", "sdpa_matmul_ms", "hybrid_ms"):
         if key in head:
             line[key] = head[key]
     return line
@@ -1294,8 +1501,13 @@ def main():
     int8_card_against_cpu()
     k5_launches = run_fused_slice()
     card_against_cpu(fused=True)
+    tuning_rows = check_tuning()
+    tuning_launches, sweep = run_tuning_sweep()
     quant = "msclip_torch/csrc/quant.cu"
     fused_src = "msclip_torch/csrc/block_fused.cu"
+    tuning_src = "msclip_torch/csrc/halfblock_tuning.cu"
+    variants = tuning_rows["attention_halfblock_variants"]
+    core_out = tuning_rows["core_out_halfblock"]
     print(json.dumps({"kernels": [
         kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0],
                     "attention_fwd", "msclip_tpu/ops/attention.py:243",
@@ -1322,7 +1534,20 @@ def main():
                     "msclip_tpu/ops/block_fused.py:185",
                     headline(half_rows["mlp_halfblock"], B=256, L=50,
                              dtype="bfloat16"),
-                    "B=256 L=50 E=768 F=3072 bfloat16", fused_src)]}))
+                    "B=256 L=50 E=768 F=3072 bfloat16", fused_src),
+        {**kernel_line(variants, tuning_launches[0],
+                       "attention_halfblock_variants",
+                       "experiments/halfblock_tuning.py:51",
+                       headline(variants, variant="v2", B=256, L=50,
+                                dtype="bfloat16"),
+                       "v2 B=256 L=50 E=768 H=12 bfloat16 tb=2", tuning_src),
+         "sweep": [r for r in sweep if r["kernel"] != "core_out_halfblock"]},
+        {**kernel_line(core_out, tuning_launches[1], "core_out_halfblock",
+                       "experiments/halfblock_tuning.py:307",
+                       headline(core_out, B=256, L=50, dtype="bfloat16"),
+                       "B=256 L=50 E=768 H=12 bfloat16 tb=2", tuning_src),
+         "sweep": [r for r in sweep if r["kernel"] == "core_out_halfblock"]}
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

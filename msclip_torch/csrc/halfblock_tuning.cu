@@ -1,0 +1,253 @@
+// The attention half-block's tuning kernels, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of experiments/halfblock_tuning.py, the
+// JAX package's tool for tuning the fused half-block:
+//
+// * E1, make_attn_half (bodies attn_kern_v0, v1, v2, v3, v2a, v2c):
+//       out = x + out_proj(MHA(LN1(x)))
+//   K5's function without a mask, at the rounding points of one of four
+//   numeric variants (Variant in halfblock.cuh): the base (v0, v2 and v3,
+//   which differ on the TPU only in Mosaic layouts), the qkv GEMM rounded
+//   before its bias is added (v1), the softmax as e * (1 / sum) (v2c), and
+//   no attention, ctx = v + 1e-4 q + 1e-4 k (v2a, the script's stub that
+//   isolates the GEMMs' cost);
+// * E2, make_hybrid_b (body core_out_kern):
+//       out = x + (ctx(qkv) W_out^T + b_out)
+//   the attention core, the out-projection and the residual from a qkv
+//   [B, L, 2304] that a library GEMM computed outside the kernel.
+//
+// Both are K5's device code (halfblock.cuh): E1 is K5's body with the
+// variant as a template flag; E2 is K5's per-head attention reading the
+// head's columns straight from qkv (row stride 2304, as K1 reads it) and
+// K5's out-projection epilogue. Widths are ViT-B's: E = 768, 12 heads of
+// 64; any B and 0 < L <= 256; no mask (the JAX functions take none).
+//
+// The grid is the script's: B / tb blocks, block b taking samples
+// [b tb, (b + 1) tb) (the caller guarantees B % tb == 0). A block walks its
+// samples in K5's groups of min(tb, max(1, 128 / L)), each group's rows a
+// GEMM pass of at most 128 (two at L > 128). With tb = 8, 16 or 32 (the
+// script's batch tiles) at B = 256 the grid has 32, 16 or 8 blocks for the
+// card's 132 SMs; the default tb is K5's group, 128 blocks at L = 50.
+//
+// Bound on an H100 SXM, B = 256, L = 50, bf16: E1 is K5's 62.4 GFLOP
+// (60.4 without attention, v2a), 63 us at 989 TFLOP/s against 44 MB of
+// I/O; E2 is 17.1 GFLOP (15.1 in the out-projection), 17 us, against
+// 99.5 MB of I/O (x, the 3E-wide qkv and out: 30 us at 3.35 TB/s), so E2
+// is bound by bytes. What the design does about it: K5's (halfblock.cuh):
+// bf16 GEMMs on mma.sync from a three-stage cp.async ring, x and qkv read
+// once, the output written once, h and ctx in a block-private workspace
+// that stays in L2. PERF.md has the times against the bound.
+
+#include "halfblock.cuh"
+
+#include <type_traits>
+
+namespace {
+
+// samples a block processes at once
+__host__ __device__ constexpr int group_samples(int L, int tb) {
+  return samples_per_group(L) < tb ? samples_per_group(L) : tb;
+}
+
+// workspace elements of one block: E1's h, ctx [S L, 768] and q/k/v [S L,
+// 192]; E2's ctx [S L, 768]
+__host__ __device__ constexpr long long variant_slot_elems(int L, int tb) {
+  return (long long)group_samples(L, tb) * L * (2 * kE + kQkv);
+}
+
+__host__ __device__ constexpr long long core_out_slot_elems(int L, int tb) {
+  return (long long)group_samples(L, tb) * L * kE;
+}
+
+// ---------------------------------------------------------------------------
+// E1
+// ---------------------------------------------------------------------------
+
+template <typename T, int A, int V>
+__global__ void __launch_bounds__(kThreads)
+attn_half_variant_kernel(const T* __restrict__ x, const T* __restrict__ ln_w,
+                         const T* __restrict__ ln_b, const T* __restrict__ w_in,
+                         const float* __restrict__ b_in, const T* __restrict__ w_out,
+                         const float* __restrict__ b_out, T* __restrict__ out,
+                         T* __restrict__ ws, int L, int tb, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int S = group_samples(L, tb);
+  T* h = ws + blockIdx.x * variant_slot_elems(L, tb);
+  T* ctx = h + (size_t)S * L * kE;
+  T* qkv = ctx + (size_t)S * L * kE;
+  const int first = blockIdx.x * tb, end = first + tb;
+  for (int b0 = first; b0 < end; b0 += S) {
+    const int rows = min(S, end - b0) * L;
+    const size_t off = (size_t)b0 * L * kE;
+    attention_halfblock_rows<T, A, V>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out, nullptr,
+                                      out + off, h, ctx, qkv, rows, L, eps, smem_raw);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// E2
+// ---------------------------------------------------------------------------
+
+template <typename T, int A>
+__global__ void __launch_bounds__(kThreads)
+core_out_kernel(const T* __restrict__ x, const T* __restrict__ qkv,
+                const T* __restrict__ w_out, const float* __restrict__ b_out,
+                T* __restrict__ out, T* __restrict__ ws, int L, int tb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ld = 3 * kE;  // qkv's row: q | k | v, each 12 heads of 64
+  const int S = group_samples(L, tb);
+  T* ctx = ws + blockIdx.x * core_out_slot_elems(L, tb);
+  const int first = blockIdx.x * tb, end = first + tb;
+  for (int b0 = first; b0 < end; b0 += S) {
+    const int rows = min(S, end - b0) * L;
+    const T* qb = qkv + (size_t)b0 * L * ld;
+    for (int hh = 0; hh < kHeads; ++hh) {
+      for (int r0 = 0; r0 < rows; r0 += L) {  // attention sample by sample
+        const T* q = qb + (size_t)r0 * ld + hh * kD;
+        AttnHead<T, A>::run(q, q + kE, q + 2 * kE, ld, nullptr, ctx + (size_t)r0 * kE + hh * kD,
+                            L, kScale, smem_raw);
+        __syncthreads();
+      }
+    }
+    const size_t off = (size_t)b0 * L * kE;
+    out_projection_residual<T>(ctx, rows, w_out, b_out, x + off, out + off, smem_raw);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+// Allow the kernel its dynamic shared memory and check that a block fits.
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+template <typename T, int A>
+constexpr size_t kernel_smem() {
+  return AttnHead<T, A>::smem_bytes > kGemmSmem ? AttnHead<T, A>::smem_bytes : kGemmSmem;
+}
+
+// f(T{}, integral_constant<int, A>{}) at the attention tile of length L, as
+// K5 (bf16 padded lengths 64, 80, 128, 208, 256; fp32 keys per lane)
+template <typename F>
+cudaError_t with_tile(bool bf, int L, F f) {
+  using std::integral_constant;
+  if (bf) {
+    if (L <= 64) return f(bf16{}, integral_constant<int, 8>{});
+    if (L <= 80) return f(bf16{}, integral_constant<int, 10>{});
+    if (L <= 128) return f(bf16{}, integral_constant<int, 16>{});
+    if (L <= 208) return f(bf16{}, integral_constant<int, 26>{});
+    return f(bf16{}, integral_constant<int, 32>{});
+  }
+  if (L <= 64) return f(float{}, integral_constant<int, 2>{});
+  if (L <= 128) return f(float{}, integral_constant<int, 4>{});
+  return f(float{}, integral_constant<int, 8>{});
+}
+
+struct VariantArgs {
+  const void *x, *ln_w, *ln_b, *w_in;
+  const float* b_in;
+  const void* w_out;
+  const float* b_out;
+  void *out, *ws;
+  int B, L, tb;
+  float eps;
+  cudaStream_t stream;
+};
+
+template <typename T, int A, int V>
+cudaError_t launch_variant(const VariantArgs& a) {
+  auto kernel = attn_half_variant_kernel<T, A, V>;
+  const size_t smem = kernel_smem<T, A>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.B / a.tb, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b),
+      static_cast<const T*>(a.w_in), a.b_in, static_cast<const T*>(a.w_out), a.b_out,
+      static_cast<T*>(a.out), static_cast<T*>(a.ws), a.L, a.tb, a.eps);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t dispatch_variant(bool bf, const VariantArgs& a) {
+  return with_tile(bf, a.L, [&](auto t, auto tile) {
+    return launch_variant<decltype(t), decltype(tile)::value, V>(a);
+  });
+}
+
+template <typename T, int A>
+cudaError_t launch_core_out(const void* x, const void* qkv, const void* w_out,
+                            const float* b_out, void* out, void* ws, int B, int L, int tb,
+                            cudaStream_t stream) {
+  auto kernel = core_out_kernel<T, A>;
+  const size_t smem = kernel_smem<T, A>();
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B / tb, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(qkv), static_cast<const T*>(w_out), b_out,
+      static_cast<T*>(out), static_cast<T*>(ws), L, tb);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int L, int tb, int dtype) {
+  return B <= 0 || L <= 0 || L > kMaxSeq || tb <= 0 || B % tb != 0 || (dtype != 0 && dtype != 1);
+}
+
+}  // namespace
+
+// Workspace elements (of the input type) of one block at sequence length L
+// and tb samples a block: E1 (core_out = 0) or E2 (core_out = 1). The
+// workspace holds B / tb of them.
+extern "C" long long msclip_halfblock_tuning_slot_elems(int core_out, int L, int tb) {
+  return core_out ? core_out_slot_elems(L, tb) : variant_slot_elems(L, tb);
+}
+
+// E1. x, out: [B, L, 768]; ln_w, ln_b: [768]; w_in: [2304, 768] (q, k, v
+// rows); w_out: [768, 768]; all of one dtype (0 = float32, 1 = bfloat16),
+// contiguous and 16-byte aligned. b_in [2304] and b_out [768]: fp32.
+// variant: a Variant of halfblock.cuh. B % tb == 0. Returns the launch's
+// cudaError_t (0 on success); the caller has checked the shapes.
+extern "C" int msclip_attention_halfblock_variant(const void* x, const void* ln_w,
+                                                  const void* ln_b, const void* w_in,
+                                                  const float* b_in, const void* w_out,
+                                                  const float* b_out, void* out, void* ws, int B,
+                                                  int L, int tb, float eps, int variant,
+                                                  int dtype, void* stream) {
+  if (bad_shape(B, L, tb, dtype)) return (int)cudaErrorInvalidValue;
+  const VariantArgs a{x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, ws,
+                      B, L, tb, eps, static_cast<cudaStream_t>(stream)};
+  const bool bf = dtype == 1;
+  switch (variant) {
+    case kBase: return (int)dispatch_variant<kBase>(bf, a);
+    case kQkvRounded: return (int)dispatch_variant<kQkvRounded>(bf, a);
+    case kReciprocal: return (int)dispatch_variant<kReciprocal>(bf, a);
+    case kNoHeads:  // no attention: one tile for every L
+      return (int)(bf ? launch_variant<bf16, 8, kNoHeads>(a) : launch_variant<float, 2, kNoHeads>(a));
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// E2. x, out: [B, L, 768]; qkv: [B, L, 2304] (q | k | v columns); w_out:
+// [768, 768]; one dtype as above. b_out [768]: fp32. B % tb == 0.
+extern "C" int msclip_core_out_halfblock(const void* x, const void* qkv, const void* w_out,
+                                         const float* b_out, void* out, void* ws, int B, int L,
+                                         int tb, int dtype, void* stream) {
+  if (bad_shape(B, L, tb, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)with_tile(dtype == 1, L, [&](auto t, auto tile) {
+    return launch_core_out<decltype(t), decltype(tile)::value>(x, qkv, w_out, b_out, out, ws, B,
+                                                               L, tb, s);
+  });
+}
+
+extern "C" const char* msclip_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -2,9 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into
 ``msclip_torch/_build/`` the first time a kernel from it is launched, and
-loaded with ``ctypes``. The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing is built at import time: machines without ``nvcc`` (the CPU
+loaded with ``ctypes``. The library's file name carries a hash of its source,
+of the shared headers ``csrc/*.cuh`` and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing is built at import time: machines without ``nvcc`` (the CPU
 test runs) never reach this module's build.
 """
 
@@ -21,8 +21,12 @@ import tempfile
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+# --split-compile=0: the optimizer and ptxas run over the kernels of a
+# source in as many threads as the host has CPUs (halfblock_tuning.cu holds
+# 34 instantiations of K5-sized kernels)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 
 def find_nvcc() -> str:
@@ -36,8 +40,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path: its name hashes the source, every header of
+    ``csrc/`` (``*.cuh``, which a source may include) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -16,7 +16,8 @@ arrays) across through the same key map: JAX linear weights are
 that ``msclip_tpu.models.quantize.quantize_params_for_eval`` produced
 carries its int8 GEMM weights across too: JAX's ``qkv_w_int8`` /
 ``qkv_w_scale`` (or ``w_int8`` / ``w_scale``, ``[in, out]``) become the
-port's ``<key>_int8`` (``[out, in]``) / ``<key>_scale``.
+port's ``<key>_int8`` (``[out, in]``) / ``<key>_scale``. ``block_from_jax``
+carries one block tree across under the block's local names.
 """
 
 from __future__ import annotations
@@ -169,6 +170,14 @@ def params_from_jax(tree, spec: MSClipSpec):
         out[k + "_int8"] = torch.from_numpy(np.ascontiguousarray(q.T))
         out[k + "_scale"] = _from_jax(node[leaf + "_scale"], SAME)
     return out
+
+
+def block_from_jax(blk):
+    """One ``msclip_tpu`` block tree (``init_block``'s layout, leaves as
+    numpy arrays) -> the port's local names (``layers.block_params``),
+    linear weights ``[out, in]``, fp32."""
+    return {k: _from_jax(_get_path(blk, path), kind)
+            for k, (path, kind) in _BLOCK_JAX.items()}
 
 
 def load_state_dict(state_dict, spec: MSClipSpec, expected_shapes=None):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 attention forward, K2 attention backward, K3
-and K4 the int8 quantizers, K5 and K6 the fused half-blocks) against their
-plain versions, on the card.
+and K4 the int8 quantizers, K5 and K6 the fused half-blocks, E1 and E2 the
+half-block tuning kernels) against their plain versions, on the card.
 
 JAX-free, so that it runs where JAX is absent:
 
@@ -15,6 +15,7 @@ import torch
 from msclip_torch.models.layers import build_causal_mask
 from msclip_torch.ops import attention as A
 from msclip_torch.ops import block_fused as BF
+from msclip_torch.ops import halfblock_tuning as HT
 from msclip_torch.ops import quant as Q
 
 pytestmark = pytest.mark.gpu
@@ -280,3 +281,80 @@ def test_halfblock_kernels_refuse_bad_inputs(cuda):
         BF.fused_attention_halfblock(x, p, 12, build_causal_mask(50))
     with pytest.raises(ValueError, match="contiguous"):
         BF.fused_mlp_halfblock(x.transpose(0, 1), p)
+
+
+# E1/E2: K5's elementwise limit, and in bf16 chip_smoke.py's mean limit,
+# mean |got - plain| <= 2^-10 mean |plain - x|, which a rounding point
+# moved or dropped (v1's against v2's) exceeds
+HALF_MEAN_TOL = 2.0 ** -10
+# every padding bucket of the attention tile (bf16 64, 80, 128, 208, 256;
+# fp32 keys per lane 2, 4, 8) and GEMM passes of 64, 80 and 128 rows
+TUNING_LENGTHS = [1, 17, 50, 65, 77, 129, 197, 256]
+# (B, tb): an odd batch at one sample a block and at the default tile (K5's
+# group cut to a divisor of B), the script's tile of 8, and a block whose
+# last group is ragged (3 samples in groups of 2 at L = 50)
+TUNING_TILES = [(3, 1), (3, None), (16, 8), (9, 3)]
+
+
+def _assert_tuning_close(got, want, x, dtype):
+    _assert_half_close(got, want, x, dtype)
+    if dtype == torch.bfloat16:
+        mean = (got.float() - want.float()).abs().mean().item()
+        branch = (want.float() - x.float()).abs().mean().item()
+        assert mean <= HALF_MEAN_TOL * branch, (mean, branch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["v2", "v1", "v2c", "v2a"])
+@pytest.mark.parametrize("L", TUNING_LENGTHS)
+@pytest.mark.parametrize("B,tb", TUNING_TILES)
+def test_halfblock_variant_kernel_matches_plain(cuda, dtype, variant, L, B,
+                                                tb):
+    """E1's four numeric variants (v0 and v3 launch v2's kernel)."""
+    gen = torch.Generator(device=cuda).manual_seed(L + B)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    before = HT.attention_halfblock_variant.launches
+    got = HT.attention_halfblock_variant(x, p, variant, tb)
+    torch.cuda.synchronize()
+    assert HT.attention_halfblock_variant.launches == before + 1
+    _assert_tuning_close(
+        got, HT.attention_halfblock_variant_plain(x, p, variant), x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", TUNING_LENGTHS)
+@pytest.mark.parametrize("B,tb", TUNING_TILES)
+def test_core_out_kernel_matches_plain(cuda, dtype, L, B, tb):
+    """E2 on the qkv of the hybrid's own LayerNorm and library GEMM."""
+    gen = torch.Generator(device=cuda).manual_seed(L + B)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    h = BF.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
+    qkv = (h @ p["attn.in_proj_weight"].t() + p["attn.in_proj_bias"]) \
+        .contiguous()
+    before = HT.core_out_halfblock.launches
+    got = HT.core_out_halfblock(x, qkv, p, tb)
+    torch.cuda.synchronize()
+    assert HT.core_out_halfblock.launches == before + 1
+    _assert_tuning_close(got, HT.core_out_plain(x, qkv, p), x, dtype)
+
+
+def test_halfblock_tuning_kernels_refuse_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = _block(768, gen, cuda)
+    x = torch.randn(4, 50, 768, device=cuda, generator=gen)
+    qkv = torch.randn(4, 50, 3 * 768, device=cuda, generator=gen)
+    with pytest.raises(ValueError, match="tb"):
+        HT.attention_halfblock_variant(x, p, "v2", 3)
+    with pytest.raises(ValueError, match="x \\[B, L, 768\\]"):
+        HT.attention_halfblock_variant(torch.randn(4, 50, 512, device=cuda),
+                                       _block(512, gen, cuda), "v2")
+    with pytest.raises(ValueError, match="L <= 256"):
+        HT.core_out_halfblock(torch.randn(1, 257, 768, device=cuda),
+                              torch.randn(1, 257, 3 * 768, device=cuda), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        HT.core_out_halfblock(x, qkv.transpose(0, 1).contiguous()
+                              .transpose(0, 1), p)
+    with pytest.raises(TypeError):
+        HT.attention_halfblock_variant(x.half(), p, "v1")
