@@ -10,35 +10,66 @@
 // (the head slice is an offset inside the kernel) and writes [B, L, E].
 // Arithmetic follows the TPU kernel: products of the input type summed in
 // fp32, the scale applied to the fp32 scores after the product, the fp32
-// additive [L, L] mask (causal -inf) added after that, softmax in fp32, the
-// normalised weights rounded to the input type before the PV product, which
-// again sums in fp32, and the result rounded to the input type.
+// additive [L, L] mask (causal -inf) added after that, an exact softmax in
+// fp32 (the whole row at once, not a running max; the weights divided by
+// the row sum), the weights rounded to the input type before the PV
+// product, which again sums in fp32, and the result rounded once.
 //
 // Bound on an H100 SXM: memory. Each launch reads 3E and writes E values per
 // token and does 4*L*D multiply-adds per token and head. At ViT-B/32
 // (L=50, E=768, H=12), B=256, bf16: 78.6 MB of I/O, 23.5 us at 3.35 TB/s,
 // against 2.0 us of matrix work at 989 TFLOP/s. The text tower (L=77,
 // causal) with a chunk of 1024 prompts moves 484 MB, 145 us; ViT-B/16
-// (L=197), B=256, moves 310 MB, 92.5 us. What the design does about it:
-// each q, k and v element is read from device memory once and each output
-// element written once; scores and weights live only in registers (bf16)
-// or registers and shared memory (fp32). PERF.md has the times against
-// the bound.
+// (L=197), B=256, moves 310 MB, 92.5 us. Beside the bytes, the softmax's
+// elementwise work (about ten instructions per score) is the next limit at
+// L=197: 256 x 12 x 256 x 208 padded scores take ~50 us of the SMs' fp32
+// issue rate. PERF.md has the times against the bound.
 //
 // Two kernels, chosen by the input type:
 //
-// * bfloat16 (the production dtype): tensor cores through mma.sync
-//   m16n8k16 (bf16 in, fp32 accumulators). One block per (sample, head),
-//   one warp per 16-row query tile (up to 8 warps). The block copies Q_h,
-//   K_h and V_h (V_h transposed) into shared memory with 16-byte loads,
-//   zero-padding L up to a multiple of 16. Each warp computes its 16 x L
-//   score tile S = Q K^T into registers, takes the fp32 softmax there (a
-//   row sits in the four lanes of a quad: two shuffles per reduction;
-//   padded keys get -inf, the mask is added after the scale), rounds the
-//   weights to bf16, and feeds them, still in registers, as the A operand
-//   of O = P V. At L=256 the block uses 107 KB of shared memory, so the
-//   launch raises the block's dynamic shared-memory limit with
-//   cudaFuncSetAttribute.
+// * bfloat16 (the production dtype), what the design does about the bound:
+//   - Persistent blocks over (sample, head) units: the grid is the SMs
+//     times the blocks that fit, each block walks units u, u + grid, ...
+//     through a two-stage ring in shared memory. While the block computes
+//     unit u, every thread has its share of unit u + grid's Q, K and V in
+//     flight as 16-byte cp.async copies (zero-filled past L), so each SM
+//     keeps one unit's bytes (24-78 KB) in flight behind its compute. Each
+//     unit is the 128-byte head slices of the rows at stride 3E; q, k and v
+//     are read from device memory once and each output element is written
+//     once, through a 16-byte store per lane.
+//   - Tensor cores through wgmma. A tile is a 128-byte-swizzled [rows, 64]
+//     bf16 array (cp.async writes the swizzle itself: chunk c of row r to
+//     r * 128 + ((c ^ (r & 7)) * 16)). One warpgroup takes a 64-row query
+//     tile: S = Q K^T as wgmma.m64n64k16 per 64 keys (and m64n16k16 for a
+//     last 16), Q from registers and K from shared memory through its
+//     K-major descriptor; the scale, the
+//     mask and the softmax on the accumulator registers (a row's keys sit
+//     in the four lanes of a quad, two shuffles per reduction; padded keys
+//     get -inf); the weights, rounded to bf16 in registers, are the A
+//     operand of O = P V as wgmma.m64n64k16 against V in shared memory read
+//     through the transposed (N-major) descriptor: no transposed copy and
+//     no scalar stores. exp is expf, as in torch's softmax. The division by
+//     the row sum rounds as IEEE division does, without its slow-path call,
+//     which would serialize the wgmma: the reciprocal of the sum rounded
+//     once per row (fp64 Newton steps), then per weight a multiplication
+//     and one fma correction of the quotient (hopper.cuh rcp_rn, div_rn).
+//   - Tiles per warpgroup, by padded length LP (keys and staged query rows
+//     padded to 16, query tiles of 64): LP=64 one warpgroup, 4 blocks an
+//     SM; LP=80 (the text tower), 128, 208 (ViT-B/16) and 256 two, taking
+//     tiles wg, wg + 2, .... A warp whose 16 rows all lie past L reads no Q
+//     and skips the softmax. At LP=208 three warpgroups would leave each
+//     168 registers, and ptxas then spills and serializes the wgmma.
+//   - The softmax is the elementwise work that bounds L=197: per score an
+//     fma (the scale and mask), a max, an fma and expf (about eight
+//     instructions), a sum, and the division (three); the checks for keys
+//     past L run only in the last 16-key step.
+//   - The mask is the same [L, L] for every unit: a block copies it into
+//     shared memory once when LP <= 128 (23.7 KB at L=77) and reads it there;
+//     at LP > 128 (no main path has a mask there) it reads device memory.
+//     Key steps masked on every row are not skipped: at the text shape,
+//     which is bytes-bound, they are 1 of 10 score steps.
+//   - ptxas reports no spills for any bf16 instantiation (chip_smoke.py
+//     phase 2 fails on one).
 // * float32: CUDA cores, exact fp32 (no TF32). One block of 8 warps per
 //   (sample, head) stages K_h and V_h in shared memory as fp32 (K rows
 //   padded to D+1 floats so 32 lanes reading 32 keys hit 32 banks); each
@@ -51,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -71,215 +104,265 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, scores kept in registers)
+// bfloat16: persistent blocks, cp.async ring, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kTcMaxWarps = 8;
+typedef __nv_bfloat16 bf16;
 
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
-// Fragments (g = lane / 4, c = lane % 4): a0 = A(g, 2c..2c+1),
-// a1 = A(g+8, 2c..), a2 = A(g, 2c+8..), a3 = A(g+8, 2c+8..);
-// b0 = B(2c..2c+1, g), b1 = B(2c+8.., g); d = {D(g, 2c), D(g, 2c+1),
-// D(g+8, 2c), D(g+8, 2c+1)}. Each 32-bit register holds two bf16, the
-// lower column (or row of B) in the low half.
-__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1,
-                                          uint32_t a2, uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+constexpr int kMaskSmemMaxLP = 128;  // the mask goes to shared memory up to here
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Shared-memory layout, in bf16 elements: Q_h and K_h as [LP, D + 8] rows,
-// V_h transposed as [D, LP + 8]. The +8 pads make the fragment loads of a
-// warp (8 rows x 4 words) hit 32 distinct banks.
-template <int D, int LP>
-struct TcLayout {
-  static constexpr int ds = D + 8, vs = LP + 8;
-  static constexpr size_t bytes = sizeof(__nv_bfloat16) * (2 * LP * ds + D * vs);
+// One ring stage, in bytes from a 1024-byte aligned base: Q, K and V as LP
+// rows of 64 bf16 each in the 128-byte swizzle. Query tiles have 64 rows;
+// a warp whose 16 rows lie past LP has no row < L and reads no Q.
+template <int LP>
+struct FwdLayout {
+  static constexpr int NQT = (LP + 63) / 64;  // query tiles of 64 rows
+  static constexpr uint32_t q = 0, k = LP * 128, v = 2 * LP * 128, stage = 3 * LP * 128;
+  // dynamic shared memory: alignment slack, two stages, and room for the
+  // mask of the bucket's longest L where it is staged
+  static constexpr size_t smem(bool mask) {
+    return 1024 + 2 * (size_t)stage + (mask && LP <= kMaskSmemMaxLP ? sizeof(float) * LP * LP : 0);
+  }
 };
 
-// NT: key tiles of 8, so that the padded length LP = 8 NT is a multiple of
-// 16 and covers L. One block per (sample, head); warp w takes the 16-row
-// query tiles w, w + warps, ...
-template <int D, int NT>
-__global__ void __launch_bounds__(kTcMaxWarps * 32)
-attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
-                          const float* __restrict__ mask,
-                          __nv_bfloat16* __restrict__ out, int L, int E, int H,
-                          float scale) {
-  constexpr int LP = 8 * NT;
-  using Lay = TcLayout<D, LP>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + LP * Lay::ds;
-  __nv_bfloat16* vt_s = k_s + LP * Lay::ds;
+// warpgroups a block runs, and blocks an SM is expected to hold (the
+// register budget the compiler gets)
+template <int LP>
+struct FwdShape {
+  static constexpr int NWG = LP <= 64 ? 1 : 2;
+  static constexpr int kMinBlocks = LP <= 64 ? 4 : LP <= 80 ? 2 : 1;
+};
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const long long row_stride = 3LL * E;
-  const __nv_bfloat16* base = qkv + (long long)b * L * row_stride + h * D;
-  constexpr int kVecPerRow = D / 8;  // 16-byte vectors of 8 bf16
-  for (int idx = threadIdx.x; idx < LP * kVecPerRow; idx += blockDim.x) {
-    const int j = idx / kVecPerRow, c8 = 8 * (idx % kVecPerRow);
-    uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
-    if (j < L) {  // rows past L are zeros: padded keys get weight 0
-      const __nv_bfloat16* row = base + j * row_stride + c8;
-      q = *reinterpret_cast<const uint4*>(row);
-      k = *reinterpret_cast<const uint4*>(row + E);
-      v = *reinterpret_cast<const uint4*>(row + 2 * E);
+template <int LP>
+__global__ void __launch_bounds__(FwdShape<LP>::NWG * 128, FwdShape<LP>::kMinBlocks)
+attention_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                          bf16* __restrict__ out, int B, int L, int E, int H, float scale) {
+  using Lay = FwdLayout<LP>;
+  constexpr int NWG = FwdShape<LP>::NWG, NC = LP / 16, NQT = Lay::NQT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - raw);
+
+
+  const int units = B * H;
+  const long long rs = 3LL * E;  // row stride of qkv
+
+  // unit u's Q, K and V (rows 0..LP) into ring stage st; rows past L are
+  // zeros
+  auto stage_unit = [&](int u, int st) {
+    const bf16* src = qkv + (long long)(u / H) * L * rs + (u % H) * 64;
+    const uint32_t sb = base + st * Lay::stage;
+    for (int idx = threadIdx.x; idx < 3 * LP * 8; idx += blockDim.x) {
+      const int which = idx / (LP * 8), rem = idx % (LP * 8);
+      const int row = rem >> 3, ch = rem & 7;
+      const bool ok = row < L;
+      cp_async16(sb + which * LP * 128 + sw128(row, ch),
+                 src + (long long)(ok ? row : 0) * rs + which * E + ch * 8, ok);
     }
-    *reinterpret_cast<uint4*>(q_s + j * Lay::ds + c8) = q;
-    *reinterpret_cast<uint4*>(k_s + j * Lay::ds + c8) = k;
-    const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) vt_s[(c8 + e) * Lay::vs + j] = ve[e];
+  };
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+
+  int u = blockIdx.x;
+  if (u < units) stage_unit(u, 0);
+  cp_async_commit();
+  // the mask, the same [L, L] for every unit, is copied while the first
+  // unit's copies are in flight
+  const float* mk = mask;
+  if (mask != nullptr && LP <= kMaskSmemMaxLP) {
+    float* ms = reinterpret_cast<float*>(base_ptr + 2 * Lay::stage);
+    for (int i = threadIdx.x; i < L * L; i += blockDim.x) ms[i] = mask[i];
+    mk = ms;  // published by the first barrier of the unit loop
   }
-  __syncthreads();
+  for (int it = 0; u < units; ++it, u += gridDim.x) {
+    const int st = it & 1;
+    if (u + (int)gridDim.x < units) stage_unit(u + gridDim.x, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // unit u has landed; unit u + grid stays in flight
+    fence_proxy_async();
+    __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;
-  const int n_tiles = (L + 15) / 16, n_warps = blockDim.x / 32;
-  __nv_bfloat16* out_b = out + (long long)b * L * E + h * D;
+    const uint32_t sk = base + st * Lay::stage + Lay::k;
+    const uint32_t sv = base + st * Lay::stage + Lay::v;
+    unsigned char* q_s = base_ptr + st * Lay::stage + Lay::q;
+    const int b = u / H, h = u % H;
 
-  for (int rt = warp; rt < n_tiles; rt += n_warps) {
-    const int r0 = rt * 16 + g, r1 = r0 + 8;  // this lane's two query rows
-    const __nv_bfloat16* q0 = q_s + r0 * Lay::ds + 2 * c;
-    const __nv_bfloat16* q1 = q_s + r1 * Lay::ds + 2 * c;
+    for (int qt = wg; qt < NQT; qt += NWG) {
+      const int rb = qt * 64 + warp * 16;  // this warp's 16 query rows
+      const int r0 = rb + g, r1 = r0 + 8;  // this lane's two
+      const bool live = rb < L;
 
-    // S = Q K^T, tile nt holding keys 8 nt .. 8 nt + 7
-    float s[NT][4];
+      // Q fragments (mma A layout) of the four 16-column steps; a warp with
+      // no row < L feeds zeros
+      uint32_t qa[4][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (nt * 8 + g) * Lay::ds + 2 * c;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        mma_16816(s[nt], ld32(q0 + 16 * ks), ld32(q1 + 16 * ks),
-                  ld32(q0 + 16 * ks + 8), ld32(q1 + 16 * ks + 8),
-                  ld32(kr + 16 * ks), ld32(kr + 16 * ks + 8));
-    }
+      for (int ks = 0; ks < 4; ++ks) {
+        qa[ks][0] = qa[ks][1] = qa[ks][2] = qa[ks][3] = 0u;
+        if (live) {
+          qa[ks][0] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r0, 2 * ks) + 4 * c);
+          qa[ks][1] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r1, 2 * ks) + 4 * c);
+          qa[ks][2] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r0, 2 * ks + 1) + 4 * c);
+          qa[ks][3] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r1, 2 * ks + 1) + 4 * c);
+        }
+      }
 
-    // scale, mask, fp32 softmax over each row; a row's 8 NT values sit in
-    // the 4 lanes of one quad
-    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+      // S = Q K^T, 64 keys per product and a last one of 16 where LP is
+      // not a multiple of 64; s[8 t + 4 j + 2 i + e] is row r0 + 8 i, key
+      // 16 t + 8 j + 2 c + e (a 64-key accumulator is four 16-key ones)
+      float s[NC * 8];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+      for (int e = 0; e < NC * 8; ++e) s[e] = 0.f;
+      const uint64_t dk = desc_k_major(sk);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = nt * 8 + 2 * c + e;
-        float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
-        if (j < L) {
-          v0 = s[nt][e] * scale;
-          v1 = s[nt][2 + e] * scale;
-          if (mask != nullptr) {
-            if (r0 < L) v0 += mask[r0 * L + j];
-            if (r1 < L) v1 += mask[r1 * L + j];
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int q = 0; q < NC / 4; ++q)
+          wgmma_m64n64k16<0>(s + 32 * q, qa[ks], desc_add(dk, q * 8192 + ks * 32), ks);
+#pragma unroll
+        for (int t = NC / 4 * 4; t < NC; ++t)
+          wgmma_m64n16k16(s + 8 * t, qa[ks], desc_add(dk, t * 2048 + ks * 32), ks);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < NC * 8; ++e) fence_operand(s[e]);
+
+      // scale, mask, exact fp32 softmax of each row; the weights rounded to
+      // bf16 as the A fragments of P V: p[t] = {(r0, keys 16t + 2c..),
+      // (r1, ..), (r0, keys 16t + 8 + 2c..), (r1, ..)}
+      uint32_t p[NC][4];
+      if (live) {
+        // v = s D^-1/2 (+ mask). D^-1/2 is a power of two, so the product
+        // is exact: with a mask one fma rounds as the product and the sum
+        // do; without one the scale waits for the exponent's argument,
+        // fma(s, D^-1/2, -max D^-1/2), which rounds as v - max does.
+        float sc = 1.f;
+        if (mk != nullptr) {
+          // rows past L read row L - 1 and are not written
+          const float* mr0 = mk + min(r0, L - 1) * L;
+          const float* mr1 = mk + min(r1, L - 1) * L;
+#pragma unroll
+          for (int t = 0; t < NC; ++t)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int j = min(16 * t + 8 * (e >> 2) + 2 * c + (e & 1), L - 1);
+              s[8 * t + e] = fmaf(s[8 * t + e], scale, ((e & 2) ? mr1 : mr0)[j]);
+            }
+        } else {
+          sc = scale;
+        }
+#pragma unroll
+        for (int t = 0; t < NC; ++t) {
+          if (16 * t + 16 > L) {  // keys past L get -inf
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (16 * t + 8 * (e >> 2) + 2 * c + (e & 1) >= L) s[8 * t + e] = -CUDART_INF_F;
           }
         }
-        s[nt][e] = v0;
-        s[nt][2 + e] = v1;
-        m0 = fmaxf(m0, v0);
-        m1 = fmaxf(m1, v1);
+        float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+#pragma unroll
+        for (int t = 0; t < NC; ++t)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (e & 2) m1 = fmaxf(m1, s[8 * t + e]);
+            else m0 = fmaxf(m0, s[8 * t + e]);
+          }
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+        // exp(v - max) with expf, as torch's softmax (and jnp.exp) computes it
+        const float n0 = -m0 * sc, n1 = -m1 * sc;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < NC; ++t) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float x = expf(fmaf(s[8 * t + e], sc, (e & 2) ? n1 : n0));
+            s[8 * t + e] = x;
+            if (e & 2) sum1 += x;
+            else sum0 += x;
+          }
+        }
+        sum0 = quad_sum(sum0);
+        sum1 = quad_sum(sum1);
+        const float inv0 = rcp_rn(sum0), inv1 = rcp_rn(sum1);
+#pragma unroll
+        for (int t = 0; t < NC; ++t) {
+          p[t][0] = pack_bf16(div_rn(s[8 * t + 0], sum0, inv0), div_rn(s[8 * t + 1], sum0, inv0));
+          p[t][1] = pack_bf16(div_rn(s[8 * t + 2], sum1, inv1), div_rn(s[8 * t + 3], sum1, inv1));
+          p[t][2] = pack_bf16(div_rn(s[8 * t + 4], sum0, inv0), div_rn(s[8 * t + 5], sum0, inv0));
+          p[t][3] = pack_bf16(div_rn(s[8 * t + 6], sum1, inv1), div_rn(s[8 * t + 7], sum1, inv1));
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < NC; ++t) p[t][0] = p[t][1] = p[t][2] = p[t][3] = 0u;
       }
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-    }
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = nt * 8 + 2 * c + e;
-        s[nt][e] = j < L ? expf(s[nt][e] - m0) : 0.f;
-        s[nt][2 + e] = j < L ? expf(s[nt][2 + e] - m1) : 0.f;
-        sum0 += s[nt][e];
-        sum1 += s[nt][2 + e];
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-    }
-    // normalised weights rounded to bf16: p[nt][0] row r0, p[nt][1] row r1
-    uint32_t p[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      p[nt][0] = pack_bf16(s[nt][0] / sum0, s[nt][1] / sum0);
-      p[nt][1] = pack_bf16(s[nt][2] / sum1, s[nt][3] / sum1);
-    }
 
-    // O = P V: the score tiles 2 kt, 2 kt + 1 are the A fragment of key
-    // step kt as they stand; B comes from the transposed V_h
-    float o_acc[D / 8][4];
+      // O = P V: 16 keys a step, V through its transposed descriptor
+      float o[32];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) o_acc[dt][0] = o_acc[dt][1] = o_acc[dt][2] = o_acc[dt][3] = 0.f;
+      for (int e = 0; e < 32; ++e) o[e] = 0.f;
+      const uint64_t dv = desc_mn_major(sv);
+      wgmma_fence();
 #pragma unroll
-    for (int kt = 0; kt < NT / 2; ++kt) {
+      for (int t = 0; t < NC; ++t) wgmma_m64n64k16<1>(o, p[t], desc_add(dv, t * 2048), t);
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = vt_s + (dt * 8 + g) * Lay::vs + kt * 16 + 2 * c;
-        mma_16816(o_acc[dt], p[2 * kt][0], p[2 * kt][1], p[2 * kt + 1][0],
-                  p[2 * kt + 1][1], ld32(vr), ld32(vr + 8));
+      for (int e = 0; e < 32; ++e) fence_operand(o[e]);
+
+      // rounded once; staged through this warp's own Q rows (read above
+      // into qa) so that each lane stores whole 16-byte chunks
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<uint32_t*>(q_s + sw128(r0, j) + 4 * c) = pack_bf16(o[4 * j], o[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(q_s + sw128(r1, j) + 4 * c) =
+              pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+        }
+        __syncwarp();
+        bf16* out_b = out + (long long)b * L * E + h * 64;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = rb + i * 4 + (lane >> 3), ch = lane & 7;
+          if (row < L)
+            *reinterpret_cast<uint4*>(out_b + (long long)row * E + ch * 8) =
+                *reinterpret_cast<const uint4*>(q_s + sw128(row, ch));
+        }
       }
     }
-
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      if (r0 < L)
-        *reinterpret_cast<uint32_t*>(out_b + (long long)r0 * E + dt * 8 + 2 * c) =
-            pack_bf16(o_acc[dt][0], o_acc[dt][1]);
-      if (r1 < L)
-        *reinterpret_cast<uint32_t*>(out_b + (long long)r1 * E + dt * 8 + 2 * c) =
-            pack_bf16(o_acc[dt][2], o_acc[dt][3]);
-    }
+    __syncthreads();  // stage st is free for unit u + 2 grid
   }
 }
 
-template <int D, int NT>
-cudaError_t launch_bf16_nt(const void* qkv, const float* mask, void* out, int B,
-                           int L, int E, int H, cudaStream_t stream) {
-  auto kernel = attention_fwd_bf16_kernel<D, NT>;
-  const size_t smem = TcLayout<D, 8 * NT>::bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int n_tiles = (L + 15) / 16;
-  const int warps = n_tiles < kTcMaxWarps ? n_tiles : kTcMaxWarps;
-  const float scale = 1.0f / sqrtf((float)D);
-  kernel<<<B * H, warps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), mask,
-      static_cast<__nv_bfloat16*>(out), L, E, H, scale);
+template <int LP>
+cudaError_t launch_bf16_lp(const void* qkv, const float* mask, void* out, int B, int L, int E,
+                           int H, cudaStream_t stream) {
+  auto kernel = attention_fwd_bf16_kernel<LP>;
+  constexpr int threads = FwdShape<LP>::NWG * 128;
+  static const size_t smem[2] = {FwdLayout<LP>::smem(false), FwdLayout<LP>::smem(true)};
+  static int per_sm[2] = {0, 0};
+  const int with_mask = mask != nullptr;
+  int grid;
+  cudaError_t err = persistent_grid(kernel, threads, smem, per_sm, with_mask, B * H, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem[with_mask], stream>>>(static_cast<const bf16*>(qkv), mask,
+                                          static_cast<bf16*>(out), B, L, E, H,
+                                          1.0f / sqrtf(64.0f));
   return cudaGetLastError();
 }
 
 // the padded lengths of the shapes the towers use: 50 -> 64, 77 -> 80,
 // 197 -> 208
-template <int D>
-cudaError_t launch_bf16(const void* qkv, const float* mask, void* out, int B,
-                        int L, int E, int H, cudaStream_t stream) {
-  if (L <= 64) return launch_bf16_nt<D, 8>(qkv, mask, out, B, L, E, H, stream);
-  if (L <= 80) return launch_bf16_nt<D, 10>(qkv, mask, out, B, L, E, H, stream);
-  if (L <= 128) return launch_bf16_nt<D, 16>(qkv, mask, out, B, L, E, H, stream);
-  if (L <= 208) return launch_bf16_nt<D, 26>(qkv, mask, out, B, L, E, H, stream);
-  return launch_bf16_nt<D, 32>(qkv, mask, out, B, L, E, H, stream);
+cudaError_t launch_bf16(const void* qkv, const float* mask, void* out, int B, int L, int E,
+                        int H, cudaStream_t stream) {
+  if (L <= 64) return launch_bf16_lp<64>(qkv, mask, out, B, L, E, H, stream);
+  if (L <= 80) return launch_bf16_lp<80>(qkv, mask, out, B, L, E, H, stream);
+  if (L <= 128) return launch_bf16_lp<128>(qkv, mask, out, B, L, E, H, stream);
+  if (L <= 208) return launch_bf16_lp<208>(qkv, mask, out, B, L, E, H, stream);
+  return launch_bf16_lp<256>(qkv, mask, out, B, L, E, H, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -401,7 +484,7 @@ cudaError_t dispatch(const void* qkv, const float* mask, void* out, int B, int L
                      int E, int H, bool bf16, cudaStream_t stream) {
   // every MS-CLIP tower has heads of width 64 (vision heads = width / 64)
   if (E / H != 64) return cudaErrorInvalidValue;
-  return bf16 ? launch_bf16<64>(qkv, mask, out, B, L, E, H, stream)
+  return bf16 ? launch_bf16(qkv, mask, out, B, L, E, H, stream)
               : launch_f32_len<64>(qkv, mask, out, B, L, E, H, stream);
 }
 

@@ -28,6 +28,7 @@ fp32, cast to the compute dtype before the bias is added.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +50,15 @@ GEMM_KEYS = ("attn.in_proj_weight", "attn.out_proj.weight",
 INT8_SUFFIXES = ("_int8", "_scale")
 # the shortest sequence whose quantized block takes the fused quantizers
 # K3/K4 (msclip_tpu/ops/tuning.py:63-66, ``int8_min_seq``); shorter ones
-# quantize each GEMM input on the fly
+# quantize each GEMM input on the fly. ``MSCLIP_INT8_MIN_SEQ`` overrides it,
+# as in the JAX package (msclip_tpu/ops/tuning.py:94)
 INT8_MIN_SEQ = 96
+
+
+def int8_min_seq() -> int:
+    """The fused int8 gate: ``MSCLIP_INT8_MIN_SEQ`` if set, read at call
+    time, else :data:`INT8_MIN_SEQ`."""
+    return int(os.environ.get("MSCLIP_INT8_MIN_SEQ", INT8_MIN_SEQ))
 
 
 # ---------------------------------------------------------------------------
@@ -240,10 +248,10 @@ def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
     """Pre-LN residual attention block (reference ``:1027-1028``), with
     stochastic depth on both branches in training, when a rate and a
     ``torch.Generator`` are given. A quantized block without drop-path at
-    ``L >= INT8_MIN_SEQ`` runs :func:`int8_block`."""
+    ``L >= int8_min_seq()`` runs :func:`int8_block`."""
     dropping = drop_path_rate > 0.0 and generator is not None
     if "attn.in_proj_weight_int8" in p and not dropping \
-            and x.shape[1] >= INT8_MIN_SEQ:
+            and x.shape[1] >= int8_min_seq():
         return int8_block(p, x, n_head, mask, eps)
     if dropping:
         def dp(t):

@@ -27,13 +27,42 @@ def _qkv(B, L, E, seed):
     return rng.standard_normal((B, L, 3 * E)).astype(np.float32)
 
 
+# the masks the CUDA kernels' staging must handle, beside none (False) and
+# the causal one (True): a random -inf pattern over finite values, with
+# one finite score per row; keys 16-31 masked on every row; the trailing
+# 16-key tile masked on every row
+MASKS = (False, True, "random", "band", "trailing")
+
+
+def _mask(L, kind):
+    """The additive fp32 ``[L, L]`` mask of ``kind`` as numpy, or None."""
+    if kind is False:
+        return None
+    if kind is True:
+        return np.array(JL.build_causal_mask(L), np.float32)
+    rng = np.random.default_rng(L)
+    m = np.zeros((L, L), np.float32)
+    if kind == "random":
+        off = rng.random((L, L)) < 0.5
+        off[np.arange(L), rng.integers(0, L, L)] = False
+        m = np.where(off, -np.inf, 0.5 * rng.standard_normal((L, L)))
+    elif kind == "band":
+        m[:, 16:32] = -np.inf
+    else:
+        m[:, 16 * ((L - 1) // 16):] = -np.inf
+    assert np.isfinite(m).any(axis=1).all()
+    return m.astype(np.float32)
+
+
 @pytest.mark.parametrize("L_seq,causal", [(50, False), (77, True),
-                                          (197, False)])
+                                          (197, False)] + [
+    (L, kind) for L in (50, 77, 197) for kind in MASKS[2:]])
 def test_plain_matches_pallas_and_xla(L_seq, causal):
     B, H, E = 5, 2, 128
     qkv = _qkv(B, L_seq, E, seed=L_seq)
-    jmask = JL.build_causal_mask(L_seq) if causal else None
-    tmask = TL.build_causal_mask(L_seq) if causal else None
+    mask = _mask(L_seq, causal)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
     got = TA.fused_attention_qkv(torch.from_numpy(qkv), H, tmask).numpy()
     pallas = np.asarray(jax_fused_attention_qkv(
         jnp.asarray(qkv), H, jmask, interpret=True))
@@ -123,7 +152,8 @@ def test_kernel_takes_grad_and_cpu_backward_is_plain():
 
 
 @pytest.mark.parametrize("L_seq,causal", [(50, False), (77, True),
-                                          (21, True)])
+                                          (21, True)] + [
+    (L, kind) for L in (50, 77) for kind in MASKS[2:]])
 def test_plain_backward_matches_the_pallas_vjp(L_seq, causal):
     """K2's plain version against the VJP of the JAX kernel in interpret
     mode (its custom VJP is the Pallas backward kernel), with the JAX
@@ -132,8 +162,9 @@ def test_plain_backward_matches_the_pallas_vjp(L_seq, causal):
     qkv = _qkv(B, L_seq, E, seed=10 + L_seq)
     g = np.random.default_rng(L_seq).standard_normal(
         (B, L_seq, E)).astype(np.float32)
-    jmask = JL.build_causal_mask(L_seq) if causal else None
-    tmask = TL.build_causal_mask(L_seq) if causal else None
+    mask = _mask(L_seq, causal)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
     _, vjp = jax.vjp(lambda t: jax_fused_attention_qkv(
         t, H, jmask, interpret=True, lane_pack=1), jnp.asarray(qkv))
     (want,) = vjp(jnp.asarray(g))
@@ -169,3 +200,28 @@ def test_gradcheck_of_the_plain_pair():
                 lambda t: TA.FusedAttentionQKV.apply(t, 1, m), (qkv,))
     finally:
         torch.set_num_threads(threads)
+
+
+def test_softmax_division_sequence_rounds_as_ieee_division():
+    """The CUDA kernels divide the softmax weights by the row sum without
+    IEEE division (``csrc/hopper.cuh`` ``rcp_rn``, ``div_rn``): the sum's
+    reciprocal from an approximation and two fp64 Newton steps, rounded to
+    fp32; then per weight ``q = x r`` and ``q + (x - q y) r``, each fma
+    rounded once. Emulated with numpy (fp64 products of fp32 values are
+    exact, fp64 sums round far below an fp32 ulp), both round as the
+    division does on 2^20 random row sums in [1, 256] and weights."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    y = (1 + 255 * rng.random(n)).astype(np.float32)
+    ref = np.float32(1) / y
+    for ulps in (-2, 2):  # the approximation two ulps off either way
+        r = (ref.view(np.int32) + ulps).view(np.float32).astype(np.float64)
+        for _ in range(2):
+            r = r + r * (1.0 - y.astype(np.float64) * r)
+        assert (r.astype(np.float32) == ref).all()
+    x = (rng.random(n) * np.exp2(-rng.integers(0, 40, n))).astype(np.float32)
+    q = x * ref
+    rem = (x.astype(np.float64) - q.astype(np.float64) * y).astype(np.float32)
+    quotient = (q + rem.astype(np.float64) * ref).astype(np.float32)
+    assert (quotient == x / y).all()
+    assert (q != x / y).any()  # the product alone does not round so

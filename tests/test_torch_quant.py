@@ -244,6 +244,44 @@ def test_transformer_block_on_int8_weights_matches_jax(
     assert bool(fused_calls) == fused
 
 
+@pytest.mark.parametrize("min_seq,L,fused", [("64", 77, True),
+                                              ("128", 100, False)])
+def test_int8_min_seq_moves_both_gates(int8_block_pair, monkeypatch,
+                                       min_seq, L, fused):
+    """``MSCLIP_INT8_MIN_SEQ`` moves the fused int8 gate in both packages
+    (``msclip_tpu/ops/tuning.py:94``; the port reads it at call time): at
+    a length between the new gate and the default 96 both take the same
+    form, fused at 77 under a gate of 64 and unfused at 100 under one of
+    128, and give the same features."""
+    from msclip_tpu.ops import tuning
+
+    qb, tp, _ = int8_block_pair
+    rng = np.random.default_rng(L)  # the module rng's draws hang on order
+    fused_calls, real = [], TL.int8_block
+
+    def spy(*args):
+        fused_calls.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(TL, "int8_block", spy)
+    monkeypatch.setenv("MSCLIP_INT8_MIN_SEQ", min_seq)
+    tuning.get_tuning.cache_clear()
+    try:
+        assert tuning.get_tuning().int8_min_seq == TL.int8_min_seq() \
+            == int(min_seq)
+        x = _np(rng, 2, L, 128, scale=0.5)
+        want = jax.jit(lambda x: JL.transformer_block(
+            qb, x, 2, None, 1e-12, use_pallas=True, pallas_interpret=True))(
+            jnp.asarray(x))
+        got = TL.transformer_block(tp, _t(x), 2, None, 1e-12)
+    finally:
+        monkeypatch.delenv("MSCLIP_INT8_MIN_SEQ")
+        tuning.get_tuning.cache_clear()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BLOCK_TOL)
+    assert bool(fused_calls) == fused
+    assert TL.int8_min_seq() == TL.INT8_MIN_SEQ == 96
+
+
 
 def _tiny_b16_config():
     """Tiny MS-CLIP-S with B/16's strides (stem, branch, adapters) at
