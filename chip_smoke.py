@@ -8,8 +8,14 @@ Phases, each printed on its own line and each fatal on failure:
    optional host packages (yaml, regex, PIL, ftfy) import;
 2. build: compile every CUDA kernel of the port from the sources in this
    checkout (one ``nvcc`` per source, all started together), and print
-   what ``ptxas -v`` reports, each K1/K2 instantiation by name; a bf16
-   instantiation of K1 or K2 that spills registers fails the run;
+   what ``ptxas -v`` reports for each instantiation by name, and the wgmma
+   instructions in each K5/E1 instantiation (``cuobjdump -sass``); a bf16
+   instantiation of K1, K2, K5 or E1 that spills registers, wgmma that
+   ptxas serializes in K1, K2, K5 or E1, or a bf16 K5/E1 instantiation
+   without wgmma fails the run; then, in a fresh process, the fp32 and
+   bf16 turns of K5, E1, E2 and the hybrid against their yardsticks that
+   phases 3 and 12 report (``traced_turns``: the profiler traced none of
+   them in a process that had run the other phases first);
 3. kernels: call each kernel's wrapper at the shapes the main paths give
    it, hold the result against its plain PyTorch version, and time the
    kernel, the plain version and the nearest PyTorch library call: the
@@ -55,7 +61,10 @@ Phases, each printed on its own line and each fatal on failure:
    (the core + out-projection of the hybrid, ``core_out_halfblock``)
    against their plain versions in fp32 and bf16 with planted faults, timed
    beside their plain versions, K5, the unfused half with K1 and, for E2,
-   K1 or SDPA with the out-projection in torch; then the tool's full-width
+   K1 or SDPA with the out-projection in torch (E1 and the whole hybrid
+   in turns with the unfused half, E2 in turns with K1 and the
+   out-projection, each by event and device time, ``vs_unfused`` and
+   ``vs_k1_matmul`` ratios of device times); then the tool's full-width
    sweep, ``msclip_torch.tools.halfblock_tuning.main``, with each row's
    launches counted.
 
@@ -67,10 +76,15 @@ and it holds the fused half-blocks, attention (K5) and MLP (K6), against
 their plain versions in fp32 and bf16, reads faults planted into a torch
 copy of the plain versions against the same check, and times both beside
 the port's unfused half (with K1, and with SDPA in K1's place, for K5) and
-``torch.compile`` of the plain version.
+``torch.compile`` of the plain version; K5 and the unfused half with K1
+in turns, by event and device time, with ``vs_unfused``, the ratio of
+their device times. A ``k5_design`` line gives, apart from the
+measurements, the bytes K5's groups stage from the L2 as the design
+reckons them (``staged_l2_bytes``; no counter reads them).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+The ``[seconds]`` line gives each phase's time. The line before the last
+is a JSON object with one entry per kernel; the last line is ``{"ok":
+true, "device": {...}}``. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero before
 printing any result.
 """
@@ -182,11 +196,61 @@ def device_and_packages():
     return smi
 
 
+# kernels held to the build check: no bf16 instantiation of these may spill
+# registers, and none of K1, K2, K5 or E1 may have its wgmma serialized
+# (ptxas C7510-C7515); every bf16 K5 and E1 instantiation must hold wgmma
+SPILL_CHECKED = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel",
+                 "attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16")
+WGMMA_CHECKED = ("attention_fwd", "attention_bwd", "attention_halfblock_kernel",
+                 "attn_half_variant_kernel")
+WGMMA_REQUIRED = ("attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16")
+
+
+def kernel_name(mangled):
+    """A readable name of a mangled kernel of the port: ``name<args>``."""
+    m = re.search(r"(attention_(?:fwd|bwd)_(?:bf16|f32)_kernel)I((?:Li\d+E)+)E",
+                  mangled)
+    if m:
+        return f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
+    m = re.search(r"((?:ln|gelu)_quant_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
+    if m:
+        return f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>"
+    m = re.search(r"((?:attention|mlp)_halfblock_kernel|attn_half_variant_kernel|"
+                  r"core_out_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)", mangled)
+    if m:
+        ints = "".join("," + n for n in re.findall(r"Li(\d+)E", m[3]))
+        return f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}{ints}>"
+    return mangled
+
+
+def wgmma_counts(path):
+    """``{kernel name: wgmma instructions}`` of a built library, from its
+    SASS (``cuobjdump -sass``: HGMMA is the SASS of wgmma)."""
+    nvcc = cuda_build.find_nvcc()
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_name(m[1])
+            counts[name] = 0
+        elif name is not None and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
 def build_kernels():
-    """Every source at once, one nvcc each. Fails if a bf16 instantiation
-    of K1 or K2 spills registers."""
+    """Every source at once, one nvcc each. Prints what ``ptxas -v`` reports
+    for each kernel instantiation (registers, shared memory, spills) and the
+    wgmma instructions of K5's and E1's. Fails if a bf16 instantiation of
+    K1, K2, K5 or E1 spills registers, if ptxas serializes the wgmma of a
+    K1, K2, K5 or E1 instantiation (C7510-C7515), or if a bf16 K5 or E1
+    instantiation holds no wgmma."""
     t0 = time.time()
-    spilled = []
+    spilled, serialized, no_wgmma = [], [], []
     sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE, HT.SOURCE)
     with cf.ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(cuda_build.build, sources))
@@ -197,35 +261,144 @@ def build_kernels():
         # stack and spills, then "Used <n> registers ..."
         report = []
         for i, ln in enumerate(lines):
+            if re.search(r"\(C751[0-5]\)", ln):
+                m = re.search(r"'(\w+)'", ln)  # a warning that names no
+                # kernel counts against the checked ones
+                if m is None or any(k in kernel_name(m[1])
+                                    for k in WGMMA_CHECKED):
+                    serialized.append(ln.strip())
             if "ptxas info" in ln and "Used" in ln:
-                m = re.search(r"(attention_(?:fwd|bwd)_(?:bf16|f32)_kernel)"
-                              r"I((?:Li\d+E)+)E", lines[i - 2])
-                mq = re.search(r"((?:ln|gelu)_quant_kernel)I(f|13__nv_bfloat16)"
-                               r"Li(\d+)E", lines[i - 2])
-                mh = re.search(r"((?:attention|mlp)_halfblock_kernel|"
-                               r"attn_half_variant_kernel|core_out_kernel)"
-                               r"I(f|13__nv_bfloat16)((?:Li\d+E)*)",
-                               lines[i - 2])
-                if m:
-                    name = f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
-                    spills = re.findall(r"(\d+) bytes spill", lines[i - 1])
-                    if "bf16" in m[1] and any(int(n) for n in spills):
-                        spilled.append(name)
-                elif mq:
-                    name = (f"{mq[1]}<{'f32' if mq[2] == 'f' else 'bf16'},"
-                            f"{mq[3]}>")
-                elif mh:
-                    ints = "".join("," + n
-                                   for n in re.findall(r"Li(\d+)E", mh[3]))
-                    name = f"{mh[1]}<{'f32' if mh[2] == 'f' else 'bf16'}{ints}>"
-                else:
-                    name = lines[i - 2]
+                name = kernel_name(lines[i - 2])
+                spills = re.findall(r"(\d+) bytes spill", lines[i - 1])
+                if any(k in name for k in SPILL_CHECKED) \
+                        and any(int(n) for n in spills):
+                    spilled.append(name)
                 report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
                               f"{lines[i - 1].strip()}")
+        extra = {}
+        if source in (BF.SOURCE, HT.SOURCE):
+            wgmma = wgmma_counts(path)
+            extra["wgmma"] = json.dumps(wgmma)
+            no_wgmma += [k for k, n in wgmma.items()
+                         if n == 0 and any(r in k for r in WGMMA_REQUIRED)]
+            if not any(any(r in k for r in WGMMA_REQUIRED) for k in wgmma):
+                no_wgmma.append(f"no bf16 K5/E1 kernel in {source}")
         log("build", source=source, seconds=f"{time.time() - t0:.1f}",
-            ptxas=json.dumps(report))
-    if spilled:
-        raise AssertionError(f"bf16 attention kernels spill: {spilled}")
+            ptxas=json.dumps(report), **extra)
+    if spilled or serialized or no_wgmma:
+        raise AssertionError(f"build check: spills {spilled}; serialized wgmma "
+                             f"{serialized}; bf16 K5/E1 without wgmma "
+                             f"{no_wgmma}")
+
+
+def halfblock_jobs(B, L, causal, dtype, p, gen, tuning=False):
+    """The inputs and the calls of ``i`` (the input set) that phases 3 and
+    12 time at one shape, defined here once: ``xs``, ``n`` input sets of x
+    cycled past the L2 (a timing touches at most 33); ``k5``; ``unfused``,
+    the port's unfused half with K1; ``unfused_sdpa``, the same with SDPA
+    in K1's place. With ``tuning`` also ``qkvs``, E2's input for each x
+    (the hybrid's LayerNorm and library GEMM); ``e1``, a function of the
+    variant; ``e2``; ``k1_matmul`` and ``sdpa_matmul``, K1 or SDPA on the
+    same qkv with the out-projection, bias and residual in torch; and
+    ``hybrid``."""
+    from msclip_torch.models import layers as TL
+
+    F = torch.nn.functional
+    E, H = BF.WIDTH, BF.WIDTH // 64
+    mask = TL.build_causal_mask(L, device="cuda") if causal else None
+    nbytes = B * L * E * torch.finfo(dtype).bits // 8 * (4 if tuning else 1)
+    n = min(33, max(1, math.ceil(2 * L2_BYTES / nbytes)))
+    xs = [torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
+          for _ in range(n)]
+
+    def ln(x):
+        return TL.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
+
+    def out_proj(i, ctx):
+        return xs[i] + TL.linear(ctx, p["attn.out_proj.weight"],
+                                 p["attn.out_proj.bias"])
+
+    def sdpa(qkv):
+        q, k, v = qkv.view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return o.transpose(1, 2).reshape(B, L, E)
+
+    jobs = {"xs": xs, "n": n, "mask": mask,
+            "k5": lambda i: BF.fused_attention_halfblock(xs[i], p, H, mask),
+            "unfused": lambda i: xs[i] + TL.attention(p, ln(xs[i]), H, mask),
+            "unfused_sdpa": lambda i: out_proj(i, sdpa(TL.linear(
+                ln(xs[i]), p["attn.in_proj_weight"], p["attn.in_proj_bias"])))}
+    if tuning:
+        qkvs = [(ln(x) @ p["attn.in_proj_weight"].t()
+                 + p["attn.in_proj_bias"]).contiguous() for x in xs]
+        jobs.update(
+            qkvs=qkvs,
+            e1=lambda v: lambda i: HT.attention_halfblock_variant(xs[i], p, v),
+            e2=lambda i: HT.core_out_halfblock(xs[i], qkvs[i], p),
+            k1_matmul=lambda i: out_proj(i, A.fused_attention_qkv(qkvs[i], H)),
+            sdpa_matmul=lambda i: out_proj(i, sdpa(qkvs[i])),
+            hybrid=lambda i: HT.hybrid_b(xs[i], p))
+    return jobs
+
+
+def traced_turns():
+    """The turns (:func:`turns`) of phases 3 and 12 in fp32 and bf16: K5
+    against the unfused half with K1 at ``HALF_SHAPES`` and
+    ``TUNING_SHAPES``; at ``TUNING_SHAPES`` each E1 variant and the whole
+    hybrid against the unfused half, E2 against K1 with the
+    out-projection; the calls of :func:`halfblock_jobs`. Every call is
+    made once before the first trace. ``{key: turns}``, keys as
+    :func:`turn_key`. Runs in a process of its own
+    (:func:`traced_turns_in_subprocess`): on the card, in a process that
+    had run the other phases first (many other kernels, and
+    ``torch.compile``), torch.profiler traced none of these calls; why is
+    not known."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    jobs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = half_params(gen, dtype)
+        for B, L, causal in sorted(set(HALF_SHAPES) | {
+                (B, L, False) for B, L in TUNING_SHAPES}):
+            tuning = not causal and (B, L) in TUNING_SHAPES
+            j = halfblock_jobs(B, L, causal, dtype, p, gen, tuning)
+            key = lambda kind, v=None: turn_key(  # noqa: E731
+                kind, B, L, dtype, causal, v)
+            jobs[key("k5")] = (j["k5"], j["unfused"], j["n"], "unfused")
+            if tuning:
+                for v in TUNING_VARIANTS:
+                    jobs[key("e1", v)] = (j["e1"](v), j["unfused"], j["n"],
+                                          "unfused")
+                jobs[key("e2")] = (j["e2"], j["k1_matmul"], j["n"],
+                                   "k1_matmul")
+                jobs[key("hybrid")] = (j["hybrid"], j["unfused"], j["n"],
+                                       "unfused")
+    for kernel, other, _, _ in jobs.values():
+        kernel(0)
+        other(0)
+    torch.cuda.synchronize()
+    per_call = {}  # a yardstick's records, traced once for all its turns
+    return {key: turns(kernel, other, n, name, per_call)
+            for key, (kernel, other, n, name) in jobs.items()}
+
+
+def turn_key(kind, B, L, dtype, causal=False, variant=None):
+    return " ".join(str(k) for k in (
+        kind, variant, B, L, str(dtype).replace("torch.", ""),
+        causal and "causal") if k not in (None, False))
+
+
+def traced_turns_in_subprocess():
+    """:func:`traced_turns` in a fresh Python process on the same card."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as C; "
+         "print('TRACED ' + json.dumps(C.traced_turns()))"],
+        cwd=REPO, capture_output=True, text=True)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("TRACED ")]
+    if r.returncode or not lines:
+        raise AssertionError(f"traced turns failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+    return json.loads(lines[-1][len("TRACED "):])
 
 
 def cuda_ms(fn, n_inputs, iters=30, warmup=3):
@@ -302,7 +475,7 @@ def device_ms(fn, n_inputs, event_ms, per_call, iters=30, tries=5):
     return None
 
 
-def in_turns(kernel, library, n_inputs):
+def in_turns(kernel, library, n_inputs, one_record=True, per_call=None):
     """The kernel and its one-call yardstick timed in turns, library,
     kernel, kernel, library, so that a drift of the card's clock between
     the two reads on both. Each turn takes the event time (:func:`cuda_ms`,
@@ -311,12 +484,19 @@ def in_turns(kernel, library, n_inputs):
     ``library_ms`` are the means of each pair of event times,
     ``device_ms`` and ``library_device_ms`` of device times; ``vs_library``
     is ``device_ms / library_device_ms``: where a call is short, the host's
-    launch rate bounds the event times of both from below. A call of the
-    kernel's wrapper must show one device record, its kernel. Where the
+    launch rate bounds the event times of both from below. With
+    ``one_record`` a call of the kernel's wrapper must show one device
+    record, its kernel. ``per_call``, where given, keeps each call's
+    records (:func:`records_per_call`) across turns, so that a yardstick
+    shared by several kernels is traced for them once. Where the
     profiler gives no trace that counts, the device times and
     ``vs_library`` are None (not measured) and ``device_error`` says why."""
-    per_call = {fn: records_per_call(fn, n_inputs) for fn in (kernel, library)}
-    if per_call[kernel] is not None and sum(per_call[kernel].values()) != 1:
+    per_call = {} if per_call is None else per_call
+    for fn in (kernel, library):
+        if fn not in per_call:
+            per_call[fn] = records_per_call(fn, n_inputs)
+    if one_record and per_call[kernel] is not None \
+            and sum(per_call[kernel].values()) != 1:
         raise AssertionError(f"a kernel call traced {per_call[kernel]}")
     turns = []
     for fn in (library, kernel, kernel, library):
@@ -793,7 +973,7 @@ def check_quant():
                 "bound_by": "bytes",
             }
             if dtype == torch.bfloat16:
-                timing["compile_ms"] = compiled_ms(plain, xs, extra, n_inputs)
+                compiled_ms_later(timing, name, plain, xs, extra, n_inputs)
             log("kernel", name=name, **timing,
                 bound_us=timing["bound_ms"] * 1e3)
             rows[name].append(timing)
@@ -801,16 +981,31 @@ def check_quant():
     return rows
 
 
-def compiled_ms(plain, xs, extra, n_inputs):
-    """``torch.compile`` of the plain version at the headline shape, a
-    baseline only (the port never calls it); None where it does not
+# torch.compile baselines, timed after the last profiler trace: once a
+# process has run torch.compile, torch.profiler traces no device record
+COMPILE_BASELINES = []
+
+
+def compiled_ms_later(row, name, plain, xs, extra, n_inputs):
+    """Queue ``torch.compile`` of the plain version at the headline shape,
+    a baseline only (the port never calls it), for
+    :func:`run_compile_baselines` to write into ``row["compile_ms"]``."""
+    COMPILE_BASELINES.append((row, name, plain, xs, extra, n_inputs))
+
+
+def run_compile_baselines():
+    """Time every queued ``torch.compile`` baseline; None where it does not
     compile here, with the error printed."""
-    try:
-        fn = torch.compile(plain)
-        return cuda_ms(lambda i: fn(xs[i], *extra), n_inputs)
-    except Exception as e:  # a baseline may fail; the kernels may not
-        log("compile_baseline", error=repr(e)[:300])
-        return None
+    for row, name, plain, xs, extra, n_inputs in COMPILE_BASELINES:
+        try:
+            fn = torch.compile(plain)
+            row["compile_ms"] = cuda_ms(lambda i: fn(xs[i], *extra), n_inputs)
+        except Exception as e:  # a baseline may fail; the kernels may not
+            log("compile_baseline", name=name, error=repr(e)[:300])
+            row["compile_ms"] = None
+        log("compile_baseline", name=name, dtype=row["dtype"],
+            compile_ms=row["compile_ms"], kernel_ms=row["ms"])
+    COMPILE_BASELINES.clear()
 
 
 HALF_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16, odd shapes
@@ -896,6 +1091,20 @@ def half_with_fault(name, x, p, mask, fault):
     return x + proj(ctx, p["attn.out_proj.weight"], p["attn.out_proj.bias"])
 
 
+def staged_l2_bytes(B, L, S, boxes=True, item=2):
+    """The bytes K5 stages from the L2 into shared memory at ``B`` samples
+    of length ``L`` in groups of ``S``: each of a group's 16 GEMMs (12
+    heads' q/k/v, four column tiles of the out-projection) stages 192
+    weight rows and the group's rows, 768 values each; with ``boxes`` (the
+    TMA design) the rows in whole boxes of 128, else (the mma.sync design,
+    groups of ``max(1, 128 // L)``) the rows themselves."""
+    full, rest = divmod(B, S)
+    rows = [S * L] * full + ([rest * L] if rest else [])
+    if boxes:
+        rows = [128 * math.ceil(r / 128) for r in rows]
+    return sum(16 * (r + 192) * 768 * item for r in rows)
+
+
 def halfblock_bound(name, B, L, dtype, mask):
     """``(ms, by)``: the least time for K5 or K6, the larger of its I/O (x
     read and the output written once, the weights, LayerNorm and biases
@@ -917,52 +1126,37 @@ def halfblock_bound(name, B, L, dtype, mask):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def check_halfblocks():
+def check_halfblocks(traced):
     """K5 and K6 against their plain versions in fp32 and bf16 at the shapes
     of the fused slice (the image tower, a text chunk), B/16's and two odd
     ones, with the faults of :func:`half_with_fault` read against the same
     check, each as :func:`half_reading` gives it (the run fails unless every
     fault that changes the output is caught). Times each
-    kernel, its plain version and the port's unfused half: for K5
-    ``layer_norm`` + ``linear`` + K1 + ``linear`` + residual, and the same
-    with SDPA in K1's place; for K6 the cuBLAS MLP half; at the image shape
-    in bf16 also ``torch.compile`` of the plain version."""
+    kernel, its plain version and the port's unfused half: for K5 the
+    turns of :func:`traced_turns` against ``layer_norm`` + ``linear`` + K1
+    + ``linear`` + residual, and the same with SDPA in K1's place; for K6
+    the cuBLAS MLP half; at the image shape in bf16 also ``torch.compile``
+    of the plain version. Logs, apart from the measurements, the bytes
+    K5's groups stage from the L2 as :func:`staged_l2_bytes` reckons them."""
     from msclip_torch.models import layers as TL
 
-    F = torch.nn.functional
     rows = {"attention_halfblock": [], "mlp_halfblock": []}
     gen = torch.Generator(device="cuda").manual_seed(4)
-    E, H = BF.WIDTH, BF.WIDTH // 64
+    H = BF.WIDTH // 64
     for dtype in (torch.float32, torch.bfloat16):
         p = half_params(gen, dtype)
-        item = torch.finfo(dtype).bits // 8
         for B, L, causal in HALF_SHAPES:
-            mask = TL.build_causal_mask(L, device="cuda") if causal else None
-            n_inputs = max(1, math.ceil(2 * L2_BYTES / (B * L * E * item)))
-            xs = [torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
-                  for _ in range(n_inputs)]
-
-            def sdpa_half(x):
-                h = TL.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
-                qkv = TL.linear(h, p["attn.in_proj_weight"],
-                                p["attn.in_proj_bias"])
-                q, k, v = qkv.view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4)
-                o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-                return x + TL.linear(o.transpose(1, 2).reshape(B, L, E),
-                                     p["attn.out_proj.weight"],
-                                     p["attn.out_proj.bias"])
-
+            j = halfblock_jobs(B, L, causal, dtype, p, gen)
+            xs, n_inputs, mask = j["xs"], j["n"], j["mask"]
             kinds = {
                 "attention_halfblock": (
                     BF.fused_attention_halfblock,
                     BF.attention_halfblock_plain, (p, H, mask),
-                    {"unfused_ms": lambda x: x + TL.attention(p, TL.layer_norm(
-                        x, p["ln_1.weight"], p["ln_1.bias"]), H, mask),
-                     "unfused_sdpa_ms": sdpa_half}),
+                    {"unfused_sdpa_ms": j["unfused_sdpa"]}),
                 "mlp_halfblock": (
                     BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,),
-                    {"unfused_ms": lambda x: x + TL.mlp(p, TL.layer_norm(
-                        x, p["ln_2.weight"], p["ln_2.bias"]))})}
+                    {"unfused_ms": lambda i: xs[i] + TL.mlp(p, TL.layer_norm(
+                        xs[i], p["ln_2.weight"], p["ln_2.bias"]))})}
             for name, (kernel, plain, extra, baselines) in kinds.items():
                 got = kernel(xs[0], *extra)
                 want = plain(xs[0], *extra)
@@ -992,21 +1186,33 @@ def check_halfblocks():
                        "tolerance": tol, "limit_reading": reading,
                        "mean_reading": mean_reading,
                        "planted_faults": faults,
-                       "ms": cuda_ms(lambda i: kernel(xs[i], *extra),
-                                     n_inputs),
                        "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
                                            n_inputs, iters=10),
                        "library_ms": None}
+                if name == "attention_halfblock":
+                    # K5 and the unfused half with K1 in turns, by event
+                    # and device time; vs_unfused from device times
+                    row.update(traced[turn_key("k5", B, L, dtype, causal)])
+                else:
+                    row["ms"] = cuda_ms(lambda i: kernel(xs[i], *extra),
+                                        n_inputs)
                 for key, fn in baselines.items():
-                    row[key] = cuda_ms(lambda i: fn(xs[i]), n_inputs)
+                    row[key] = cuda_ms(fn, n_inputs)
                 if dtype == torch.bfloat16 and (B, L) == (256, 50):
-                    row["compile_ms"] = compiled_ms(plain, xs, extra, n_inputs)
+                    compiled_ms_later(row, name, plain, xs, extra, n_inputs)
                 row["bound_ms"], row["bound_by"] = halfblock_bound(
                     name, B, L, dtype, mask)
                 log("kernel", name=name, **row,
                     bound_us=row["bound_ms"] * 1e3)
                 rows[name].append(row)
-            del xs
+            if dtype == torch.bfloat16:
+                S = BF.attn_plan(B, L, dtype, BF.sm_count(0))["S"]
+                log("k5_design", B=B, L=L, group=S,
+                    staged_l2_gb=staged_l2_bytes(B, L, S) / 1e9,
+                    staged_l2_gb_mma_sync_design=staged_l2_bytes(
+                        B, L, max(1, 128 // L), boxes=False) / 1e9,
+                    origin="reckoned by staged_l2_bytes, not measured")
+            del xs, j
     return rows
 
 
@@ -1551,40 +1757,45 @@ def tuning_check(name, got, want, x, dtype, faults, caught, label):
             "planted_faults": readings}
 
 
-def check_tuning():
+def turns(kernel, other, n_inputs, other_name, per_call=None):
+    """:func:`in_turns` of a wrapper call (which may launch small casts
+    beside its kernel) against ``other``, its keys renamed for ``other``:
+    ``ms``, ``device_ms``, ``<other_name>_ms``,
+    ``<other_name>_device_ms`` and ``vs_<other_name>`` (device over
+    device)."""
+    t = in_turns(kernel, other, n_inputs, one_record=False, per_call=per_call)
+    out = {"ms": t["ms"], "device_ms": t["device_ms"],
+           f"{other_name}_ms": t["library_ms"],
+           f"{other_name}_device_ms": t["library_device_ms"],
+           f"vs_{other_name}": t["vs_library"], "turns_ms": t["turns_ms"]}
+    if "device_error" in t:
+        out["device_error"] = t["device_error"]
+    return out
+
+
+def check_tuning(traced):
     """E1 (each numeric variant at its default batch tile) and E2 against
     their plain versions in fp32 and bf16 at ``TUNING_SHAPES``, with the
     faults of ``VARIANT_FAULTS`` and :func:`core_out_with_fault` read
     against the same check. E2's qkv is the hybrid's own (LayerNorm and
-    the library GEMM of ``hybrid_b``). Times each kernel, its plain version,
-    K5, the unfused half with K1, the whole hybrid and, for E2, K1 or SDPA
-    on the same qkv with the out-projection, bias and residual in torch."""
-    from msclip_torch.models import layers as TL
-
-    F = torch.nn.functional
+    the library GEMM of ``hybrid_b``). Times each plain version, and E2's
+    SDPA yardstick; the turns of :func:`traced_turns` give each kernel,
+    K5, the unfused half with K1, the whole hybrid and, for E2, K1 with
+    the out-projection."""
     rows = {"attention_halfblock_variants": [], "core_out_halfblock": []}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    E, H = BF.WIDTH, BF.WIDTH // 64
     for dtype in (torch.float32, torch.bfloat16):
         p = half_params(gen, dtype)
-        item = torch.finfo(dtype).bits // 8
         for B, L in TUNING_SHAPES:
             label = f"B={B} L={L}"
-            # inputs cycled past the L2; a timing touches at most 33
-            n_inputs = min(33, max(1, math.ceil(2 * L2_BYTES
-                                                / (B * L * 4 * E * item))))
-            xs = [torch.randn(B, L, E, device="cuda", generator=gen).to(dtype)
-                  for _ in range(n_inputs)]
-            qkvs = [(TL.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
-                     @ p["attn.in_proj_weight"].t() + p["attn.in_proj_bias"])
-                    .contiguous() for x in xs]
+            j = halfblock_jobs(B, L, False, dtype, p, gen, tuning=True)
+            xs, qkvs, n_inputs = j["xs"], j["qkvs"], j["n"]
             x, qkv = xs[0], qkvs[0]
-            base = {
-                "k5_ms": cuda_ms(lambda i: BF.fused_attention_halfblock(
-                    xs[i], p, H), n_inputs),
-                "unfused_ms": cuda_ms(lambda i: xs[i] + TL.attention(
-                    p, TL.layer_norm(xs[i], p["ln_1.weight"],
-                                     p["ln_1.bias"]), H), n_inputs)}
+            tb = HT.default_tb(B, L, dtype, BF.sm_count(0))
+            key = lambda kind, v=None: turn_key(  # noqa: E731
+                kind, B, L, dtype, variant=v)
+            k5 = traced[key("k5")]
+            base = {"k5_ms": k5["ms"], "k5_device_ms": k5["device_ms"]}
             plain = {v: HT.attention_halfblock_variant_plain(x, p, v)
                      for v in ("v2", "v1", "v2c", "v2a")}
             for variant in TUNING_VARIANTS:
@@ -1594,15 +1805,13 @@ def check_tuning():
                     dtype, {f: plain[v] for f, v in
                             VARIANT_FAULTS.get(variant, {}).items()},
                     CAUGHT_VARIANT_FAULTS, f"{variant} {label}")
-                row = {"variant": variant, "B": B, "L": L,
-                       "tb": HT.default_tb(B, L),
+                row = {"variant": variant, "B": B, "L": L, "tb": tb,
                        "dtype": str(dtype).replace("torch.", ""), **row,
-                       "ms": cuda_ms(lambda i: HT.attention_halfblock_variant(
-                           xs[i], p, variant), n_inputs),
                        "plain_ms": cuda_ms(
                            lambda i: HT.attention_halfblock_variant_plain(
                                xs[i], p, variant), n_inputs, iters=10),
-                       "library_ms": None, **base}
+                       "library_ms": None, **base,
+                       **traced[key("e1", variant)]}
                 row["bound_ms"], row["bound_by"] = tuning_bound(
                     "v2a" if variant == "v2a" else "variant", B, L, dtype)
                 log("kernel", name="attention_halfblock_variants", **row,
@@ -1614,34 +1823,24 @@ def check_tuning():
                 "core_out_halfblock", got, HT.core_out_plain(x, qkv, p), x,
                 dtype, {f: core_out_with_fault(x, qkv, p, f)
                         for f in CORE_OUT_FAULTS}, CORE_OUT_FAULTS, label)
-
-            def sdpa_out(i):
-                q, k, v = qkvs[i].view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4)
-                o = F.scaled_dot_product_attention(q, k, v)
-                return xs[i] + TL.linear(o.transpose(1, 2).reshape(B, L, E),
-                                         p["attn.out_proj.weight"],
-                                         p["attn.out_proj.bias"])
-
-            row = {"B": B, "L": L, "tb": HT.default_tb(B, L),
+            # E2 in turns with K1 + the out-projection, the whole hybrid in
+            # turns with the unfused half
+            hybrid = traced[key("hybrid")]
+            row = {"B": B, "L": L, "tb": tb,
                    "dtype": str(dtype).replace("torch.", ""), **row,
-                   "ms": cuda_ms(lambda i: HT.core_out_halfblock(
-                       xs[i], qkvs[i], p), n_inputs),
                    "plain_ms": cuda_ms(lambda i: HT.core_out_plain(
                        xs[i], qkvs[i], p), n_inputs, iters=10),
                    "library_ms": None,
-                   "k1_matmul_ms": cuda_ms(lambda i: xs[i] + TL.linear(
-                       A.fused_attention_qkv(qkvs[i], H),
-                       p["attn.out_proj.weight"], p["attn.out_proj.bias"]),
-                       n_inputs),
-                   "sdpa_matmul_ms": cuda_ms(sdpa_out, n_inputs),
-                   "hybrid_ms": cuda_ms(lambda i: HT.hybrid_b(xs[i], p),
-                                        n_inputs), **base}
+                   "sdpa_matmul_ms": cuda_ms(j["sdpa_matmul"], n_inputs),
+                   **base, **traced[key("e2")],
+                   **{"hybrid_" + k: v for k, v in hybrid.items()
+                      if k != "turns_ms"}}
             row["bound_ms"], row["bound_by"] = tuning_bound(
                 "core_out", B, L, dtype)
             log("kernel", name="core_out_halfblock", **row,
                 bound_us=row["bound_ms"] * 1e3)
             rows["core_out_halfblock"].append(row)
-            del xs, qkvs
+            del xs, qkvs, j
     return rows
 
 
@@ -1689,32 +1888,46 @@ def kernel_line(rows, launches, name, replaces, head, shape, source=None):
         "shapes": rows,
     }
     for key in ("device_ms", "library_device_ms", "vs_library",
-                "compile_ms", "unfused_ms", "unfused_sdpa_ms", "k5_ms",
-                "k1_matmul_ms", "sdpa_matmul_ms", "hybrid_ms"):
+                "compile_ms", "unfused_ms", "unfused_device_ms", "vs_unfused",
+                "unfused_sdpa_ms", "k5_ms", "k5_device_ms", "k1_matmul_ms",
+                "k1_matmul_device_ms", "vs_k1_matmul", "sdpa_matmul_ms",
+                "hybrid_ms", "hybrid_device_ms", "hybrid_vs_unfused"):
         if key in head:
             line[key] = head[key]
     return line
 
 
 def main():
+    seconds = {}
+    t0 = time.time()
+
+    def timed(phase, fn, *args, **kw):
+        start = time.time()
+        out = fn(*args, **kw)
+        seconds[phase] = round(time.time() - start, 1)
+        return out
+
     device_and_packages()
-    build_kernels()
+    timed("build", build_kernels)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    attn_rows = check_attention()
-    bwd_rows = check_attention_bwd()
-    quant_rows = check_quant()
-    half_rows = check_halfblocks()
-    launches = run_slice()
-    card_against_cpu()
-    train_launches = run_train_slice()
-    train_card_against_cpu()
-    int8_launches = run_int8_slice()
-    int8_card_against_cpu()
-    k5_launches = run_fused_slice()
-    card_against_cpu(fused=True)
-    tuning_rows = check_tuning()
-    tuning_launches, sweep = run_tuning_sweep()
+    traced = timed("traced_turns", traced_turns_in_subprocess)
+    attn_rows = timed("k1", check_attention)
+    bwd_rows = timed("k2", check_attention_bwd)
+    quant_rows = timed("k3_k4", check_quant)
+    half_rows = timed("k5_k6", check_halfblocks, traced)
+    launches = timed("slice", run_slice)
+    timed("card_vs_cpu", card_against_cpu)
+    train_launches = timed("train", run_train_slice)
+    timed("train_card_vs_cpu", train_card_against_cpu)
+    int8_launches = timed("int8", run_int8_slice)
+    timed("int8_card_vs_cpu", int8_card_against_cpu)
+    k5_launches = timed("fused", run_fused_slice)
+    timed("fused_card_vs_cpu", card_against_cpu, fused=True)
+    tuning_rows = timed("e1_e2", check_tuning, traced)
+    tuning_launches, sweep = timed("sweep", run_tuning_sweep)
+    timed("compile_baselines", run_compile_baselines)
+    log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
     fused_src = "msclip_torch/csrc/block_fused.cu"
     tuning_src = "msclip_torch/csrc/halfblock_tuning.cu"

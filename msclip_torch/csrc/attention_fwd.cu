@@ -53,6 +53,8 @@
 //     which would serialize the wgmma: the reciprocal of the sum rounded
 //     once per row (fp64 Newton steps), then per weight a multiplication
 //     and one fma correction of the quotient (hopper.cuh rcp_rn, div_rn).
+//     This per-tile body lives in attn_core.cuh (attn_query_tile), which
+//     the fused attention half-block (K5, halfblock.cuh) runs too.
 //   - Tiles per warpgroup, by padded length LP (keys and staged query rows
 //     padded to 16, query tiles of 64): LP=64 one warpgroup, 4 blocks an
 //     SM; LP=80 (the text tower), 128, 208 (ViT-B/16) and 256 two, taking
@@ -83,6 +85,7 @@
 #include <math_constants.h>
 #include <cstdint>
 
+#include "attn_core.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -138,7 +141,7 @@ __global__ void __launch_bounds__(FwdShape<LP>::NWG * 128, FwdShape<LP>::kMinBlo
 attention_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                           bf16* __restrict__ out, int B, int L, int E, int H, float scale) {
   using Lay = FwdLayout<LP>;
-  constexpr int NWG = FwdShape<LP>::NWG, NC = LP / 16, NQT = Lay::NQT;
+  constexpr int NWG = FwdShape<LP>::NWG, NQT = Lay::NQT;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -162,8 +165,7 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict_
     }
   };
 
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
+  const int wg = threadIdx.x >> 7;
 
   int u = blockIdx.x;
   if (u < units) stage_unit(u, 0);
@@ -189,150 +191,9 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict_
     unsigned char* q_s = base_ptr + st * Lay::stage + Lay::q;
     const int b = u / H, h = u % H;
 
-    for (int qt = wg; qt < NQT; qt += NWG) {
-      const int rb = qt * 64 + warp * 16;  // this warp's 16 query rows
-      const int r0 = rb + g, r1 = r0 + 8;  // this lane's two
-      const bool live = rb < L;
-
-      // Q fragments (mma A layout) of the four 16-column steps; a warp with
-      // no row < L feeds zeros
-      uint32_t qa[4][4];
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        qa[ks][0] = qa[ks][1] = qa[ks][2] = qa[ks][3] = 0u;
-        if (live) {
-          qa[ks][0] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r0, 2 * ks) + 4 * c);
-          qa[ks][1] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r1, 2 * ks) + 4 * c);
-          qa[ks][2] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r0, 2 * ks + 1) + 4 * c);
-          qa[ks][3] = *reinterpret_cast<const uint32_t*>(q_s + sw128(r1, 2 * ks + 1) + 4 * c);
-        }
-      }
-
-      // S = Q K^T, 64 keys per product and a last one of 16 where LP is
-      // not a multiple of 64; s[8 t + 4 j + 2 i + e] is row r0 + 8 i, key
-      // 16 t + 8 j + 2 c + e (a 64-key accumulator is four 16-key ones)
-      float s[NC * 8];
-#pragma unroll
-      for (int e = 0; e < NC * 8; ++e) s[e] = 0.f;
-      const uint64_t dk = desc_k_major(sk);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-        for (int q = 0; q < NC / 4; ++q)
-          wgmma_m64n64k16<0>(s + 32 * q, qa[ks], desc_add(dk, q * 8192 + ks * 32), ks);
-#pragma unroll
-        for (int t = NC / 4 * 4; t < NC; ++t)
-          wgmma_m64n16k16(s + 8 * t, qa[ks], desc_add(dk, t * 2048 + ks * 32), ks);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int e = 0; e < NC * 8; ++e) fence_operand(s[e]);
-
-      // scale, mask, exact fp32 softmax of each row; the weights rounded to
-      // bf16 as the A fragments of P V: p[t] = {(r0, keys 16t + 2c..),
-      // (r1, ..), (r0, keys 16t + 8 + 2c..), (r1, ..)}
-      uint32_t p[NC][4];
-      if (live) {
-        // v = s D^-1/2 (+ mask). D^-1/2 is a power of two, so the product
-        // is exact: with a mask one fma rounds as the product and the sum
-        // do; without one the scale waits for the exponent's argument,
-        // fma(s, D^-1/2, -max D^-1/2), which rounds as v - max does.
-        float sc = 1.f;
-        if (mk != nullptr) {
-          // rows past L read row L - 1 and are not written
-          const float* mr0 = mk + min(r0, L - 1) * L;
-          const float* mr1 = mk + min(r1, L - 1) * L;
-#pragma unroll
-          for (int t = 0; t < NC; ++t)
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int j = min(16 * t + 8 * (e >> 2) + 2 * c + (e & 1), L - 1);
-              s[8 * t + e] = fmaf(s[8 * t + e], scale, ((e & 2) ? mr1 : mr0)[j]);
-            }
-        } else {
-          sc = scale;
-        }
-#pragma unroll
-        for (int t = 0; t < NC; ++t) {
-          if (16 * t + 16 > L) {  // keys past L get -inf
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              if (16 * t + 8 * (e >> 2) + 2 * c + (e & 1) >= L) s[8 * t + e] = -CUDART_INF_F;
-          }
-        }
-        float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-#pragma unroll
-        for (int t = 0; t < NC; ++t)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            if (e & 2) m1 = fmaxf(m1, s[8 * t + e]);
-            else m0 = fmaxf(m0, s[8 * t + e]);
-          }
-        m0 = quad_max(m0);
-        m1 = quad_max(m1);
-        // exp(v - max) with expf, as torch's softmax (and jnp.exp) computes it
-        const float n0 = -m0 * sc, n1 = -m1 * sc;
-        float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-        for (int t = 0; t < NC; ++t) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const float x = expf(fmaf(s[8 * t + e], sc, (e & 2) ? n1 : n0));
-            s[8 * t + e] = x;
-            if (e & 2) sum1 += x;
-            else sum0 += x;
-          }
-        }
-        sum0 = quad_sum(sum0);
-        sum1 = quad_sum(sum1);
-        const float inv0 = rcp_rn(sum0), inv1 = rcp_rn(sum1);
-#pragma unroll
-        for (int t = 0; t < NC; ++t) {
-          p[t][0] = pack_bf16(div_rn(s[8 * t + 0], sum0, inv0), div_rn(s[8 * t + 1], sum0, inv0));
-          p[t][1] = pack_bf16(div_rn(s[8 * t + 2], sum1, inv1), div_rn(s[8 * t + 3], sum1, inv1));
-          p[t][2] = pack_bf16(div_rn(s[8 * t + 4], sum0, inv0), div_rn(s[8 * t + 5], sum0, inv0));
-          p[t][3] = pack_bf16(div_rn(s[8 * t + 6], sum1, inv1), div_rn(s[8 * t + 7], sum1, inv1));
-        }
-      } else {
-#pragma unroll
-        for (int t = 0; t < NC; ++t) p[t][0] = p[t][1] = p[t][2] = p[t][3] = 0u;
-      }
-
-      // O = P V: 16 keys a step, V through its transposed descriptor
-      float o[32];
-#pragma unroll
-      for (int e = 0; e < 32; ++e) o[e] = 0.f;
-      const uint64_t dv = desc_mn_major(sv);
-      wgmma_fence();
-#pragma unroll
-      for (int t = 0; t < NC; ++t) wgmma_m64n64k16<1>(o, p[t], desc_add(dv, t * 2048), t);
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int e = 0; e < 32; ++e) fence_operand(o[e]);
-
-      // rounded once; staged through this warp's own Q rows (read above
-      // into qa) so that each lane stores whole 16-byte chunks
-      if (live) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          *reinterpret_cast<uint32_t*>(q_s + sw128(r0, j) + 4 * c) = pack_bf16(o[4 * j], o[4 * j + 1]);
-          *reinterpret_cast<uint32_t*>(q_s + sw128(r1, j) + 4 * c) =
-              pack_bf16(o[4 * j + 2], o[4 * j + 3]);
-        }
-        __syncwarp();
-        bf16* out_b = out + (long long)b * L * E + h * 64;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = rb + i * 4 + (lane >> 3), ch = lane & 7;
-          if (row < L)
-            *reinterpret_cast<uint4*>(out_b + (long long)row * E + ch * 8) =
-                *reinterpret_cast<const uint4*>(q_s + sw128(row, ch));
-        }
-      }
-    }
+    bf16* out_b = out + (long long)b * L * E + h * 64;
+    for (int qt = wg; qt < NQT; qt += NWG)
+      attn_query_tile<LP>(q_s, sk, sv, mk, L, scale, qt, out_b, E);
     __syncthreads();  // stage st is free for unit u + 2 grid
   }
 }
@@ -354,15 +215,16 @@ cudaError_t launch_bf16_lp(const void* qkv, const float* mask, void* out, int B,
   return cudaGetLastError();
 }
 
-// the padded lengths of the shapes the towers use: 50 -> 64, 77 -> 80,
-// 197 -> 208
+// the instantiation at padded_len(L) (attn_core.cuh)
 cudaError_t launch_bf16(const void* qkv, const float* mask, void* out, int B, int L, int E,
                         int H, cudaStream_t stream) {
-  if (L <= 64) return launch_bf16_lp<64>(qkv, mask, out, B, L, E, H, stream);
-  if (L <= 80) return launch_bf16_lp<80>(qkv, mask, out, B, L, E, H, stream);
-  if (L <= 128) return launch_bf16_lp<128>(qkv, mask, out, B, L, E, H, stream);
-  if (L <= 208) return launch_bf16_lp<208>(qkv, mask, out, B, L, E, H, stream);
-  return launch_bf16_lp<256>(qkv, mask, out, B, L, E, H, stream);
+  switch (padded_len(L)) {
+    case 64: return launch_bf16_lp<64>(qkv, mask, out, B, L, E, H, stream);
+    case 80: return launch_bf16_lp<80>(qkv, mask, out, B, L, E, H, stream);
+    case 128: return launch_bf16_lp<128>(qkv, mask, out, B, L, E, H, stream);
+    case 208: return launch_bf16_lp<208>(qkv, mask, out, B, L, E, H, stream);
+    default: return launch_bf16_lp<256>(qkv, mask, out, B, L, E, H, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------

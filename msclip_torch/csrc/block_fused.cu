@@ -26,50 +26,64 @@
 //
 // Bound on an H100 SXM: operations. K5 at ViT-B/32 (B=256, L=50), bf16, is
 // 62.4 GFLOP (60.4 in the four projections), 63 us at 989 TFLOP/s, against
-// 44 MB of I/O (13 us at 3.35 TB/s); K6 there is 121 GFLOP, 122 us. What
-// the design does about it: bf16 products run on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulators); every weight tile and activation
-// tile is staged into shared memory by cp.async through a three-stage
-// ring; a block takes as many short samples at once as fill a GEMM pass of
-// 128 rows, so that each weight tile it stages serves up to 128 tokens; x
-// is read from device memory once and the output written once. fp32
-// products run on the CUDA cores in full fp32 (fused multiply-adds, no
-// TF32) with the same tiling and accumulator layout. PERF.md has the times
-// against the bound.
+// 44 MB of I/O (13 us at 3.35 TB/s); at the text chunk (1024 x 77, causal)
+// 381 GFLOP (372 in the projections), 386 us; K6 at ViT-B/32 is 121 GFLOP,
+// 122 us. x is read from device memory once and the output written once;
+// the weights are read once from device memory and again from the L2 by
+// every group of samples, so the bytes that bound a block are the weight
+// and activation tiles it stages from the L2.
 //
 // Design, and what lives where:
 //
-// * K5: a block owns a group of S = max(1, 128 / L) samples at a time (2
-//   at L=50, 1 at L=77 and L=197; a persistent grid of resident blocks
-//   walks the batch), whose S L rows are contiguous in x. It writes their
-//   LN1(x) into its own slice of a device-memory workspace (one sample's h
-//   is 77 KB at L=50, 303 KB at L=197: too large for shared memory beside
-//   the GEMM tiles). Then for each head it runs one GEMM of [S L, 768] x
-//   [768, 192] (the head's q, k and v rows of the in-projection) whose
-//   epilogue adds the fp32 bias, rounds and writes the head's q/k/v
-//   [S L, 192] to the workspace; sample by sample, stages them into shared
-//   memory as K1 (csrc/attention_fwd.cu) does and runs K1's attention
-//   (bf16: the 16 x LP score tile in mma.sync registers, the weights fed
-//   back as the A operand of PV; fp32: a warp per query row), writing the
-//   head's context columns into a second workspace slice. Last, the
-//   out-projection GEMM [S L, 768] x [768, 768] over four column tiles of
-//   192, with the bias and the residual in its epilogue. GEMM rows go in
-//   passes of at most 128 (two at L > 128). The block's slices (h, ctx,
-//   q/k/v: 3.4 KB a token in bf16) stay in the 50 MB L2 at the image and
-//   text shapes.
+// * K5, bf16 (halfblock.cuh attention_halfblock_group): a persistent grid,
+//   one block of two warpgroups an SM (225 KB of shared memory), walks the
+//   batch in groups of S whole samples: as many as fit 256 GEMM rows and
+//   512 padded attention rows (5 at L=50, 3 at L=77, 1 at L > 128), but no
+//   more than spread the batch over every SM (the caller's S: 2 at
+//   256 x 50, 3 at 1024 x 77). The group's LN1(x) goes to the block's
+//   slice h of a device-memory workspace (77 KB a sample at L=50). Then for
+//   each head one GEMM [S L, 768] x [768, 192] (the head's q, k and v rows
+//   of the in-projection) on wgmma.m64n192k16, both operands from shared
+//   memory in the 128-byte swizzle, fed by TMA through a four-stage ring
+//   of 64-wide K chunks (up to 32 KB of rows and 24 KB of weights a
+//   stage, two chunks ahead; one thread issues the loads, and full and
+//   empty mbarriers a stage replace block barriers); each warpgroup holds
+//   one or two 64-row m-tiles of fp32 accumulators (96 or 192 registers a
+//   thread), so each weight tile staged serves up to 256 rows (231 at
+//   L=77, where the mma.sync design served 77). The epilogue
+//   adds the fp32 bias, rounds, and writes q, k and v as swizzled [LP, 64]
+//   tiles per sample into the shared memory the ring held; the two
+//   warpgroups then run the group's (sample, 64-row query tile) units at
+//   once, each through K1's wgmma attention (attn_core.cuh), into the
+//   slice ctx. Last, the out-projection [S L, 768] x [768, 768] as four
+//   such GEMMs of 192 columns, the bias and the residual in the epilogue.
+//   L2 -> SM bytes a launch (weight and activation tiles; chip_smoke.py
+//   staged_l2_bytes): 16 GEMMs of (128 or 256 + 192) x 768 bf16 a group,
+//   3.76 GB at 1024 x 77 (the mma.sync design: 6.77 GB, one sample a
+//   group) and 1.01 GB at 256 x 50 (0.92 GB: two samples a group in
+//   both, the TMA boxes reading 128 rows for 100).
+// * K5, fp32: CUDA cores in full fp32 (fused multiply-adds, no TF32), the
+//   mma.sync design's tiling (halfblock.cuh attention_halfblock_rows): a
+//   group of S = max(1, 128 / L) samples, q/k/v [S L, 192] of each head
+//   through the workspace, K1's fp32 attention one sample at a time on the
+//   whole block (a warp per query row), GEMM passes of at most 128 rows
+//   through a three-stage ring.
 // * K6: a block owns 32 token rows at a time. LN2 of its rows goes to its
 //   workspace slice; then for each of 24 chunks of 128 hidden columns, a
 //   GEMM [32, 768] x [768, 128] whose epilogue adds the bias and takes the
 //   fp32 QuickGELU, rounded into a [32, 128] workspace tile, and a GEMM
 //   [32, 128] x [128, 768] accumulated across the chunks into [32, 768]
-//   fp32 registers; the epilogue adds the bias and the residual.
+//   fp32 registers; the epilogue adds the bias and the residual. bf16
+//   products on mma.sync m16n8k16 (fp32 accumulators), cp.async rings of
+//   three stages.
 //
 // The device code K5 shares with the tuning kernels E1 and E2
 // (halfblock_tuning.cu) lives in halfblock.cuh: the GEMMs, LayerNorm, the
-// per-head attention and K5's body over a group of samples.
+// per-head attention and K5's bodies over a group of samples.
 //
-// Later work: wgmma with TMA-fed rings, h kept in distributed shared memory
-// of a cluster instead of the workspace, and more rows per block for K6.
+// Later work: overlapping one head's attention with the next head's GEMM,
+// weight tiles multicast to a cluster of blocks, h kept in distributed
+// shared memory instead of the workspace, and more rows per block for K6.
 
 #include "halfblock.cuh"
 
@@ -83,30 +97,41 @@ constexpr int kFChunk = 128;       // hidden columns per K6 chunk
 // K5 (its body, attention_halfblock_rows, is in halfblock.cuh)
 // ---------------------------------------------------------------------------
 
-// workspace elements of one block: h, ctx [S L, 768] and q/k/v [S L, 192]
-// for its S samples
-__host__ __device__ constexpr long long attn_slot_elems(int L) {
-  return (long long)samples_per_group(L) * L * (2 * kE + kQkv);
+// workspace elements of one block at S samples of length L: h and ctx
+// [S L, 768], and for the fp32 body q/k/v [S L, 192]
+template <typename T>
+__host__ __device__ constexpr long long attn_slot_elems(int S, int L) {
+  return (long long)S * L * (2 * kE + (std::is_same<T, bf16>::value ? 0 : kQkv));
 }
 
 template <typename T, int A>
 __global__ void __launch_bounds__(kThreads)
-attention_halfblock_kernel(const T* __restrict__ x, const T* __restrict__ ln_w,
-                           const T* __restrict__ ln_b, const T* __restrict__ w_in,
-                           const float* __restrict__ b_in, const T* __restrict__ w_out,
-                           const float* __restrict__ b_out, const float* __restrict__ mask,
-                           T* __restrict__ out, T* __restrict__ ws, int B, int L, float eps) {
+attention_halfblock_kernel(const __grid_constant__ HalfMaps maps, const T* __restrict__ x,
+                           const T* __restrict__ ln_w, const T* __restrict__ ln_b,
+                           const T* __restrict__ w_in, const float* __restrict__ b_in,
+                           const T* __restrict__ w_out, const float* __restrict__ b_out,
+                           const float* __restrict__ mask, T* __restrict__ out,
+                           T* __restrict__ ws, long long slot, int B, int L, int S, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = samples_per_group(L);
-  T* h = ws + blockIdx.x * attn_slot_elems(L);
+  T* h = ws + blockIdx.x * slot;
   T* ctx = h + (size_t)S * L * kE;
-  T* qkv = ctx + (size_t)S * L * kE;
 
-  for (int b0 = blockIdx.x * S; b0 < B; b0 += gridDim.x * S) {
-    const int rows = min(S, B - b0) * L;  // the group's tokens, contiguous
-    const size_t off = (size_t)b0 * L * kE;
-    attention_halfblock_rows<T, A, kBase>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out, mask,
-                                          out + off, h, ctx, qkv, rows, L, eps, smem_raw);
+  if constexpr (std::is_same<T, bf16>::value) {
+    Ring ring = make_ring(smem_raw);
+    const int h_row0 = (int)(blockIdx.x * slot / kE), ctx_row0 = h_row0 + S * L;
+    for (int b0 = blockIdx.x * S; b0 < B; b0 += gridDim.x * S) {
+      const size_t off = (size_t)b0 * L * kE;  // the group's rows, contiguous
+      attention_halfblock_group<8 * A, kBase>(maps, x + off, ln_w, ln_b, b_in, b_out, mask,
+                                              out + off, h, ctx, h_row0, ctx_row0,
+                                              min(S, B - b0), L, eps, ring);
+    }
+  } else {
+    for (int b0 = blockIdx.x * S; b0 < B; b0 += gridDim.x * S) {
+      const size_t off = (size_t)b0 * L * kE;
+      attention_halfblock_rows<T, A, kBase>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out, mask,
+                                            out + off, h, ctx, ctx + (size_t)S * L * kE,
+                                            min(S, B - b0) * L, L, eps, smem_raw);
+    }
   }
 }
 
@@ -194,39 +219,55 @@ cudaError_t grid_size(K kernel, size_t smem, int work, int slots, int* grid) {
   return cudaSuccess;
 }
 
+// dynamic shared memory of the K5 and E1 kernels at attention tile A
+template <typename T, int A>
+constexpr size_t attn_smem() {
+  if constexpr (std::is_same<T, bf16>::value) return kWgmmaSmem;
+  else return AttnHead<T, A>::smem_bytes > kGemmSmem ? AttnHead<T, A>::smem_bytes : kGemmSmem;
+}
+
 template <typename T, int A>
 cudaError_t launch_attn(const void* x, const void* ln_w, const void* ln_b, const void* w_in,
                         const float* b_in, const void* w_out, const float* b_out,
-                        const float* mask, void* out, void* ws, int slots, int B, int L,
-                        float eps, cudaStream_t stream) {
+                        const float* mask, void* out, void* ws, long long slot, int slots, int B,
+                        int L, int S, float eps, cudaStream_t stream) {
   auto kernel = attention_halfblock_kernel<T, A>;
-  const size_t attn = AttnHead<T, A>::smem_bytes;
-  const size_t smem = attn > kGemmSmem ? attn : kGemmSmem;
-  const int S = samples_per_group(L);
+  constexpr size_t smem = attn_smem<T, A>();
+  // the bf16 body addresses the workspace as rows of 768 (its tensor map)
+  if (slot < attn_slot_elems<T>(S, L) || (std::is_same<T, bf16>::value && slot % kE != 0))
+    return cudaErrorInvalidValue;
+  HalfMaps maps{};
+  cudaError_t err;
+  if (std::is_same<T, bf16>::value &&
+      (err = half_maps(&maps, ws, slots, slot, w_in, w_out)) != cudaSuccess)
+    return err;
   int grid = 0;
-  cudaError_t err = grid_size(kernel, smem, (B + S - 1) / S, slots, &grid);
-  if (err != cudaSuccess) return err;
+  if ((err = grid_size(kernel, smem, (B + S - 1) / S, slots, &grid)) != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
+      maps, static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
       static_cast<const T*>(w_in), b_in, static_cast<const T*>(w_out), b_out, mask,
-      static_cast<T*>(out), static_cast<T*>(ws), B, L, eps);
+      static_cast<T*>(out), static_cast<T*>(ws), slot, B, L, S, eps);
   return cudaGetLastError();
 }
 
-// the padded lengths of the shapes the towers use, as K1: bf16 50 -> 64,
-// 77 -> 80, 197 -> 208; fp32 keys per lane
+// bf16: the instantiation at K1's padded_len(L) (attn_core.cuh); fp32:
+// keys per lane
 cudaError_t dispatch_attn(bool bf, const void* x, const void* ln_w, const void* ln_b,
                           const void* w_in, const float* b_in, const void* w_out,
-                          const float* b_out, const float* mask, void* out, void* ws, int slots,
-                          int B, int L, float eps, cudaStream_t s) {
-#define MSCLIP_ATTN(T, A) \
-  launch_attn<T, A>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, mask, out, ws, slots, B, L, eps, s)
+                          const float* b_out, const float* mask, void* out, void* ws,
+                          long long slot, int slots, int B, int L, int S, float eps,
+                          cudaStream_t s) {
+#define MSCLIP_ATTN(T, A)                                                                    \
+  launch_attn<T, A>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, mask, out, ws, slot, slots, B, L, \
+                    S, eps, s)
   if (bf) {
-    if (L <= 64) return MSCLIP_ATTN(bf16, 8);
-    if (L <= 80) return MSCLIP_ATTN(bf16, 10);
-    if (L <= 128) return MSCLIP_ATTN(bf16, 16);
-    if (L <= 208) return MSCLIP_ATTN(bf16, 26);
-    return MSCLIP_ATTN(bf16, 32);
+    switch (padded_len(L)) {  // A = LP / 8
+      case 64: return MSCLIP_ATTN(bf16, 8);
+      case 80: return MSCLIP_ATTN(bf16, 10);
+      case 128: return MSCLIP_ATTN(bf16, 16);
+      case 208: return MSCLIP_ATTN(bf16, 26);
+      default: return MSCLIP_ATTN(bf16, 32);
+    }
   }
   if (L <= 64) return MSCLIP_ATTN(float, 2);
   if (L <= 128) return MSCLIP_ATTN(float, 4);
@@ -252,32 +293,33 @@ cudaError_t launch_mlp(const void* x, const void* ln_w, const void* ln_b, const 
 
 }  // namespace
 
-// Workspace elements (of the input type) of one block: K5 (mlp = 0) at
-// sequence length L, or K6 (mlp = 1).
-extern "C" long long msclip_halfblock_slot_elems(int mlp, int L) {
-  return mlp ? mlp_slot_elems() : attn_slot_elems(L);
-}
-
 // K5. x, out: [B, L, 768]; ln_w, ln_b: [768]; w_in: [2304, 768] (q, k, v
 // rows); w_out: [768, 768]; all of one dtype (0 = float32, 1 = bfloat16),
 // contiguous and 16-byte aligned. b_in [2304] and b_out [768]: fp32. mask:
-// fp32 [L, L] or null. ws: slots x msclip_halfblock_slot_elems(0, L)
-// elements of the dtype. Returns the launch's cudaError_t (0 on success);
-// the caller has checked the shapes.
+// fp32 [L, L] or null. A block takes S samples at a time (bf16: at most 256
+// rows and 512 padded attention rows, or one sample); ws holds slots
+// slices of slot elements of the dtype, each at least h and ctx [S L, 768]
+// (and q/k/v [S L, 192] in fp32). Returns the launch's cudaError_t (0 on
+// success); the caller has checked the shapes.
 extern "C" int msclip_attention_halfblock(const void* x, const void* ln_w, const void* ln_b,
                                           const void* w_in, const float* b_in,
                                           const void* w_out, const float* b_out,
-                                          const float* mask, void* out, void* ws, int slots,
-                                          int B, int L, float eps, int dtype, void* stream) {
-  if (B <= 0 || L <= 0 || L > kMaxSeq || slots <= 0 || (dtype != 0 && dtype != 1))
+                                          const float* mask, void* out, void* ws,
+                                          long long slot, int slots, int B, int L, int S,
+                                          float eps, int dtype, void* stream) {
+  if (B <= 0 || L <= 0 || L > kMaxSeq || slots <= 0 || S <= 0 || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && !bf16_group_fits(S, L)))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_attn(dtype == 1, x, ln_w, ln_b, w_in, b_in, w_out, b_out, mask, out, ws,
-                            slots, B, L, eps, static_cast<cudaStream_t>(stream));
+                            slot, slots, B, L, S, eps, static_cast<cudaStream_t>(stream));
 }
+
+// Workspace elements (of the input type) of one K6 block.
+extern "C" long long msclip_mlp_halfblock_slot_elems() { return mlp_slot_elems(); }
 
 // K6. x, out: [rows, 768]; ln_w, ln_b: [768]; w_fc: [3072, 768]; w_proj:
 // [768, 3072]; one dtype as above. b_fc [3072] and b_proj [768]: fp32. ws:
-// slots x msclip_halfblock_slot_elems(1, 0) elements of the dtype.
+// slots x msclip_mlp_halfblock_slot_elems() elements of the dtype.
 extern "C" int msclip_mlp_halfblock(const void* x, const void* ln_w, const void* ln_b,
                                     const void* w_fc, const float* b_fc, const void* w_proj,
                                     const float* b_proj, void* out, void* ws, int slots,

@@ -6,18 +6,27 @@
 // What lives here: element types and their roundings, cp.async and the
 // bf16 mma.sync product, the warp and block GEMMs over shared-memory tiles
 // (WarpMma, Tile, block_gemm, gemm_pass, gemm_192), LayerNorm of rows of
-// 768 (layer_norm_rows), one head's attention (AttnHead, K1's arithmetic
-// and layout), and K5's body over one group of samples
+// 768 (layer_norm_rows), one head's attention on mma.sync or the CUDA
+// cores (AttnHead), and K5's body over one group of samples on them
 // (attention_halfblock_rows) with its out-projection epilogue
-// (out_projection_residual). block_fused.cu's header comment has the
-// design and the rounding points.
+// (out_projection_residual): the fp32 K5 and E1, and E2 in both types,
+// run these. K5's and E1's bf16 body is on wgmma fed by TMA
+// (attention_halfblock_group: the tensor maps HalfMaps, the mbarrier ring
+// Ring, wgmma_gemm, qkv_head and out_projection_wgmma, with K1's attention
+// from attn_core.cuh). block_fused.cu's header comment has the design and
+// the rounding points.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <cuda.h>
 #include <cstdint>
+#include <type_traits>
+
+#include "attn_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -30,7 +39,7 @@ constexpr int kQkv = 3 * kD;       // one head's q, k and v columns
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSeq = 256;
-constexpr int kGroupRows = 128;    // GEMM rows per pass of K5
+constexpr int kGroupRows = 128;    // GEMM rows per pass of the mma.sync body (GROUP_ROWS)
 
 // ---------------------------------------------------------------------------
 // element types
@@ -100,28 +109,13 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// PTX: asynchronous copies and the bf16 tensor-core product
+// PTX: asynchronous copies and the bf16 mma.sync product
 // ---------------------------------------------------------------------------
 
-// 16 bytes global -> shared, or 16 zero bytes when !valid (src-size 0)
+// 16 bytes global -> shared at a generic pointer, or 16 zero bytes when
+// !valid (hopper.cuh has the form that takes a shared address)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  cp_async16(smem_u32(smem), gmem, valid);
 }
 
 // D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
@@ -141,11 +135,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,7 +278,7 @@ __device__ void block_gemm(float (&acc)[MPW][NPW][4], const T* __restrict__ a, i
   if (n_chunks > 1) load(1, 1);
   cp_async_commit();
   for (int kc = 0; kc < n_chunks; ++kc) {
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();  // chunk kc visible to all; every warp is past kc - 1
     if (kc + 2 < n_chunks) load(kc + 2, (kc + 2) % Tl::STAGES);
     cp_async_commit();
@@ -297,7 +286,7 @@ __device__ void block_gemm(float (&acc)[MPW][NPW][4], const T* __restrict__ a, i
     WarpMma<T, Tl::KC, LD, MPW, NPW, WM>::run(acc, sa + wm * 16 * LD,
                                               sa + (ROWS + wn * NPW * 8) * LD, lane);
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();  // the caller's next GEMM refills every stage
 }
 
@@ -648,12 +637,6 @@ struct AttnHead<float, KPL, Recip> {
 // K5's body
 // ---------------------------------------------------------------------------
 
-// Samples a block takes at once: as many as fill one GEMM pass of 128
-// rows (2 at L=50), at least one. Their rows are contiguous in x and out.
-__host__ __device__ constexpr int samples_per_group(int L) {
-  return L < kGroupRows ? kGroupRows / L : 1;
-}
-
 constexpr float kScale = 0.125f;  // kD^-1/2
 
 // The numeric variants of the attention half-block (the JAX bodies of
@@ -731,6 +714,366 @@ __device__ void attention_halfblock_rows(const T* __restrict__ xb, const T* __re
   out_projection_residual<T>(ctx, rows, w_out, b_out, xb, ob, smem);
   // the next group's LayerNorm overwrites h, which the last GEMM's trailing
   // barrier has released
+}
+
+// ---------------------------------------------------------------------------
+// K5's bf16 body on wgmma (K5 and E1)
+// ---------------------------------------------------------------------------
+//
+// A block owns a group of ns whole samples, at most 256 rows (one sample
+// when L > 128), whose rows are contiguous in x and out. LN1 of its rows
+// goes to its slice h of a device-memory workspace. Then for each head one
+// GEMM [rows, 768] x [768, 192] (the head's q, k and v rows of the
+// in-projection) on wgmma, each weight tile staged once for all the
+// group's rows; its epilogue adds the fp32 bias, rounds, and writes q, k
+// and v as one swizzled [LP, 64] tile per sample into the shared memory
+// the GEMM's ring held, rows past L zero. The two warpgroups then take the
+// group's (sample, 64-row query tile) units in turn through K1's attention
+// (attn_core.cuh), writing the head's context columns to the slice ctx.
+// Last, the out-projection [rows, 768] x [768, 768] as four GEMMs of 192
+// columns, the bias and the residual in their epilogue.
+//
+// The GEMMs' operands come by TMA: thread 0 loads each 64-wide K chunk of
+// the activation rows (h or ctx, through a tensor map over the workspace)
+// and of the 192 weight rows (three 64-row boxes of w_in or w_out) into a
+// ring of four stages, two chunks ahead, each stage with a "full" mbarrier
+// that counts the bytes landing and an "empty" one that every thread
+// arrives on once its products of the stage are done. No block barrier
+// runs inside a GEMM.
+
+// the bf16 group's limits; ops/block_fused.py (WGMMA_ROWS, TILE_ROWS)
+// plans the groups with them, held to these by a test
+constexpr int kWgRows = 256;                   // rows of a bf16 group
+constexpr int kWgTileRows = 512;               // its padded q/k/v rows (ns LP)
+constexpr int kChunk = 64;                     // K of a staged chunk: one swizzle row
+constexpr int kChunks = kE / kChunk;
+constexpr int kBoxRows = 128;                  // activation rows a TMA box holds
+constexpr uint32_t kStageA = kWgRows * 128;    // a chunk's activation rows
+constexpr uint32_t kStageW = kQkv * 128;       // a chunk's 192 weight rows
+constexpr uint32_t kStageBytes = kStageA + kStageW;
+constexpr int kStages = 4;
+// chunks in flight ahead of the one multiplied; the products of the
+// kStages - kPrefetch - 1 chunks before it may still run
+constexpr int kPrefetch = 2;
+// dynamic shared memory: alignment slack, the ring, its 2 kStages mbarriers
+constexpr size_t kWgmmaSmem = 1024 + (size_t)kStages * kStageBytes + 16 * kStages;
+static_assert(3u * kWgTileRows * 128 <= kStages * kStageBytes, "q/k/v tiles fit in the ring");
+static_assert(kWgmmaSmem <= 232448, "one block's shared memory");
+
+// Whether ns samples of length L make a bf16 group: at most 256 rows and
+// 512 padded tile rows, or one sample.
+__host__ __device__ constexpr bool bf16_group_fits(int ns, int L) {
+  return ns == 1 || (ns >= 1 && ns * L <= kWgRows && ns * padded_len(L) <= kWgTileRows);
+}
+
+// The tensor maps of the bf16 body, kernel parameters (__grid_constant__):
+// the workspace as rows of 768 in boxes of 128 rows, w_in and w_out in
+// boxes of 64 rows, each box 64 columns wide in the 128-byte swizzle.
+struct HalfMaps {
+  CUtensorMap ws, w_in, w_out;
+};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A map of `rows` bf16 rows of 768 at base in boxes of 64 columns x
+// box_rows, through the driver's encoder (fetched once from the runtime,
+// so the library does not link against the driver).
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, long long rows, int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)kE, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kE * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The maps of one launch: the workspace's slots x slot elements, w_in
+// [2304, 768] and w_out [768, 768].
+inline cudaError_t half_maps(HalfMaps* maps, const void* ws, long long slots, long long slot,
+                             const void* w_in, const void* w_out) {
+  cudaError_t err;
+  if ((err = tile_map(&maps->ws, ws, slots * slot / kE, kBoxRows)) != cudaSuccess) return err;
+  if ((err = tile_map(&maps->w_in, w_in, 3 * kE, kD)) != cudaSuccess) return err;
+  return tile_map(&maps->w_out, w_out, kE, kD);
+}
+
+// The block's ring: stage s at base + s kStageBytes, its full and empty
+// mbarriers at bars + 8 s and bars + 8 (kStages + s); `it` counts the
+// chunks this block's GEMMs have gone through (every thread keeps it).
+struct Ring {
+  uint32_t base, bars, it;
+  unsigned char* ptr;  // base as a generic pointer
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (kStages + s); }
+};
+
+// The ring of the block's dynamic shared memory, its mbarriers initialized
+// (full: thread 0's arrival and the bytes; empty: every thread). Ends in a
+// block barrier.
+__device__ __forceinline__ Ring make_ring(unsigned char* smem_raw) {
+  const uint32_t raw = smem_u32(smem_raw);
+  Ring ring;
+  ring.base = (raw + 1023u) & ~1023u;
+  ring.ptr = smem_raw + (ring.base - raw);
+  ring.bars = ring.base + kStages * kStageBytes;
+  ring.it = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), kThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return ring;
+}
+
+// acc = A W^T over the group: A the workspace rows a_row0 .. a_row0 +
+// 128 MPW of maps.ws (the group's rows first; the products of the rows
+// past them are not used), W the 192 rows w_row0 + t w_step + (0 .. 64),
+// t < 3, of *wmap. Warpgroup w owns the 64-row m-tiles w + 2 i (i < MPW),
+// wgmma.m64n192k16 with both operands from shared memory (K-major,
+// 128-byte swizzle). Thread 0 keeps kPrefetch chunks in flight; each
+// warpgroup leaves one chunk's products running while it waits for the
+// next chunk.
+template <int MPW>
+__device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const HalfMaps& maps,
+                                           int a_row0, const CUtensorMap* wmap, int w_row0,
+                                           int w_step, Ring& ring) {
+  const int wg = threadIdx.x >> 7;
+  const uint32_t it0 = ring.it;
+#pragma unroll
+  for (int i = 0; i < MPW; ++i)
+#pragma unroll
+    for (int e = 0; e < kQkv / 2; ++e) acc[i][e] = 0.f;
+
+  // thread 0: chunk kc into its stage, once every thread has released it
+  auto load = [&](int kc) {
+    const uint32_t j = it0 + kc, s = j % kStages;
+    mbar_wait(ring.empty(s), ((j / kStages) & 1) ^ 1);
+    mbar_arrive_expect_tx(ring.full(s), (128 * MPW + kQkv) * 128);
+    const uint32_t sa = ring.base + s * kStageBytes;
+#pragma unroll
+    for (int m = 0; m < MPW; ++m)
+      tma_load_2d(sa + m * kBoxRows * 128, &maps.ws, ring.full(s), kc * kChunk,
+                  a_row0 + m * kBoxRows);
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      tma_load_2d(sa + kStageA + t * kD * 128, wmap, ring.full(s), kc * kChunk,
+                  w_row0 + t * w_step);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int kc = 0; kc < kPrefetch; ++kc) load(kc);
+  }
+  for (int kc = 0; kc < kChunks; ++kc) {
+    if (threadIdx.x == 0 && kc + kPrefetch < kChunks) load(kc + kPrefetch);
+    const uint32_t j = it0 + kc, s = j % kStages;
+    mbar_wait(ring.full(s), (j / kStages) & 1);
+    __syncwarp();
+    const uint32_t sa = ring.base + s * kStageBytes;
+    const uint64_t db = desc_k_major(sa + kStageA);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 16; ++ks) {
+#pragma unroll
+      for (int i = 0; i < MPW; ++i)
+        wgmma_m64n192k16_ss(acc[i], desc_add(desc_k_major(sa + (wg + 2 * i) * 8192), ks * 32),
+                            desc_add(db, ks * 32));
+    }
+    wgmma_commit();
+    wgmma_wait<kStages - kPrefetch - 1>();
+    if (kc > 0) mbar_arrive(ring.empty((j - 1) % kStages));
+  }
+  wgmma_wait<0>();
+  mbar_arrive(ring.empty((it0 + kChunks - 1) % kStages));
+  ring.it = it0 + kChunks;
+#pragma unroll
+  for (int i = 0; i < MPW; ++i)
+#pragma unroll
+    for (int e = 0; e < kQkv / 2; ++e) fence_operand(acc[i][e]);
+}
+
+// The rows of this thread's accumulators: row(i, hi) of m-tile i, and the
+// first of each column pair, col(j) = 8 j + 2 c; the pair is
+// acc[i][4 j + 2 hi] and acc[i][4 j + 2 hi + 1].
+__device__ __forceinline__ int acc_row(int i, int hi) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  return (wg + 2 * i) * 64 + 16 * warp + (lane >> 2) + 8 * hi;
+}
+
+__device__ __forceinline__ int acc_col(int j) { return 8 * j + 2 * (threadIdx.x & 3); }
+
+// One head's q/k/v GEMM (h the workspace rows from h_row0) and its
+// epilogue: the fp32 bias added (v1: the product and the bias each rounded
+// first), the result rounded to bf16 and written as the group's swizzled
+// tiles in the ring: q of sample s at tile s, k at ns + s, v at 2 ns + s,
+// each [LP, 64], rows L .. LP - 1 zero. v2a instead writes ctx = v + 1e-4 q
+// + 1e-4 k, each operation rounded, to the head's columns of ctx. Ends
+// with a barrier after which the tiles are visible to wgmma.
+template <int MPW, int LP, int V>
+__device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh,
+                         const float* __restrict__ b_in, bf16* ctx, Ring& ring) {
+  const int rows = ns * L;
+  float acc[MPW][kQkv / 2];
+  // rows hh 64 .. of the q, k and v blocks of w_in, 768 rows apart
+  wgmma_gemm<MPW>(acc, maps, h_row0, &maps.w_in, hh * kD, kE, ring);
+  __syncthreads();  // every warpgroup's products are done: the ring is free
+  unsigned char* tiles = ring.ptr;
+
+#pragma unroll
+  for (int i = 0; i < MPW; ++i) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = acc_row(i, hi);
+      if (r >= rows) continue;
+      const float* a = acc[i] + 2 * hi;
+      if constexpr (V == kNoHeads) {
+        const float cf = round_to<bf16>(1e-4f);  // the coefficient in bf16, as JAX's weak scalar
+        bf16* o = ctx + (size_t)r * kE + hh * kD;
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          const int d = acc_col(j);
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float q = round_to<bf16>(__fadd_rn(a[4 * j + e], b_in[hh * kD + d + e]));
+            const float k = round_to<bf16>(__fadd_rn(a[4 * (j + 8) + e], b_in[kE + hh * kD + d + e]));
+            const float v =
+                round_to<bf16>(__fadd_rn(a[4 * (j + 16) + e], b_in[2 * kE + hh * kD + d + e]));
+            const float t = round_to<bf16>(__fadd_rn(v, round_to<bf16>(__fmul_rn(cf, q))));
+            y[e] = __fadd_rn(t, round_to<bf16>(__fmul_rn(cf, k)));
+          }
+          *reinterpret_cast<uint32_t*>(o + d) = pack_bf16(y[0], y[1]);
+        }
+      } else {
+        const int s = r / L, jr = r - s * L;
+#pragma unroll
+        for (int j = 0; j < kQkv / 8; ++j) {
+          const int col = acc_col(j), which = col / kD, d = col % kD;
+          const float* bias = b_in + which * kE + hh * kD + d;
+          float y[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            y[e] = V == kQkvRounded ? __fadd_rn(round_to<bf16>(a[4 * j + e]), round_to<bf16>(bias[e]))
+                                    : __fadd_rn(a[4 * j + e], bias[e]);
+          *reinterpret_cast<uint32_t*>(tiles + (which * ns + s) * LP * 128 + sw128(jr, d >> 3) +
+                                       (d & 7) * 2) = pack_bf16(y[0], y[1]);
+        }
+      }
+    }
+  }
+  if constexpr (V != kNoHeads) {
+    // padded rows are zero: keys past L get weight 0 against finite V
+    const int pad = LP - L;
+    for (int idx = threadIdx.x; idx < 3 * ns * pad * 8; idx += kThreads) {
+      const int ch = idx & 7, t = (idx >> 3) / pad, jr = L + (idx >> 3) % pad;
+      *reinterpret_cast<uint4*>(tiles + t * LP * 128 + sw128(jr, ch)) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// ob = xb + (ctx W_out^T + b_out) for the group's rows (ctx the workspace
+// rows from ctx_row0): four GEMMs of 192 output columns, the fp32 bias
+// added before the rounding to bf16 and the residual added in bf16 in
+// their epilogue.
+template <int MPW>
+__device__ void out_projection_wgmma(const HalfMaps& maps, int ctx_row0, int rows,
+                                     const float* __restrict__ b_out, const bf16* __restrict__ xb,
+                                     bf16* __restrict__ ob, Ring& ring) {
+  for (int n0 = 0; n0 < kE; n0 += kQkv) {
+    float acc[MPW][kQkv / 2];
+    wgmma_gemm<MPW>(acc, maps, ctx_row0, &maps.w_out, n0, kD, ring);
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = acc_row(i, hi);
+        if (r >= rows) continue;
+#pragma unroll
+        for (int j = 0; j < kQkv / 8; ++j) {
+          const int col = n0 + acc_col(j);
+          const size_t o = (size_t)r * kE + col;
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(xb + o);
+          const float y0 = round_to<bf16>(__fadd_rn(acc[i][4 * j + 2 * hi], b_out[col]));
+          const float y1 = round_to<bf16>(__fadd_rn(acc[i][4 * j + 2 * hi + 1], b_out[col + 1]));
+          *reinterpret_cast<uint32_t*>(ob + o) =
+              pack_bf16(__fadd_rn(__low2float(xv), y0), __fadd_rn(__high2float(xv), y1));
+        }
+      }
+    }
+  }
+}
+
+// K5's bf16 body over one group of ns samples (rows contiguous in xb and
+// ob), at attention tile LP and numeric variant V. h and ctx [ns L, 768]
+// are the block's workspace slice, rows h_row0 and h_row0 + S L of
+// maps.ws (S the group size, ns <= S); ring the block's (make_ring).
+template <int LP, int V>
+__device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __restrict__ xb,
+                                          const bf16* __restrict__ ln_w,
+                                          const bf16* __restrict__ ln_b,
+                                          const float* __restrict__ b_in,
+                                          const float* __restrict__ b_out,
+                                          const float* __restrict__ mask, bf16* __restrict__ ob,
+                                          bf16* h, bf16* ctx, int h_row0, int ctx_row0, int ns,
+                                          int L, float eps, Ring& ring) {
+  const int rows = ns * L, wg = threadIdx.x >> 7;
+
+  layer_norm_rows<bf16>(xb, ln_w, ln_b, h, rows, eps);
+  fence_proxy_async_global();  // h is read by TMA
+  __syncthreads();
+  for (int hh = 0; hh < kHeads; ++hh) {
+    if (rows > 128)
+      qkv_head<2, LP, V>(maps, h_row0, ns, L, hh, b_in, ctx, ring);
+    else
+      qkv_head<1, LP, V>(maps, h_row0, ns, L, hh, b_in, ctx, ring);
+    if constexpr (V != kNoHeads) {
+      // the warpgroups take the (sample, query tile) units in turn
+      const int nqt = (L + 63) / 64;
+      for (int u = wg; u < ns * nqt; u += 2) {
+        const int s = u / nqt, qt = u - s * nqt;
+        attn_query_tile<LP, V == kReciprocal>(
+            ring.ptr + s * LP * 128, ring.base + (ns + s) * LP * 128,
+            ring.base + (2 * ns + s) * LP * 128, mask, L, kScale, qt,
+            ctx + (size_t)s * L * kE + hh * kD, kE);
+      }
+    }
+    // ctx's columns are written (and read by TMA later); the ring is free
+    // for TMA again
+    fence_proxy_async_global();
+    fence_proxy_async();
+    __syncthreads();
+  }
+  if (rows > 128)
+    out_projection_wgmma<2>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+  else
+    out_projection_wgmma<1>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+  // the next group's LayerNorm ends in a barrier before the next GEMM
+  // refills the ring
 }
 
 }  // namespace

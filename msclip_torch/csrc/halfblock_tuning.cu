@@ -17,26 +17,33 @@
 //   [B, L, 2304] that a library GEMM computed outside the kernel.
 //
 // Both are K5's device code (halfblock.cuh): E1 is K5's body with the
-// variant as a template flag; E2 is K5's per-head attention reading the
-// head's columns straight from qkv (row stride 2304, as K1 reads it) and
-// K5's out-projection epilogue. Widths are ViT-B's: E = 768, 12 heads of
-// 64; any B and 0 < L <= 256; no mask (the JAX functions take none).
+// variant as a template flag (bf16: attention_halfblock_group on wgmma;
+// fp32: attention_halfblock_rows on the CUDA cores); E2 is the mma.sync
+// design's per-head attention reading the head's columns straight from
+// qkv (row stride 2304, as K1 reads it) and its out-projection epilogue,
+// in both types. Widths are ViT-B's: E = 768, 12 heads of 64; any B and
+// 0 < L <= 256; no mask (the JAX functions take none).
 //
 // The grid is the script's: B / tb blocks, block b taking samples
 // [b tb, (b + 1) tb) (the caller guarantees B % tb == 0). A block walks its
-// samples in K5's groups of min(tb, max(1, 128 / L)), each group's rows a
-// GEMM pass of at most 128 (two at L > 128). With tb = 8, 16 or 32 (the
-// script's batch tiles) at B = 256 the grid has 32, 16 or 8 blocks for the
-// card's 132 SMs; the default tb is K5's group, 128 blocks at L = 50.
+// samples in groups of G <= tb that the caller gives: E1 in bf16 K5's
+// group (at most 256 rows and 512 padded attention rows, one sample at
+// L > 128), E1 in fp32 and E2 the mma.sync design's min(tb, max(1,
+// 128 / L)). With tb = 8, 16 or 32 (the script's batch tiles) at B = 256
+// the grid has 32, 16 or 8 blocks for the card's 132 SMs; the default tb
+// is K5's group, 128 blocks at L = 50 on 132 SMs.
 //
 // Bound on an H100 SXM, B = 256, L = 50, bf16: E1 is K5's 62.4 GFLOP
 // (60.4 without attention, v2a), 63 us at 989 TFLOP/s against 44 MB of
 // I/O; E2 is 17.1 GFLOP (15.1 in the out-projection), 17 us, against
 // 99.5 MB of I/O (x, the 3E-wide qkv and out: 30 us at 3.35 TB/s), so E2
-// is bound by bytes. What the design does about it: K5's (halfblock.cuh):
-// bf16 GEMMs on mma.sync from a three-stage cp.async ring, x and qkv read
-// once, the output written once, h and ctx in a block-private workspace
-// that stays in L2. PERF.md has the times against the bound.
+// is bound by bytes. What the design does about it: E1 is K5's
+// (block_fused.cu): bf16 GEMMs on wgmma from a four-stage TMA ring,
+// each weight tile staged once for up to 256 rows, attention on K1's
+// wgmma core, x read once and the output written once; E2 keeps the
+// mma.sync design (bf16 GEMMs on mma.sync from a three-stage ring, qkv
+// read once, ctx in a block-private workspace that stays in L2). PERF.md
+// has the times against the bound.
 
 #include "halfblock.cuh"
 
@@ -44,19 +51,15 @@
 
 namespace {
 
-// samples a block processes at once
-__host__ __device__ constexpr int group_samples(int L, int tb) {
-  return samples_per_group(L) < tb ? samples_per_group(L) : tb;
+// workspace elements of one block at G samples a group: E1's h, ctx [G L,
+// 768] (and in fp32 q/k/v [G L, 192]); E2's ctx [G L, 768]
+template <typename T>
+__host__ __device__ constexpr long long variant_slot_elems(int G, int L) {
+  return (long long)G * L * (2 * kE + (std::is_same<T, bf16>::value ? 0 : kQkv));
 }
 
-// workspace elements of one block: E1's h, ctx [S L, 768] and q/k/v [S L,
-// 192]; E2's ctx [S L, 768]
-__host__ __device__ constexpr long long variant_slot_elems(int L, int tb) {
-  return (long long)group_samples(L, tb) * L * (2 * kE + kQkv);
-}
-
-__host__ __device__ constexpr long long core_out_slot_elems(int L, int tb) {
-  return (long long)group_samples(L, tb) * L * kE;
+__host__ __device__ constexpr long long core_out_slot_elems(int G, int L) {
+  return (long long)G * L * kE;
 }
 
 // ---------------------------------------------------------------------------
@@ -65,22 +68,32 @@ __host__ __device__ constexpr long long core_out_slot_elems(int L, int tb) {
 
 template <typename T, int A, int V>
 __global__ void __launch_bounds__(kThreads)
-attn_half_variant_kernel(const T* __restrict__ x, const T* __restrict__ ln_w,
-                         const T* __restrict__ ln_b, const T* __restrict__ w_in,
-                         const float* __restrict__ b_in, const T* __restrict__ w_out,
-                         const float* __restrict__ b_out, T* __restrict__ out,
-                         T* __restrict__ ws, int L, int tb, float eps) {
+attn_half_variant_kernel(const __grid_constant__ HalfMaps maps, const T* __restrict__ x,
+                         const T* __restrict__ ln_w, const T* __restrict__ ln_b,
+                         const T* __restrict__ w_in, const float* __restrict__ b_in,
+                         const T* __restrict__ w_out, const float* __restrict__ b_out,
+                         T* __restrict__ out, T* __restrict__ ws, long long slot, int L, int tb,
+                         int G, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = group_samples(L, tb);
-  T* h = ws + blockIdx.x * variant_slot_elems(L, tb);
-  T* ctx = h + (size_t)S * L * kE;
-  T* qkv = ctx + (size_t)S * L * kE;
+  T* h = ws + blockIdx.x * slot;
+  T* ctx = h + (size_t)G * L * kE;
   const int first = blockIdx.x * tb, end = first + tb;
-  for (int b0 = first; b0 < end; b0 += S) {
-    const int rows = min(S, end - b0) * L;
-    const size_t off = (size_t)b0 * L * kE;
-    attention_halfblock_rows<T, A, V>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out, nullptr,
-                                      out + off, h, ctx, qkv, rows, L, eps, smem_raw);
+  if constexpr (std::is_same<T, bf16>::value) {
+    Ring ring = make_ring(smem_raw);
+    const int h_row0 = (int)(blockIdx.x * slot / kE), ctx_row0 = h_row0 + G * L;
+    for (int b0 = first; b0 < end; b0 += G) {
+      const size_t off = (size_t)b0 * L * kE;
+      attention_halfblock_group<8 * A, V>(maps, x + off, ln_w, ln_b, b_in, b_out, nullptr,
+                                          out + off, h, ctx, h_row0, ctx_row0, min(G, end - b0),
+                                          L, eps, ring);
+    }
+  } else {
+    for (int b0 = first; b0 < end; b0 += G) {
+      const size_t off = (size_t)b0 * L * kE;
+      attention_halfblock_rows<T, A, V>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out, nullptr,
+                                        out + off, h, ctx, ctx + (size_t)G * L * kE,
+                                        min(G, end - b0) * L, L, eps, smem_raw);
+    }
   }
 }
 
@@ -92,14 +105,14 @@ template <typename T, int A>
 __global__ void __launch_bounds__(kThreads)
 core_out_kernel(const T* __restrict__ x, const T* __restrict__ qkv,
                 const T* __restrict__ w_out, const float* __restrict__ b_out,
-                T* __restrict__ out, T* __restrict__ ws, int L, int tb) {
+                T* __restrict__ out, T* __restrict__ ws, long long slot, int L, int tb,
+                int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int ld = 3 * kE;  // qkv's row: q | k | v, each 12 heads of 64
-  const int S = group_samples(L, tb);
-  T* ctx = ws + blockIdx.x * core_out_slot_elems(L, tb);
+  T* ctx = ws + blockIdx.x * slot;
   const int first = blockIdx.x * tb, end = first + tb;
-  for (int b0 = first; b0 < end; b0 += S) {
-    const int rows = min(S, end - b0) * L;
+  for (int b0 = first; b0 < end; b0 += G) {
+    const int rows = min(G, end - b0) * L;
     const T* qb = qkv + (size_t)b0 * L * ld;
     for (int hh = 0; hh < kHeads; ++hh) {
       for (int r0 = 0; r0 < rows; r0 += L) {  // attention sample by sample
@@ -130,6 +143,7 @@ cudaError_t prepare(K kernel, size_t smem) {
   return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
+// dynamic shared memory of E2, and of E1 in fp32 (the mma.sync body)
 template <typename T, int A>
 constexpr size_t kernel_smem() {
   return AttnHead<T, A>::smem_bytes > kGemmSmem ? AttnHead<T, A>::smem_bytes : kGemmSmem;
@@ -141,11 +155,13 @@ template <typename F>
 cudaError_t with_tile(bool bf, int L, F f) {
   using std::integral_constant;
   if (bf) {
-    if (L <= 64) return f(bf16{}, integral_constant<int, 8>{});
-    if (L <= 80) return f(bf16{}, integral_constant<int, 10>{});
-    if (L <= 128) return f(bf16{}, integral_constant<int, 16>{});
-    if (L <= 208) return f(bf16{}, integral_constant<int, 26>{});
-    return f(bf16{}, integral_constant<int, 32>{});
+    switch (padded_len(L)) {  // A = LP / 8
+      case 64: return f(bf16{}, integral_constant<int, 8>{});
+      case 80: return f(bf16{}, integral_constant<int, 10>{});
+      case 128: return f(bf16{}, integral_constant<int, 16>{});
+      case 208: return f(bf16{}, integral_constant<int, 26>{});
+      default: return f(bf16{}, integral_constant<int, 32>{});
+    }
   }
   if (L <= 64) return f(float{}, integral_constant<int, 2>{});
   if (L <= 128) return f(float{}, integral_constant<int, 4>{});
@@ -158,7 +174,8 @@ struct VariantArgs {
   const void* w_out;
   const float* b_out;
   void *out, *ws;
-  int B, L, tb;
+  long long slot;
+  int B, L, tb, G;
   float eps;
   cudaStream_t stream;
 };
@@ -166,13 +183,20 @@ struct VariantArgs {
 template <typename T, int A, int V>
 cudaError_t launch_variant(const VariantArgs& a) {
   auto kernel = attn_half_variant_kernel<T, A, V>;
-  const size_t smem = kernel_smem<T, A>();
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
+  constexpr bool bf = std::is_same<T, bf16>::value;
+  const size_t smem = bf ? kWgmmaSmem : kernel_smem<T, A>();
+  if (a.G > a.tb || (bf && !bf16_group_fits(a.G, a.L)) ||
+      a.slot < variant_slot_elems<T>(a.G, a.L) || (bf && a.slot % kE != 0))
+    return cudaErrorInvalidValue;
+  HalfMaps maps{};
+  cudaError_t err;
+  if (bf && (err = half_maps(&maps, a.ws, a.B / a.tb, a.slot, a.w_in, a.w_out)) != cudaSuccess)
+    return err;
+  if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
   kernel<<<a.B / a.tb, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b),
+      maps, static_cast<const T*>(a.x), static_cast<const T*>(a.ln_w), static_cast<const T*>(a.ln_b),
       static_cast<const T*>(a.w_in), a.b_in, static_cast<const T*>(a.w_out), a.b_out,
-      static_cast<T*>(a.out), static_cast<T*>(a.ws), a.L, a.tb, a.eps);
+      static_cast<T*>(a.out), static_cast<T*>(a.ws), a.slot, a.L, a.tb, a.G, a.eps);
   return cudaGetLastError();
 }
 
@@ -185,45 +209,45 @@ cudaError_t dispatch_variant(bool bf, const VariantArgs& a) {
 
 template <typename T, int A>
 cudaError_t launch_core_out(const void* x, const void* qkv, const void* w_out,
-                            const float* b_out, void* out, void* ws, int B, int L, int tb,
-                            cudaStream_t stream) {
+                            const float* b_out, void* out, void* ws, long long slot, int B,
+                            int L, int tb, int G, cudaStream_t stream) {
   auto kernel = core_out_kernel<T, A>;
   const size_t smem = kernel_smem<T, A>();
+  if (G > tb || slot < core_out_slot_elems(G, L)) return cudaErrorInvalidValue;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<B / tb, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(qkv), static_cast<const T*>(w_out), b_out,
-      static_cast<T*>(out), static_cast<T*>(ws), L, tb);
+      static_cast<T*>(out), static_cast<T*>(ws), slot, L, tb, G);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int L, int tb, int dtype) {
-  return B <= 0 || L <= 0 || L > kMaxSeq || tb <= 0 || B % tb != 0 || (dtype != 0 && dtype != 1);
+bool bad_shape(int B, int L, int tb, int G, int dtype) {
+  return B <= 0 || L <= 0 || L > kMaxSeq || tb <= 0 || B % tb != 0 || G <= 0 ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
 
-// Workspace elements (of the input type) of one block at sequence length L
-// and tb samples a block: E1 (core_out = 0) or E2 (core_out = 1). The
-// workspace holds B / tb of them.
-extern "C" long long msclip_halfblock_tuning_slot_elems(int core_out, int L, int tb) {
-  return core_out ? core_out_slot_elems(L, tb) : variant_slot_elems(L, tb);
-}
-
 // E1. x, out: [B, L, 768]; ln_w, ln_b: [768]; w_in: [2304, 768] (q, k, v
 // rows); w_out: [768, 768]; all of one dtype (0 = float32, 1 = bfloat16),
 // contiguous and 16-byte aligned. b_in [2304] and b_out [768]: fp32.
-// variant: a Variant of halfblock.cuh. B % tb == 0. Returns the launch's
-// cudaError_t (0 on success); the caller has checked the shapes.
+// variant: a Variant of halfblock.cuh. B % tb == 0; block b takes samples
+// [b tb, (b + 1) tb) in groups of G <= tb (bf16: at most 256 rows and 512
+// padded attention rows, or one sample); ws holds B / tb slices of slot
+// elements of the dtype, each at least h and ctx [G L, 768] (and q/k/v
+// [G L, 192] in fp32). Returns the launch's cudaError_t (0 on success);
+// the caller has checked the shapes.
 extern "C" int msclip_attention_halfblock_variant(const void* x, const void* ln_w,
                                                   const void* ln_b, const void* w_in,
                                                   const float* b_in, const void* w_out,
-                                                  const float* b_out, void* out, void* ws, int B,
-                                                  int L, int tb, float eps, int variant,
-                                                  int dtype, void* stream) {
-  if (bad_shape(B, L, tb, dtype)) return (int)cudaErrorInvalidValue;
-  const VariantArgs a{x, ln_w, ln_b, w_in, b_in, w_out, b_out, out, ws,
-                      B, L, tb, eps, static_cast<cudaStream_t>(stream)};
+                                                  const float* b_out, void* out, void* ws,
+                                                  long long slot, int B, int L, int tb, int G,
+                                                  float eps, int variant, int dtype,
+                                                  void* stream) {
+  if (bad_shape(B, L, tb, G, dtype)) return (int)cudaErrorInvalidValue;
+  const VariantArgs a{x,   ln_w, ln_b, w_in, b_in, w_out, b_out, out, ws,
+                      slot, B,   L,    tb,   G,    eps,   static_cast<cudaStream_t>(stream)};
   const bool bf = dtype == 1;
   switch (variant) {
     case kBase: return (int)dispatch_variant<kBase>(bf, a);
@@ -236,15 +260,17 @@ extern "C" int msclip_attention_halfblock_variant(const void* x, const void* ln_
 }
 
 // E2. x, out: [B, L, 768]; qkv: [B, L, 2304] (q | k | v columns); w_out:
-// [768, 768]; one dtype as above. b_out [768]: fp32. B % tb == 0.
+// [768, 768]; one dtype as above. b_out [768]: fp32. B % tb == 0; groups of
+// G <= tb samples; ws holds B / tb slices of slot elements, each at least
+// ctx [G L, 768].
 extern "C" int msclip_core_out_halfblock(const void* x, const void* qkv, const void* w_out,
-                                         const float* b_out, void* out, void* ws, int B, int L,
-                                         int tb, int dtype, void* stream) {
-  if (bad_shape(B, L, tb, dtype)) return (int)cudaErrorInvalidValue;
+                                         const float* b_out, void* out, void* ws, long long slot,
+                                         int B, int L, int tb, int G, int dtype, void* stream) {
+  if (bad_shape(B, L, tb, G, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)with_tile(dtype == 1, L, [&](auto t, auto tile) {
-    return launch_core_out<decltype(t), decltype(tile)::value>(x, qkv, w_out, b_out, out, ws, B,
-                                                               L, tb, s);
+    return launch_core_out<decltype(t), decltype(tile)::value>(x, qkv, w_out, b_out, out, ws,
+                                                               slot, B, L, tb, G, s);
   });
 }
 

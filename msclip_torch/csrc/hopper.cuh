@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the attention forward (K1,
-// attention_fwd.cu) and backward (K2, attention_bwd.cu), as raw PTX. Each
+// attention_fwd.cu), the attention backward (K2, attention_bwd.cu) and the
+// fused attention half-block (K5 and E1, halfblock.cuh), as raw PTX. Each
 // source includes it into its own anonymous namespace, so nothing here is
 // exported.
 //
 // What lives here: asynchronous copies (cp.async with zero fill, the proxy
-// fence that hands their data to wgmma), the 128-byte swizzle of a tile of
-// 64 bf16 columns, wgmma shared-memory descriptors and the two warpgroup
-// products K1 runs (m64n16k16 and m64n64k16, A from registers), ldmatrix
+// fence that hands their data to wgmma), mbarriers and TMA loads of
+// tensor-map tiles (K5), the 128-byte swizzle of a tile of
+// 64 bf16 columns, wgmma shared-memory descriptors, the two warpgroup
+// products K1 runs (m64n16k16 and m64n64k16, A from registers) and the one
+// K5 runs (m64n192k16, both operands from shared memory), ldmatrix
 // (plain and transposed) and the bf16 mma.sync product K2 runs, and the
 // softmax's pieces: quad reductions, and the division by the row sum as the
 // IEEE division rounds it, without its slow-path call.
@@ -50,6 +53,63 @@ __device__ __forceinline__ void cp_async_wait() {
 // barrier after it publishes them to the other threads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and the tensor memory accelerator (TMA)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// make the initialized mbarriers visible (a block barrier follows)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive, and expect `bytes` more of asynchronous copies in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (a fresh barrier
+// counts its phase before 0, parity 1, as completed). A wait that never
+// ends traps, so that a fault shows as a launch error and not a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 24)) asm volatile("trap;");
+  }
+}
+
+// TMA: the box at (c0, c1) (innermost coordinate first) of the tensor map
+// at `map` (a kernel parameter) to shared memory at dst, counted on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// order this thread's generic writes to global memory before later reads
+// of it by the async proxy (TMA); a block barrier after it publishes them
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -155,6 +215,43 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t (&a)[4]
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(TRANS_B));
+}
+
+// D(64 x N) += A(64 x 16) B(16 x N), both operands from shared memory,
+// K-major through their descriptors (desc_k_major: rows of 64 bf16 in the
+// 128-byte swizzle, 8-row groups 1024 bytes apart; a step of 16 along K is
+// +32 bytes on both), bf16 in, fp32 accumulators in the layout of
+// wgmma_m64n16k16 with j = 0 .. N / 8 - 1 over the N / 2 floats at d. The
+// projections of the fused attention half-block (halfblock.cuh) run on
+// these: A a tile of activation rows, B a tile of [out, in] weight rows.
+__device__ __forceinline__ void wgmma_m64n192k16_ss(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // ---------------------------------------------------------------------------

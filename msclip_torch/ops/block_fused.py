@@ -34,8 +34,60 @@ SOURCE = "block_fused.cu"
 WIDTH = 768      # the kernels' one width: ViT-B's trunk and B/32's text tower
 HEAD_DIM = 64
 MAX_SEQ = 256
-GROUP_ROWS = 128  # K5's GEMM rows per pass (kGroupRows in the source)
+# K5's group limits, as the source has them (kGroupRows, kWgRows and
+# kWgTileRows in halfblock.cuh; a test holds these to them): the wrappers
+# plan the groups and the workspace, the kernels check the plan
+GROUP_ROWS = 128  # fp32 K5's GEMM rows per pass
+WGMMA_ROWS = 256  # bf16 K5's GEMM rows per group
+TILE_ROWS = 512   # bf16 K5's padded attention rows per group
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def padded_len(L: int) -> int:
+    """The bf16 attention tile's padded length, K1's: 64, 80, 128, 208 or
+    256 (``padded_len`` in attn_core.cuh)."""
+    return next(p for p in (64, 80, 128, 208, 256) if L <= p)
+
+
+def max_group(L: int, dtype: torch.dtype) -> int:
+    """The most samples of length ``L`` a group of K5 holds: in bf16 as many
+    as fit 256 GEMM rows and 512 padded attention rows (5 at L=50, 3 at
+    L=77), in fp32 as many as fill a GEMM pass of 128 rows; at least one."""
+    if dtype == torch.bfloat16:
+        return max(1, min(WGMMA_ROWS // L, TILE_ROWS // padded_len(L)))
+    return max(1, GROUP_ROWS // L)
+
+
+def group_samples(B: int, L: int, dtype: torch.dtype,
+                  sms: int | None = None) -> int:
+    """K5's samples per group: :func:`max_group`, and in bf16 no more than
+    spread ``B`` samples over ``sms`` blocks (one a streaming
+    multiprocessor), so that a small batch still fills the card (2 at
+    256 x 50 on 132 SMs, 3 at 1024 x 77). ``sms`` None: the group of a
+    batch that fills any card."""
+    s = max_group(L, dtype)
+    if dtype == torch.bfloat16 and sms:
+        s = min(s, max(1, -(-B // sms)))
+    return s
+
+
+def slot_elems(S: int, L: int, dtype: torch.dtype) -> int:
+    """Workspace elements of a K5 or E1 block at ``S`` samples a group: h
+    and ctx ``[S L, 768]``, and q/k/v ``[S L, 192]`` in fp32 (the least
+    the source's ``attn_slot_elems`` accepts)."""
+    return S * L * (2 * WIDTH + (0 if dtype == torch.bfloat16 else 3 * HEAD_DIM))
+
+
+def attn_plan(B: int, L: int, dtype: torch.dtype, sms: int) -> dict:
+    """K5's launch plan on a card of ``sms`` SMs: samples per group ``S``,
+    ``groups``, workspace ``slots`` (one per block that can be resident,
+    at most two an SM and one a group) and ``slot`` elements of each
+    (:func:`slot_elems`). Block ``i`` of the grid takes groups ``i,
+    i + grid, ...`` and slot ``i``."""
+    S = group_samples(B, L, dtype, sms)
+    groups = -(-B // S)
+    return {"S": S, "groups": groups, "slots": max(1, min(groups, 2 * sms)),
+            "slot": slot_elems(S, L, dtype)}
 
 
 def layer_norm(x, weight, bias, eps=1e-12):
@@ -86,12 +138,12 @@ def mlp_halfblock_plain(x: torch.Tensor, p, eps: float = 1e-12) -> torch.Tensor:
 
 def _lib():
     lib = cuda_build.load(SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.msclip_halfblock_slot_elems.argtypes = [i32, i32]
-    lib.msclip_halfblock_slot_elems.restype = ctypes.c_longlong
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msclip_attention_halfblock.argtypes = [ptr] * 10 + [
-        i32, i32, i32, ctypes.c_float, i32, ptr]
+        i64, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.msclip_attention_halfblock.restype = i32
+    lib.msclip_mlp_halfblock_slot_elems.argtypes = []
+    lib.msclip_mlp_halfblock_slot_elems.restype = i64
     lib.msclip_mlp_halfblock.argtypes = [ptr] * 9 + [
         i32, i32, ctypes.c_float, i32, ptr]
     lib.msclip_mlp_halfblock.restype = i32
@@ -146,13 +198,9 @@ def _operands(x, p, weights, biases, shapes):
     return out
 
 
-def _workspace(lib, x, mlp, units):
-    """Block-private scratch of the kernel: one slice per block that can be
-    resident (at most two per SM, and one per unit of work)."""
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    slots = max(1, min(units, 2 * sms))
-    elems = lib.msclip_halfblock_slot_elems(int(mlp), x.shape[1])
-    return torch.empty(slots * elems, dtype=x.dtype, device=x.device), slots
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_attention_halfblock(x: torch.Tensor, p, n_head: int,
@@ -178,13 +226,14 @@ def fused_attention_halfblock(x: torch.Tensor, p, n_head: int,
     lib = _lib()
     out = torch.empty_like(x)
     B, L, _ = x.shape
-    # a block takes max(1, 128 // L) samples at once (samples_per_group)
-    ws, slots = _workspace(lib, x, False, -(-B // max(1, GROUP_ROWS // L)))
+    plan = attn_plan(B, L, x.dtype, sm_count(x.device))
+    ws = torch.empty(plan["slots"] * plan["slot"], dtype=x.dtype,
+                     device=x.device)
     err = lib.msclip_attention_halfblock(
         x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
         b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), slots, B, L, eps,
+        ws.data_ptr(), plan["slot"], plan["slots"], B, L, plan["S"], eps,
         _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_attention_halfblock")
     fused_attention_halfblock.launches += 1
@@ -212,7 +261,11 @@ def fused_mlp_halfblock(x: torch.Tensor, p, eps: float = 1e-12
     lib = _lib()
     out = torch.empty_like(x)
     rows = x.shape[0] * x.shape[1]
-    ws, slots = _workspace(lib, x, True, -(-rows // 32))
+    # one slice per block that can be resident (at most two an SM, and one
+    # per 32 rows, the kernel's tile)
+    slots = max(1, min(-(-rows // 32), 2 * sm_count(x.device)))
+    ws = torch.empty(slots * lib.msclip_mlp_halfblock_slot_elems(),
+                     dtype=x.dtype, device=x.device)
     err = lib.msclip_mlp_halfblock(
         x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
         b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),

@@ -19,8 +19,9 @@ GEMM as a library call (the JAX package leaves it to XLA), then E2.
 ``tb`` is the samples a kernel block takes, the script's batch tile: the
 grid is ``B / tb`` blocks, and ``B % tb`` must be 0 (the JAX grid drops a
 remainder silently; these functions raise). A block walks its samples in
-K5's groups of ``max(1, 128 // L)``, and the default ``tb`` is that group
-(or the largest divisor of ``B`` below it).
+groups of at most ``tb`` (:func:`variant_group`, :func:`core_out_group`),
+and the default ``tb`` is K5's group (``block_fused.group_samples``), or
+the largest divisor of ``B`` below it.
 The plain versions ignore ``tb``: the result does not depend on it.
 Parameters are a block's tensors under the port's local names, linear
 weights ``[out, in]``; inference only.
@@ -35,7 +36,8 @@ import torch
 from . import cuda_build
 from .block_fused import (_DTYPE_CODE, GROUP_ROWS, HEAD_DIM, WIDTH,
                           _check_cuda_input, _device_type, _operands, _proj,
-                          layer_norm)
+                          group_samples, layer_norm, max_group, slot_elems,
+                          sm_count)
 
 SOURCE = "halfblock_tuning.cu"
 VARIANTS = ("v0", "v1", "v2", "v3", "v2a", "v2c")
@@ -48,13 +50,39 @@ _SHAPES = {"ln_1.weight": (WIDTH,), "ln_1.bias": (WIDTH,),
            "attn.in_proj_bias": (3 * WIDTH,), "attn.out_proj.bias": (WIDTH,)}
 
 
-def default_tb(B: int, L: int) -> int:
-    """K5's group, as many samples as fill a GEMM pass of 128 rows, or the
-    largest divisor of ``B`` below it."""
-    tb = max(1, GROUP_ROWS // L)
+def default_tb(B: int, L: int, dtype: torch.dtype,
+               sms: int | None = None) -> int:
+    """K5's group at ``dtype`` on a card of ``sms`` SMs
+    (``block_fused.group_samples``), or the largest divisor of ``B``
+    below it."""
+    tb = group_samples(B, L, dtype, sms)
     while B % tb:
         tb -= 1
     return tb
+
+
+def variant_group(L: int, tb: int, dtype: torch.dtype) -> int:
+    """E1's samples per group inside a block of ``tb``: K5's largest group
+    (``block_fused.max_group``), at most ``tb``."""
+    return min(tb, max_group(L, dtype))
+
+
+def core_out_group(L: int, tb: int) -> int:
+    """E2's samples per group inside a block of ``tb``: as many as fill a
+    GEMM pass of 128 rows, at most ``tb``."""
+    return min(tb, max(1, GROUP_ROWS // L))
+
+
+def workspace_elems(B: int, L: int, tb: int, dtype: torch.dtype,
+                    core_out: bool = False) -> tuple[int, int]:
+    """``(G, slot)``: a block's group and the elements of its workspace
+    slice, of which there are ``B / tb``: E1's h and ctx ``[G L, E]`` (and
+    q/k/v ``[G L, 3 D]`` in fp32), E2's ctx ``[G L, E]``."""
+    if core_out:
+        G = core_out_group(L, tb)
+        return G, G * L * WIDTH
+    G = variant_group(L, tb, dtype)
+    return G, slot_elems(G, L, dtype)
 
 
 def _softmax_weights(s, dtype, reciprocal):
@@ -140,14 +168,12 @@ def core_out_plain(x: torch.Tensor, qkv: torch.Tensor, p) -> torch.Tensor:
 
 def _lib():
     lib = cuda_build.load(SOURCE)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.msclip_halfblock_tuning_slot_elems.argtypes = [i32, i32, i32]
-    lib.msclip_halfblock_tuning_slot_elems.restype = ctypes.c_longlong
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msclip_attention_halfblock_variant.argtypes = [ptr] * 9 + [
-        i32, i32, i32, ctypes.c_float, i32, i32, ptr]
+        i64, i32, i32, i32, i32, ctypes.c_float, i32, i32, ptr]
     lib.msclip_attention_halfblock_variant.restype = i32
     lib.msclip_core_out_halfblock.argtypes = [ptr] * 6 + [
-        i32, i32, i32, i32, ptr]
+        i64, i32, i32, i32, i32, i32, ptr]
     lib.msclip_core_out_halfblock.restype = i32
     return lib
 
@@ -163,16 +189,22 @@ def _check(x, tb, variant=None):
         raise ValueError(f"x must be [B, L, E] with E a multiple of "
                          f"{HEAD_DIM}, got {tuple(x.shape)}")
     B, L, _ = x.shape
-    tb = default_tb(B, L) if tb is None else int(tb)
+    if tb is None:
+        tb = default_tb(B, L, x.dtype,
+                        sm_count(x.device) if device == "cuda" else None)
+    tb = int(tb)
     if tb < 1 or B % tb:
         raise ValueError(f"tb (samples per block) must divide B={B}, got {tb}")
     return device, tb
 
 
-def _workspace(lib, x, core_out, tb):
+def _workspace(x, tb, core_out=False):
+    """``(G, slot, ws)``: the group, the slice and the workspace of
+    ``B / tb`` slices."""
     B, L, _ = x.shape
-    elems = lib.msclip_halfblock_tuning_slot_elems(int(core_out), L, tb)
-    return torch.empty(B // tb * elems, dtype=x.dtype, device=x.device)
+    G, slot = workspace_elems(B, L, tb, x.dtype, core_out)
+    return G, slot, torch.empty(B // tb * slot, dtype=x.dtype,
+                                device=x.device)
 
 
 def attention_halfblock_variant(x: torch.Tensor, p, variant: str,
@@ -194,11 +226,11 @@ def attention_halfblock_variant(x: torch.Tensor, p, variant: str,
     lib = _lib()
     out = torch.empty_like(x)
     B, L, _ = x.shape
-    ws = _workspace(lib, x, False, tb)
+    G, slot, ws = _workspace(x, tb)
     err = lib.msclip_attention_halfblock_variant(
         x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
         b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), B, L, tb, eps, _VARIANT_CODE[variant],
+        ws.data_ptr(), slot, B, L, tb, G, eps, _VARIANT_CODE[variant],
         _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_attention_halfblock_variant")
     attention_halfblock_variant.launches += 1
@@ -231,10 +263,10 @@ def core_out_halfblock(x: torch.Tensor, qkv: torch.Tensor, p,
                              ["attn.out_proj.bias"], _SHAPES)
     lib = _lib()
     out = torch.empty_like(x)
-    ws = _workspace(lib, x, True, tb)
+    G, slot, ws = _workspace(x, tb, core_out=True)
     err = lib.msclip_core_out_halfblock(
         x.data_ptr(), qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, L, tb, _DTYPE_CODE[x.dtype],
+        out.data_ptr(), ws.data_ptr(), slot, B, L, tb, G, _DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_core_out_halfblock")
     core_out_halfblock.launches += 1

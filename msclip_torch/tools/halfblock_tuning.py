@@ -15,8 +15,9 @@ time (the script's 28 ms / K was its TPU connection's).
 
 Rows: every E1 variant of the script (``make_attn_half``: v0, v1, v2, v3,
 v2a, v2c) and E2 (``make_hybrid_b``) at each batch tile of ``--tbs`` and at
-the default tile (``ops.halfblock_tuning.default_tb``: K5's group of
-``max(1, 128 // L)`` samples, or the largest divisor of B below it); then, as
+the default tile (``ops.halfblock_tuning.default_tb``: K5's group at the
+dtype on the card, ``ops.block_fused.group_samples``, or the largest
+divisor of B below it); then, as
 references, K5 (``ops.block_fused.fused_attention_halfblock``) and the
 unfused half (LayerNorm, the in-projection GEMM, K1, the out-projection and
 the residual: ``layers.attention``). The script's own ``__main__`` times only
@@ -157,7 +158,9 @@ def main(argv=None):
     device = resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     tbs = [int(t) for t in args.tbs.split(",") if t]
-    default = HT.default_tb(args.batch, args.seq)
+    default = HT.default_tb(
+        args.batch, args.seq, dtype,
+        BF.sm_count(device) if device.type == "cuda" else None)
     bad = [t for t in tbs if t < 1 or args.batch % t]
     if bad:
         raise SystemExit(f"--tbs {bad} do not divide --batch {args.batch}")

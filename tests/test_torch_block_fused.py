@@ -7,6 +7,8 @@ themselves are checked on the card by ``chip_smoke.py`` and
 
 import dataclasses
 import functools
+import os
+import re
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from msclip_torch.eval.zero_shot import run_zero_shot
 from msclip_torch.models import layers as TL
 from msclip_torch.models import msclip as TM
 from msclip_torch.ops import block_fused as BF
+from msclip_torch.ops import cuda_build
 from msclip_torch.utils.convert import params_from_jax
 
 from reference_oracle import tiny_msclips_config
@@ -164,6 +167,79 @@ def test_cpu_path_is_plain_and_launches_nothing():
                        BF.mlp_halfblock_plain(tx, tp))
     assert (BF.fused_attention_halfblock.launches,
             BF.fused_mlp_halfblock.launches) == before
+
+
+def _walk(B, S, grid):
+    """Each sample's count over K5's walk: block ``i < grid`` takes the
+    groups of ``S`` samples starting at ``i S, (i + grid) S, ...``."""
+    counts = np.zeros(B, dtype=np.int64)
+    for i in range(grid):
+        for b0 in range(i * S, B, grid * S):
+            counts[b0:b0 + min(S, B - b0)] += 1
+    return counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_attn_plan_covers_every_sample_once(dtype, sms):
+    """K5's group and workspace reckoning (``attn_plan``) for every B in
+    1..300 and L in 1..256: groups of whole samples that the bf16 design's
+    shared memory holds (256 GEMM rows, 512 padded attention rows, or one
+    sample; fp32: the mma.sync design's 128-row group), a slice of h and
+    ctx (and fp32 q/k/v) per group, and the kernel's walk, at one or two
+    blocks an SM, covering every sample exactly once."""
+    bf = dtype == torch.bfloat16
+    walks = {}
+    for L in range(1, 257):
+        for B in range(1, 301):
+            plan = BF.attn_plan(B, L, dtype, sms)
+            S, groups, slots = plan["S"], plan["groups"], plan["slots"]
+            assert groups == -(-B // S) and 1 <= slots <= 2 * sms
+            if bf:
+                assert S == 1 or (S * L <= 256 and S * BF.padded_len(L) <= 512)
+                assert S <= max(1, -(-B // sms))
+            else:
+                assert S == max(1, 128 // L)
+            assert plan["slot"] == S * L * (2 * 768 + (0 if bf else 192))
+            for per_sm in (1, 2):
+                grid = min(per_sm * sms, groups, slots)
+                key = (B, S, grid)
+                if key not in walks:
+                    walks[key] = bool((_walk(B, S, grid) == 1).all())
+                assert walks[key], (B, L, plan, grid)
+
+
+def _source(name):
+    with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def _constant(text, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_group_limits_mirror_the_source():
+    """The wrappers plan K5's and E1's groups and workspace with the
+    source's limits, which the kernels check: the padded length of K1's
+    ``padded_len`` (attn_core.cuh) at every L, the group limits of
+    halfblock.cuh, and the slice of ``attn_slot_elems`` and E1's
+    ``variant_slot_elems``."""
+    core, half = _source("attn_core.cuh"), _source("halfblock.cuh")
+    body = re.search(r"constexpr int padded_len\(int L\) \{\s*return ([^;]*);",
+                     core).group(1)
+    steps = [(int(a), int(b)) for a, b in re.findall(r"L <= (\d+) \? (\d+)", body)]
+    last = int(body.rsplit(":", 1)[1])
+    for L in range(1, 257):
+        assert BF.padded_len(L) == next((p for at, p in steps if L <= at), last)
+    assert (_constant(half, "kE"), _constant(half, "kD")) == (BF.WIDTH, BF.HEAD_DIM)
+    assert _constant(half, "kGroupRows") == BF.GROUP_ROWS
+    assert _constant(half, "kWgRows") == BF.WGMMA_ROWS
+    assert _constant(half, "kWgTileRows") == BF.TILE_ROWS
+    slot = "S * L * (2 * kE + (std::is_same<T, bf16>::value ? 0 : kQkv))"
+    assert slot in _source("block_fused.cu")
+    assert slot.replace("S * L", "G * L") in _source("halfblock_tuning.cu")
+    assert BF.slot_elems(3, 77, torch.bfloat16) == 3 * 77 * 2 * 768
+    assert BF.slot_elems(1, 77, torch.float32) == 77 * (2 * 768 + 3 * 64)
 
 
 def _tiny_fused_config():

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import cuda_build
 from msclip_torch.ops import halfblock_tuning as HT
 from msclip_torch.tools import halfblock_tuning as tool
@@ -224,10 +225,57 @@ def test_wrappers_refuse_what_they_do_not_take():
         HT.core_out_halfblock(tx.to("meta"), qkv.to("meta"), tp)
 
 
-@pytest.mark.parametrize("B,L,want", [(256, 50, 2), (5, 77, 1), (3, 50, 1),
-                                      (4, 8, 4), (6, 30, 3), (1, 1, 1)])
-def test_default_tb_is_k5s_group_or_a_divisor_of_b(B, L, want):
-    assert HT.default_tb(B, L) == want
+@pytest.mark.parametrize("B,L,dtype,sms,want", [
+    (256, 50, torch.float32, None, 2), (5, 77, torch.float32, None, 1),
+    (3, 50, torch.float32, None, 1), (4, 8, torch.float32, None, 4),
+    (6, 30, torch.float32, None, 3), (1, 1, torch.float32, None, 1),
+    # bf16: K5's group of at most 256 rows, spread over the card's SMs
+    (256, 50, torch.bfloat16, 132, 2), (700, 50, torch.bfloat16, 132, 5),
+    (1023, 77, torch.bfloat16, 132, 3), (1024, 77, torch.bfloat16, 132, 2),
+    (256, 197, torch.bfloat16, 132, 1), (4, 8, torch.bfloat16, None, 4),
+    (6, 30, torch.bfloat16, None, 6)])
+def test_default_tb_is_k5s_group_or_a_divisor_of_b(B, L, dtype, sms, want):
+    assert HT.default_tb(B, L, dtype, sms) == want
+
+
+def _e1_walk(B, tb, G):
+    """Each sample's count over E1's (and E2's) walk: block b takes
+    ``[b tb, (b + 1) tb)`` in groups of ``G``."""
+    counts = np.zeros(B, dtype=np.int64)
+    for b in range(B // tb):
+        end = (b + 1) * tb
+        for b0 in range(b * tb, end, G):
+            counts[b0:b0 + min(G, end - b0)] += 1
+    return counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tuning_blocks_cover_every_sample_once(dtype):
+    """E1's and E2's group and workspace reckoning for every B in 1..300 and
+    L in 1..256, at the default tile (on 132 SMs, and for any card) and at
+    tiles of one sample and of the whole batch: a group fits the block and,
+    for E1 in bf16, K5's shared memory; the slices are h and ctx (and fp32
+    q/k/v) for E1, ctx for E2; the walk covers every sample exactly once."""
+    bf = dtype == torch.bfloat16
+    walks = {}
+    for L in range(1, 257):
+        for B in range(1, 301):
+            tbs = {HT.default_tb(B, L, dtype, 132),
+                   HT.default_tb(B, L, dtype, None), 1, B}
+            for tb in tbs:
+                assert B % tb == 0
+                G, slot = HT.workspace_elems(B, L, tb, dtype)
+                assert 1 <= G <= tb
+                if bf:
+                    assert G == 1 or (G * L <= 256
+                                      and G * BF.padded_len(L) <= 512)
+                assert slot == G * L * (2 * 768 + (0 if bf else 192))
+                G2, slot2 = HT.workspace_elems(B, L, tb, dtype, core_out=True)
+                assert 1 <= G2 <= tb and slot2 == G2 * L * 768
+                for g in {G, G2}:
+                    if (B, tb, g) not in walks:
+                        walks[B, tb, g] = bool((_e1_walk(B, tb, g) == 1).all())
+                    assert walks[B, tb, g], (B, L, tb, g)
 
 
 def test_tool_main_runs_every_row_on_the_cpu(capsys):

@@ -333,8 +333,9 @@ def _assert_half_close(got, want, x, dtype):
 @pytest.mark.parametrize("L", [1, 17, 50, 64, 65, 77, 80, 81, 128, 129, 197,
                                208, 209, 256])
 def test_attention_halfblock_kernel_matches_plain(cuda, dtype, causal, L):
-    """K5 at every padding bucket of its attention and every split of its
-    GEMM rows (passes of 64, 80 and 128), odd batch."""
+    """K5 at every padding bucket of its attention, odd batch (fp32: every
+    split of its GEMM rows into passes of 64, 80 and 128; bf16: one or two
+    m-tiles a warpgroup)."""
     gen = torch.Generator(device=cuda).manual_seed(L)
     p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
     x = torch.randn(3, L, 768, device=cuda, generator=gen).to(dtype)
@@ -345,6 +346,41 @@ def test_attention_halfblock_kernel_matches_plain(cuda, dtype, causal, L):
     assert BF.fused_attention_halfblock.launches == before + 1
     _assert_half_close(got, BF.attention_halfblock_plain(x, p, 12, mask), x,
                        dtype)
+
+
+# lengths at which a bf16 group of K5 holds 8, 5, 5, 4, 3, 3, 3, 2, 2, 1,
+# 1 and 1 samples (block_fused.max_group: 256 GEMM rows, 512 padded
+# attention rows)
+GROUP_LENGTHS = [1, 50, 51, 64, 65, 77, 85, 86, 128, 129, 197, 256]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", GROUP_LENGTHS)
+@pytest.mark.parametrize("fill", ["full", "below_sms"])
+def test_attention_halfblock_kernel_groups(cuda, dtype, causal, L, fill):
+    """K5 at batches that fill its groups: ``full`` takes K5's largest
+    group on this card and leaves the last group one sample short;
+    ``below_sms`` is a batch of one sample fewer than the card's SMs (one
+    sample a group)."""
+    sms = BF.sm_count(cuda)
+    most = BF.max_group(L, dtype)
+    B = sms * most - 1 if fill == "full" else sms - 1
+    plan = BF.attn_plan(B, L, dtype, sms)
+    if dtype == torch.bfloat16:
+        assert plan["S"] == (most if fill == "full" else 1)
+    gen = torch.Generator(device=cuda).manual_seed(L + B)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda) if causal else None
+    got = BF.fused_attention_halfblock(x, p, 12, mask)
+    torch.cuda.synchronize()
+    want = BF.attention_halfblock_plain(x, p, 12, mask)
+    _assert_half_close(got, want, x, dtype)
+    if dtype == torch.bfloat16:
+        mean = (got.float() - want.float()).abs().mean().item()
+        branch = (want.float() - x.float()).abs().mean().item()
+        assert mean <= 2.0 ** -10 * branch, (mean, branch)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -416,6 +452,24 @@ def test_halfblock_variant_kernel_matches_plain(cuda, dtype, variant, L, B,
     got = HT.attention_halfblock_variant(x, p, variant, tb)
     torch.cuda.synchronize()
     assert HT.attention_halfblock_variant.launches == before + 1
+    _assert_tuning_close(
+        got, HT.attention_halfblock_variant_plain(x, p, variant), x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["v2", "v1", "v2c", "v2a"])
+@pytest.mark.parametrize("L", GROUP_LENGTHS)
+@pytest.mark.parametrize("extra", [0, 1])
+def test_halfblock_variant_kernel_groups(cuda, dtype, variant, L, extra):
+    """E1 at blocks of K5's largest group (``extra`` 0) and of one sample
+    more, whose last group holds one sample; two blocks."""
+    tb = BF.max_group(L, dtype) + extra
+    assert HT.variant_group(L, tb, dtype) == tb - extra
+    gen = torch.Generator(device=cuda).manual_seed(L + tb)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(2 * tb, L, 768, device=cuda, generator=gen).to(dtype)
+    got = HT.attention_halfblock_variant(x, p, variant, tb)
+    torch.cuda.synchronize()
     _assert_tuning_close(
         got, HT.attention_halfblock_variant_plain(x, p, variant), x, dtype)
 
