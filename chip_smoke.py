@@ -8,11 +8,12 @@ Phases, each printed on its own line and each fatal on failure:
    optional host packages (yaml, regex, PIL, ftfy) import;
 2. build: compile every CUDA kernel of the port from the sources in this
    checkout (one ``nvcc`` per source, all started together), and print
-   what ``ptxas -v`` reports for each instantiation by name, and the wgmma
-   instructions in each K5/E1 instantiation (``cuobjdump -sass``); a bf16
-   instantiation of K1, K2, K5 or E1 that spills registers, wgmma that
-   ptxas serializes in K1, K2, K5 or E1, or a bf16 K5/E1 instantiation
-   without wgmma fails the run; then, in a fresh process, the fp32 and
+   what ``ptxas -v`` reports for each instantiation by name, the wgmma
+   instructions in each K5/E1/E2 instantiation and K4's SASS instructions
+   an element (``cuobjdump -sass``); a bf16 instantiation of K1, K2, K5,
+   E1 or E2 that spills registers, wgmma that ptxas serializes in K1, K2,
+   K5, E1 or E2, or a bf16 K5/E1/E2 instantiation without wgmma fails the
+   run; then, in a fresh process, the fp32 and
    bf16 turns of K5, E1, E2 and the hybrid against their yardsticks that
    phases 3 and 12 report (``traced_turns``: the profiler traced none of
    them in a process that had run the other phases first);
@@ -69,9 +70,11 @@ Phases, each printed on its own line and each fatal on failure:
    launches counted.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
-QuickGELU + quant (K4), against their plain versions in fp32 and bf16,
+QuickGELU + quant (K4), against their plain versions in fp32 and bf16
+(K4 bit for bit, and on every bf16 bit pattern, ``k4_exhaustive``),
 reads faults planted into a torch copy of the plain versions against the
-same check, and times both beside ``torch.compile`` of the plain version;
+same check, and times both in turns with the plain version (event and
+device time, ``vs_plain``) and beside ``torch.compile`` of it;
 and it holds the fused half-blocks, attention (K5) and MLP (K6), against
 their plain versions in fp32 and bf16, reads faults planted into a torch
 copy of the plain versions against the same check, and times both beside
@@ -197,13 +200,15 @@ def device_and_packages():
 
 
 # kernels held to the build check: no bf16 instantiation of these may spill
-# registers, and none of K1, K2, K5 or E1 may have its wgmma serialized
-# (ptxas C7510-C7515); every bf16 K5 and E1 instantiation must hold wgmma
+# registers, and none of K1, K2, K5, E1 or E2 may have its wgmma serialized
+# (ptxas C7510-C7515); every bf16 K5, E1 and E2 instantiation must hold wgmma
 SPILL_CHECKED = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel",
-                 "attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16")
+                 "attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16",
+                 "core_out_kernel<bf16")
 WGMMA_CHECKED = ("attention_fwd", "attention_bwd", "attention_halfblock_kernel",
-                 "attn_half_variant_kernel")
-WGMMA_REQUIRED = ("attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16")
+                 "attn_half_variant_kernel", "core_out_kernel")
+WGMMA_REQUIRED = ("attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16",
+                  "core_out_kernel<bf16")
 
 
 def kernel_name(mangled):
@@ -224,31 +229,76 @@ def kernel_name(mangled):
     return mangled
 
 
-def wgmma_counts(path):
-    """``{kernel name: wgmma instructions}`` of a built library, from its
-    SASS (``cuobjdump -sass``: HGMMA is the SASS of wgmma)."""
+def sass_functions(path):
+    """``{function name: [SASS opcodes]}`` of a built library
+    (``cuobjdump -sass``), NOPs left out."""
     nvcc = cuda_build.find_nvcc()
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
                            "-sass", path], capture_output=True, text=True,
                           check=True).stdout
-    counts, name = {}, None
+    funcs, name = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = kernel_name(m[1])
-            counts[name] = 0
-        elif name is not None and "HGMMA" in ln:
-            counts[name] += 1
-    return counts
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", ln)
+        if name is not None and m and not m[1].startswith("NOP"):
+            funcs[name].append(m[1])
+    return funcs
+
+
+def wgmma_counts(path):
+    """``{kernel name: wgmma instructions}`` of a built library, from its
+    SASS (HGMMA is the SASS of wgmma)."""
+    return {k: sum(op.startswith("HGMMA") for op in ops)
+            for k, ops in sass_functions(path).items()}
+
+
+def gelu_sass_per_element(path):
+    """K4's SASS in a built ``quant.cu`` library: per ``gelu_quant_kernel``
+    instantiation, the instructions of its main path (static count: from
+    its first instruction to its last ``EXIT``, the loop over a thread's
+    chunks unrolled, so each instruction once) over the elements a thread
+    (or lane) of it holds, 8 a chunk, and how many of those are MUFU
+    (``ex2``, ``rcp``), fp32 arithmetic and conversions; the subroutines
+    placed after it (the slow path of an IEEE division, or the rare exact
+    row ``gelu_quant_row_wide``), which the main path reaches only through
+    ``CALL``, are counted apart. ``python3 -c "import
+    chip_smoke as C; print(C.gelu_sass_per_element('<lib>.so'))"`` reads
+    any build of ``quant.cu``."""
+    out = {}
+    for name, ops in sass_functions(path).items():
+        m = re.match(r"gelu_quant_kernel<\w+,(\d+)>", name)
+        if not m:
+            continue
+        n = 8 * int(m[1])
+        end = max(i for i, op in enumerate(ops) if op.startswith("EXIT")) + 1
+        main = ops[:end]
+
+        def count(*prefixes):
+            return sum(op.startswith(prefixes) for op in main) / n
+
+        out[name] = {
+            "main_instructions": len(main), "elements_a_thread": n,
+            "per_element": len(main) / n, "mufu_per_element": count("MUFU"),
+            "fp32_per_element": count("FFMA", "FMUL", "FADD", "FMNMX",
+                                      "FSETP", "FSEL", "FCHK"),
+            "conversions_per_element": count("F2I", "I2F", "FRND", "F2F"),
+            "calls_in_main": sum(op.startswith("CALL") for op in main),
+            "subroutine_instructions": len(ops) - end}
+    return out
 
 
 def build_kernels():
     """Every source at once, one nvcc each. Prints what ``ptxas -v`` reports
-    for each kernel instantiation (registers, shared memory, spills) and the
-    wgmma instructions of K5's and E1's. Fails if a bf16 instantiation of
-    K1, K2, K5 or E1 spills registers, if ptxas serializes the wgmma of a
-    K1, K2, K5 or E1 instantiation (C7510-C7515), or if a bf16 K5 or E1
-    instantiation holds no wgmma."""
+    for each kernel instantiation (registers, shared memory, spills), the
+    wgmma instructions of K5's, E1's and E2's, and K4's SASS instructions an
+    element (:func:`gelu_sass_per_element`). Fails if a bf16 instantiation
+    of K1, K2, K5, E1 or E2 spills registers, if ptxas serializes the wgmma
+    of a K1, K2, K5, E1 or E2 instantiation (C7510-C7515), or if a bf16 K5,
+    E1 or E2 instantiation holds no wgmma."""
     t0 = time.time()
     spilled, serialized, no_wgmma = [], [], []
     sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE, HT.SOURCE)
@@ -276,18 +326,20 @@ def build_kernels():
                 report.append(f"{name}: {ln.split(':', 1)[-1].strip()}; "
                               f"{lines[i - 1].strip()}")
         extra = {}
+        if source == Q.SOURCE:
+            extra["k4_sass"] = json.dumps(gelu_sass_per_element(path))
         if source in (BF.SOURCE, HT.SOURCE):
             wgmma = wgmma_counts(path)
             extra["wgmma"] = json.dumps(wgmma)
             no_wgmma += [k for k, n in wgmma.items()
                          if n == 0 and any(r in k for r in WGMMA_REQUIRED)]
             if not any(any(r in k for r in WGMMA_REQUIRED) for k in wgmma):
-                no_wgmma.append(f"no bf16 K5/E1 kernel in {source}")
+                no_wgmma.append(f"no bf16 K5/E1/E2 kernel in {source}")
         log("build", source=source, seconds=f"{time.time() - t0:.1f}",
             ptxas=json.dumps(report), **extra)
     if spilled or serialized or no_wgmma:
         raise AssertionError(f"build check: spills {spilled}; serialized wgmma "
-                             f"{serialized}; bf16 K5/E1 without wgmma "
+                             f"{serialized}; bf16 K5/E1/E2 without wgmma "
                              f"{no_wgmma}")
 
 
@@ -880,14 +932,64 @@ def quant_edge_inputs(name, W, dtype):
     return [(x, None, None, (8, q_known, s_known))]
 
 
+def every_bf16_rows(W=3072, device="cuda"):
+    """K4's exhaustive input: a bf16 ``[65536, W]`` with one row for each
+    bf16 bit pattern p: p, then p times W - 1 multipliers that keep
+    |QuickGELU| at or below |QuickGELU(p)|, so that p plants the row's
+    maximum where it can: m in (0, 1] for p > -0.74 (|h| grows with |x|
+    there), m in (1, 8] below (|h| falls as x falls). The multiples
+    spread each row's quotients h / s over (-127, 127]. A NaN p gives a
+    row of NaN, an infinite one a row of infinities."""
+    p = torch.arange(1 << 16, device=device, dtype=torch.int32) \
+        .to(torch.int16).view(torch.bfloat16).float()[:, None]
+    k = torch.arange(1, W, device=device, dtype=torch.float32) / (W - 1)
+    rest = torch.where(p > -0.74, p * k, p * (1 + 7 * k))
+    return torch.cat([p, rest], dim=1).to(torch.bfloat16).contiguous()
+
+
+def quant_bitwise(got, want):
+    """Whether K4's q and s equal the plain version's bit for bit (any NaN
+    scale equal to any NaN), and the rows where either differs."""
+    (q, s), (qp, sp) = got, want
+    s_same = (s.view(torch.int32) == sp.view(torch.int32)) \
+        | (torch.isnan(s) & torch.isnan(sp))
+    bad = ~s_same | (q != qp).any(dim=-1)
+    return not bool(bad.any()), int(bad.sum())
+
+
+def check_gelu_quant_exhaustive():
+    """K4 on :func:`every_bf16_rows` against ``gelu_quant_plain``: q and s
+    bit for bit on all 65,536 rows, or the run fails."""
+    x = every_bf16_rows()
+    got, want = Q.gelu_quant(x), Q.gelu_quant_plain(x)
+    torch.cuda.synchronize()
+    same, bad_rows = quant_bitwise(got, want)
+    s = want[1]
+    row = {"rows": x.shape[0], "W": x.shape[1], "bitwise": same,
+           "rows_differing": bad_rows,
+           "nan_scale_rows": int(torch.isnan(s).sum()),
+           "inf_scale_rows": int(torch.isinf(s).sum()),
+           "floor_scale_rows": int((s == torch.tensor(1e-8)).sum()),
+           "q_nonzero_share": (want[0] != 0).float().mean().item(),
+           "q_at_127_rows": int((want[0].abs() == 127).any(dim=-1).sum())}
+    log("k4_exhaustive", **row)
+    if not same:
+        raise AssertionError(f"gelu_quant differs from its plain version on "
+                             f"{bad_rows} of the 65,536 bf16 pattern rows")
+    return row
+
+
 def check_quant():
     """K3 and K4 against their plain versions in fp32 and bf16 at the
     shapes of the int8 slice (and an odd batch and one row), on edge rows
     that must match exactly, and with faults planted into a torch copy of
     the plain version read against the same check (the run fails unless
-    ``roundf`` and ``no_floor`` are caught). Times the kernels, the plain
-    versions and, at the headline bf16 shape, ``torch.compile`` of the
-    plain version."""
+    ``roundf`` and ``no_floor`` are caught); K4's q and s must equal its
+    plain version's bit for bit at every shape, and on every bf16 bit
+    pattern (:func:`check_gelu_quant_exhaustive`). Times the kernels and
+    the plain versions in turns (plain, kernel, kernel, plain; event and
+    device time, as K1's) and, at the headline bf16 shape,
+    ``torch.compile`` of the plain version."""
     rows = {"ln_quant": [], "gelu_quant": []}
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, W in QUANT_WIDTH.items():
@@ -915,6 +1017,8 @@ def check_quant():
                 want = plain(*args)
                 torch.cuda.synchronize()
                 reading = quant_reading(got, want, dtype)
+                if name == "gelu_quant":
+                    reading["bitwise"] = quant_bitwise(got, want)[0]
                 if label == "edge":
                     k, q_k, s_k = known
                     exact = bool((got[0] == want[0]).all()
@@ -931,7 +1035,8 @@ def check_quant():
                         faults[f][-1]["exact"] = bool(
                             (bad[0] == want[0]).all()
                             and (bad[1] == want[1]).all())
-                if not quant_passes(reading):
+                if not quant_passes(reading) or not reading.get("bitwise",
+                                                                True):
                     raise AssertionError(f"{name} kernel {label} {dtype}: "
                                          f"{reading}")
                 row = {"shape": label, "W": W,
@@ -962,22 +1067,28 @@ def check_quant():
             w, b = cases[0][2], cases[0][3]
             kernel = Q.ln_quant if name == "ln_quant" else Q.gelu_quant
             extra = (w, b) if name == "ln_quant" else ()
+            t = in_turns(lambda i: kernel(xs[i], *extra),
+                         lambda i: plain(xs[i], *extra), n_inputs)
             timing = {
                 "shape": f"{B}x{L}", "W": W,
                 "dtype": str(dtype).replace("torch.", ""),
-                "ms": cuda_ms(lambda i: kernel(xs[i], *extra), n_inputs),
-                "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra), n_inputs,
-                                    iters=10),
+                "ms": t["ms"], "device_ms": t["device_ms"],
+                "plain_ms": t["library_ms"],
+                "plain_device_ms": t["library_device_ms"],
+                "vs_plain": t["vs_library"], "turns_ms": t["turns_ms"],
                 "library_ms": None,
                 "bound_ms": B * L * (W * item + W + 4) / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes",
             }
+            if "device_error" in t:
+                timing["device_error"] = t["device_error"]
             if dtype == torch.bfloat16:
                 compiled_ms_later(timing, name, plain, xs, extra, n_inputs)
             log("kernel", name=name, **timing,
                 bound_us=timing["bound_ms"] * 1e3)
             rows[name].append(timing)
             del xs, cases
+    rows["gelu_quant"].append(check_gelu_quant_exhaustive())
     return rows
 
 
@@ -1888,6 +1999,7 @@ def kernel_line(rows, launches, name, replaces, head, shape, source=None):
         "shapes": rows,
     }
     for key in ("device_ms", "library_device_ms", "vs_library",
+                "plain_device_ms", "vs_plain",
                 "compile_ms", "unfused_ms", "unfused_device_ms", "vs_unfused",
                 "unfused_sdpa_ms", "k5_ms", "k5_device_ms", "k1_matmul_ms",
                 "k1_matmul_device_ms", "vs_k1_matmul", "sdpa_matmul_ms",

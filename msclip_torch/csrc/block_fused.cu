@@ -219,20 +219,13 @@ cudaError_t grid_size(K kernel, size_t smem, int work, int slots, int* grid) {
   return cudaSuccess;
 }
 
-// dynamic shared memory of the K5 and E1 kernels at attention tile A
-template <typename T, int A>
-constexpr size_t attn_smem() {
-  if constexpr (std::is_same<T, bf16>::value) return kWgmmaSmem;
-  else return AttnHead<T, A>::smem_bytes > kGemmSmem ? AttnHead<T, A>::smem_bytes : kGemmSmem;
-}
-
 template <typename T, int A>
 cudaError_t launch_attn(const void* x, const void* ln_w, const void* ln_b, const void* w_in,
                         const float* b_in, const void* w_out, const float* b_out,
                         const float* mask, void* out, void* ws, long long slot, int slots, int B,
                         int L, int S, float eps, cudaStream_t stream) {
   auto kernel = attention_halfblock_kernel<T, A>;
-  constexpr size_t smem = attn_smem<T, A>();
+  constexpr size_t smem = halfblock_smem<T, A>();
   // the bf16 body addresses the workspace as rows of 768 (its tensor map)
   if (slot < attn_slot_elems<T>(S, L) || (std::is_same<T, bf16>::value && slot % kE != 0))
     return cudaErrorInvalidValue;

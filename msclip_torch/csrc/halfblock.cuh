@@ -6,14 +6,15 @@
 // What lives here: element types and their roundings, cp.async and the
 // bf16 mma.sync product, the warp and block GEMMs over shared-memory tiles
 // (WarpMma, Tile, block_gemm, gemm_pass, gemm_192), LayerNorm of rows of
-// 768 (layer_norm_rows), one head's attention on mma.sync or the CUDA
-// cores (AttnHead), and K5's body over one group of samples on them
+// 768 (layer_norm_rows), one head's fp32 attention on the CUDA cores
+// (AttnHead), and K5's body over one group of samples on them
 // (attention_halfblock_rows) with its out-projection epilogue
-// (out_projection_residual): the fp32 K5 and E1, and E2 in both types,
-// run these. K5's and E1's bf16 body is on wgmma fed by TMA
-// (attention_halfblock_group: the tensor maps HalfMaps, the mbarrier ring
-// Ring, wgmma_gemm, qkv_head and out_projection_wgmma, with K1's attention
-// from attn_core.cuh). block_fused.cu's header comment has the design and
+// (out_projection_residual): the fp32 K5, E1 and E2 run these. K5's and
+// E1's bf16 body is on wgmma fed by TMA (attention_halfblock_group: the
+// tensor maps HalfMaps, the mbarrier ring Ring, wgmma_gemm, qkv_head and
+// out_projection_wgmma, with K1's attention from attn_core.cuh); E2's bf16
+// body (core_out_group) is that attention on q/k/v tiles copied straight
+// from its qkv, and the same out-projection. block_fused.cu's header comment has the design and
 // the rounding points.
 
 #pragma once
@@ -399,151 +400,16 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ w
 }
 
 // ---------------------------------------------------------------------------
-// One head's attention to ctx (row stride 768, offset to the head's
+// One head's fp32 attention to ctx (row stride 768, offset to the head's
 // columns). K1's arithmetic and layout. q, k and v point at row 0 of the
 // head's columns, each row ld elements after the last: K5's workspace
 // q/k/v [L, 192] (ld 192), or a qkv [L, 2304] as K1 reads it (ld 2304).
-// Recip normalizes the softmax as e * (1 / sum) instead of e / sum.
+// Recip normalizes the softmax as e * (1 / sum) instead of e / sum. (The
+// bf16 bodies run K1's wgmma attention from attn_core.cuh.)
 // ---------------------------------------------------------------------------
 
 template <typename T, int A, bool Recip = false>
 struct AttnHead;
-
-// bf16, tensor cores. NTK key tiles of 8: the padded length LP = 8 NTK is a
-// multiple of 16 and covers L. Q_h and K_h as [LP, D + 8] rows, V_h
-// transposed as [D, LP + 8]; warp w takes the 16-row query tiles w, w + 8, ...
-template <int NTK, bool Recip>
-struct AttnHead<bf16, NTK, Recip> {
-  static constexpr int LP = 8 * NTK, DS = kD + 8, VS = LP + 8;
-  static constexpr size_t smem_bytes = sizeof(bf16) * (2 * LP * DS + kD * VS);
-
-  static __device__ void run(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, int ld, const float* __restrict__ mask,
-                             bf16* __restrict__ ctx, int L, float scale, unsigned char* smem) {
-    bf16* q_s = reinterpret_cast<bf16*>(smem);
-    bf16* k_s = q_s + LP * DS;
-    bf16* vt_s = k_s + LP * DS;
-    constexpr int kVecPerRow = kD / 8;
-    for (int idx = threadIdx.x; idx < LP * kVecPerRow; idx += kThreads) {
-      const int j = idx / kVecPerRow, c8 = 8 * (idx % kVecPerRow);
-      uint4 qv = make_uint4(0, 0, 0, 0), kv = qv, vv = qv;
-      if (j < L) {  // rows past L are zeros: padded keys get weight 0
-        const size_t o = (size_t)j * ld + c8;
-        qv = *reinterpret_cast<const uint4*>(q + o);
-        kv = *reinterpret_cast<const uint4*>(k + o);
-        vv = *reinterpret_cast<const uint4*>(v + o);
-      }
-      *reinterpret_cast<uint4*>(q_s + j * DS + c8) = qv;
-      *reinterpret_cast<uint4*>(k_s + j * DS + c8) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(c8 + e) * VS + j] = ve[e];
-    }
-    __syncthreads();
-
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, c = lane % 4;
-    const int n_tiles = (L + 15) / 16;
-    for (int rt = warp; rt < n_tiles; rt += kWarps) {
-      const int r0 = rt * 16 + g, r1 = r0 + 8;  // this lane's two query rows
-      const bf16* q0 = q_s + r0 * DS + 2 * c;
-      const bf16* q1 = q_s + r1 * DS + 2 * c;
-
-      float s[NTK][4];
-#pragma unroll
-      for (int nt = 0; nt < NTK; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const bf16* kr = k_s + (nt * 8 + g) * DS + 2 * c;
-#pragma unroll
-        for (int ks = 0; ks < kD / 16; ++ks)
-          mma_bf16(s[nt], ld32(q0 + 16 * ks), ld32(q1 + 16 * ks), ld32(q0 + 16 * ks + 8),
-                   ld32(q1 + 16 * ks + 8), ld32(kr + 16 * ks), ld32(kr + 16 * ks + 8));
-      }
-
-      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-#pragma unroll
-      for (int nt = 0; nt < NTK; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = nt * 8 + 2 * c + e;
-          float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
-          if (j < L) {
-            v0 = s[nt][e] * scale;
-            v1 = s[nt][2 + e] * scale;
-            if (mask != nullptr) {
-              if (r0 < L) v0 += mask[r0 * L + j];
-              if (r1 < L) v1 += mask[r1 * L + j];
-            }
-          }
-          s[nt][e] = v0;
-          s[nt][2 + e] = v1;
-          m0 = fmaxf(m0, v0);
-          m1 = fmaxf(m1, v1);
-        }
-      }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-      }
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NTK; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = nt * 8 + 2 * c + e;
-          s[nt][e] = j < L ? expf(s[nt][e] - m0) : 0.f;
-          s[nt][2 + e] = j < L ? expf(s[nt][2 + e] - m1) : 0.f;
-          sum0 += s[nt][e];
-          sum1 += s[nt][2 + e];
-        }
-      }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-      }
-      uint32_t p[NTK][2];
-      if constexpr (Recip) {
-        const float i0 = __fdiv_rn(1.f, sum0), i1 = __fdiv_rn(1.f, sum1);
-#pragma unroll
-        for (int nt = 0; nt < NTK; ++nt) {
-          p[nt][0] = pack_bf16(__fmul_rn(s[nt][0], i0), __fmul_rn(s[nt][1], i0));
-          p[nt][1] = pack_bf16(__fmul_rn(s[nt][2], i1), __fmul_rn(s[nt][3], i1));
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < NTK; ++nt) {
-          p[nt][0] = pack_bf16(s[nt][0] / sum0, s[nt][1] / sum0);
-          p[nt][1] = pack_bf16(s[nt][2] / sum1, s[nt][3] / sum1);
-        }
-      }
-
-      float o_acc[kD / 8][4];
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) o_acc[dt][0] = o_acc[dt][1] = o_acc[dt][2] = o_acc[dt][3] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < NTK / 2; ++kt) {
-#pragma unroll
-        for (int dt = 0; dt < kD / 8; ++dt) {
-          const bf16* vr = vt_s + (dt * 8 + g) * VS + kt * 16 + 2 * c;
-          mma_bf16(o_acc[dt], p[2 * kt][0], p[2 * kt][1], p[2 * kt + 1][0], p[2 * kt + 1][1],
-                   ld32(vr), ld32(vr + 8));
-        }
-      }
-
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        if (r0 < L)
-          *reinterpret_cast<uint32_t*>(ctx + (size_t)r0 * kE + dt * 8 + 2 * c) =
-              pack_bf16(o_acc[dt][0], o_acc[dt][1]);
-        if (r1 < L)
-          *reinterpret_cast<uint32_t*>(ctx + (size_t)r1 * kE + dt * 8 + 2 * c) =
-              pack_bf16(o_acc[dt][2], o_acc[dt][3]);
-      }
-    }
-  }
-};
 
 // fp32, CUDA cores. KPL keys per lane (L <= 32 KPL). K_h ([L, D + 1]: 32
 // lanes reading 32 keys hit 32 banks) and V_h ([L, D]) in shared memory;
@@ -759,6 +625,15 @@ constexpr int kPrefetch = 2;
 constexpr size_t kWgmmaSmem = 1024 + (size_t)kStages * kStageBytes + 16 * kStages;
 static_assert(3u * kWgTileRows * 128 <= kStages * kStageBytes, "q/k/v tiles fit in the ring");
 static_assert(kWgmmaSmem <= 232448, "one block's shared memory");
+
+// dynamic shared memory of the K5, E1 and E2 kernels at attention tile A:
+// the bf16 ring, or the fp32 body's larger of one head's attention and a
+// GEMM pass
+template <typename T, int A>
+constexpr size_t halfblock_smem() {
+  if constexpr (std::is_same<T, bf16>::value) return kWgmmaSmem;
+  else return AttnHead<T, A>::smem_bytes > kGemmSmem ? AttnHead<T, A>::smem_bytes : kGemmSmem;
+}
 
 // Whether ns samples of length L make a bf16 group: at most 256 rows and
 // 512 padded tile rows, or one sample.
@@ -1074,6 +949,86 @@ __device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __re
     out_projection_wgmma<1>(maps, ctx_row0, rows, b_out, xb, ob, ring);
   // the next group's LayerNorm ends in a barrier before the next GEMM
   // refills the ring
+}
+
+// ---------------------------------------------------------------------------
+// E2's bf16 body: the attention core and the out-projection on a qkv
+// computed outside the kernel
+// ---------------------------------------------------------------------------
+//
+// For each head, the group's q, k and v columns of qkv [ns L, 2304] (the
+// head's 64 columns of each third) are copied by cp.async straight into the
+// ring's shared memory as K5's tiles: q of sample s at tile s, k at ns + s,
+// v at 2 ns + s, each [LP, 64] in the 128-byte swizzle, rows L .. LP - 1
+// zero-filled by the copy. Where two heads' tiles fit in the ring, the
+// copies of head hh + 1 run while head hh's attention does. The two
+// warpgroups take the group's (sample, query tile) units in turn through
+// K1's attention (attn_query_tile), into the head's columns of ctx. Last,
+// out_projection_wgmma, K5's. One block barrier a head; none inside the
+// GEMMs.
+
+// bytes of one head's q, k and v tiles for ns samples at tile length LP
+__host__ __device__ constexpr uint32_t head_tile_bytes(int ns, int LP) {
+  return 3u * ns * LP * 128;
+}
+
+// E2's bf16 body over one group of ns samples (rows contiguous in xb, ob
+// and in qkvb, whose rows are 2304 wide), at attention tile LP. ctx [ns L,
+// 768] is the block's workspace slice, rows ctx_row0 .. of maps.ws; ring
+// the block's (make_ring).
+template <int LP>
+__device__ void core_out_group(const HalfMaps& maps, const bf16* __restrict__ xb,
+                               const bf16* __restrict__ qkvb, const float* __restrict__ b_out,
+                               bf16* __restrict__ ob, bf16* ctx, int ctx_row0, int ns, int L,
+                               Ring& ring) {
+  constexpr int ld = 3 * kE;
+  const int rows = ns * L, wg = threadIdx.x >> 7, nqt = (L + 63) / 64;
+  const uint32_t tile_bytes = head_tile_bytes(ns, LP);
+  const bool two = 2 * tile_bytes <= kStages * kStageBytes;
+
+  // head hh's tiles into buffer buf of the ring, one commit group
+  auto stage = [&](int hh, int buf) {
+    const uint32_t base = ring.base + buf * tile_bytes;
+    for (int idx = threadIdx.x; idx < 3 * ns * LP * 8; idx += kThreads) {
+      const int ch = idx & 7, r = (idx >> 3) % LP, t = (idx >> 3) / LP;
+      const int which = t / ns, s = t - which * ns;
+      const bool ok = r < L;
+      cp_async16(base + t * LP * 128 + sw128(r, ch),
+                 qkvb + (size_t)(s * L + (ok ? r : 0)) * ld + which * kE + hh * kD + ch * 8, ok);
+    }
+    cp_async_commit();
+  };
+
+  __syncthreads();  // the previous group's GEMMs are done with the ring
+  stage(0, 0);
+  for (int hh = 0; hh < kHeads; ++hh) {
+    const int buf = two ? hh & 1 : 0;
+    if (two && hh + 1 < kHeads) {
+      stage(hh + 1, buf ^ 1);  // its buffer's last reader, head hh - 1, is done
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();  // head hh's tiles are visible to every thread and to wgmma
+    const uint32_t tiles = ring.base + buf * tile_bytes;
+    for (int u = wg; u < ns * nqt; u += 2) {
+      const int s = u / nqt, qt = u - s * nqt;
+      attn_query_tile<LP, false>(ring.ptr + buf * tile_bytes + s * LP * 128,
+                                 tiles + (ns + s) * LP * 128, tiles + (2 * ns + s) * LP * 128,
+                                 nullptr, L, kScale, qt, ctx + (size_t)s * L * kE + hh * kD, kE);
+    }
+    __syncthreads();  // every unit of head hh is done with its buffer
+    if (!two && hh + 1 < kHeads) stage(hh + 1, 0);
+  }
+  // ctx is read by TMA; the ring's generic writes come before TMA refills it
+  fence_proxy_async_global();
+  fence_proxy_async();
+  __syncthreads();
+  if (rows > 128)
+    out_projection_wgmma<2>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+  else
+    out_projection_wgmma<1>(maps, ctx_row0, rows, b_out, xb, ob, ring);
 }
 
 }  // namespace

@@ -18,31 +18,35 @@
 //
 // Both are K5's device code (halfblock.cuh): E1 is K5's body with the
 // variant as a template flag (bf16: attention_halfblock_group on wgmma;
-// fp32: attention_halfblock_rows on the CUDA cores); E2 is the mma.sync
-// design's per-head attention reading the head's columns straight from
-// qkv (row stride 2304, as K1 reads it) and its out-projection epilogue,
-// in both types. Widths are ViT-B's: E = 768, 12 heads of 64; any B and
-// 0 < L <= 256; no mask (the JAX functions take none).
+// fp32: attention_halfblock_rows on the CUDA cores). E2 in bf16 is K5's
+// attention and out-projection without its LayerNorm and qkv GEMM
+// (core_out_group): per head the group's q, k and v columns are copied
+// straight from qkv into K1's swizzled tiles, then K1's wgmma attention and
+// K5's TMA-fed wgmma out-projection; E2 in fp32 is the mma.sync design's
+// per-head attention reading the head's columns from qkv (row stride 2304,
+// as K1 reads it) and its out-projection epilogue on the CUDA cores.
+// Widths are ViT-B's: E = 768, 12 heads of 64; any B and 0 < L <= 256; no
+// mask (the JAX functions take none).
 //
 // The grid is the script's: B / tb blocks, block b taking samples
 // [b tb, (b + 1) tb) (the caller guarantees B % tb == 0). A block walks its
-// samples in groups of G <= tb that the caller gives: E1 in bf16 K5's
-// group (at most 256 rows and 512 padded attention rows, one sample at
-// L > 128), E1 in fp32 and E2 the mma.sync design's min(tb, max(1,
-// 128 / L)). With tb = 8, 16 or 32 (the script's batch tiles) at B = 256
-// the grid has 32, 16 or 8 blocks for the card's 132 SMs; the default tb
-// is K5's group, 128 blocks at L = 50 on 132 SMs.
+// samples in groups of G <= tb that the caller gives: in bf16 K5's group
+// (at most 256 rows and 512 padded attention rows, one sample at L > 128;
+// bf16_group_fits, which the kernels check), in fp32 the mma.sync design's
+// min(tb, max(1, 128 / L)). With tb = 8, 16 or 32 (the script's batch
+// tiles) at B = 256 the grid has 32, 16 or 8 blocks for the card's 132
+// SMs; the default tb is K5's group, 128 blocks at L = 50 on 132 SMs.
 //
 // Bound on an H100 SXM, B = 256, L = 50, bf16: E1 is K5's 62.4 GFLOP
 // (60.4 without attention, v2a), 63 us at 989 TFLOP/s against 44 MB of
 // I/O; E2 is 17.1 GFLOP (15.1 in the out-projection), 17 us, against
 // 99.5 MB of I/O (x, the 3E-wide qkv and out: 30 us at 3.35 TB/s), so E2
-// is bound by bytes. What the design does about it: E1 is K5's
-// (block_fused.cu): bf16 GEMMs on wgmma from a four-stage TMA ring,
-// each weight tile staged once for up to 256 rows, attention on K1's
-// wgmma core, x read once and the output written once; E2 keeps the
-// mma.sync design (bf16 GEMMs on mma.sync from a three-stage ring, qkv
-// read once, ctx in a block-private workspace that stays in L2). PERF.md
+// is bound by bytes. What the design does about it: x and qkv are read
+// once and the output written once; each w_out tile is staged once for
+// the group's up to 256 rows; ctx goes through a block-private workspace
+// slice that stays in the L2; one head's q/k/v copies overlap the previous
+// head's attention where two heads' tiles fit in shared memory (groups of
+// up to 298 padded rows: 2 samples at L = 50, one at L = 197). PERF.md
 // has the times against the bound.
 
 #include "halfblock.cuh"
@@ -103,27 +107,37 @@ attn_half_variant_kernel(const __grid_constant__ HalfMaps maps, const T* __restr
 
 template <typename T, int A>
 __global__ void __launch_bounds__(kThreads)
-core_out_kernel(const T* __restrict__ x, const T* __restrict__ qkv,
-                const T* __restrict__ w_out, const float* __restrict__ b_out,
-                T* __restrict__ out, T* __restrict__ ws, long long slot, int L, int tb,
-                int G) {
+core_out_kernel(const __grid_constant__ HalfMaps maps, const T* __restrict__ x,
+                const T* __restrict__ qkv, const T* __restrict__ w_out,
+                const float* __restrict__ b_out, T* __restrict__ out, T* __restrict__ ws,
+                long long slot, int L, int tb, int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int ld = 3 * kE;  // qkv's row: q | k | v, each 12 heads of 64
   T* ctx = ws + blockIdx.x * slot;
   const int first = blockIdx.x * tb, end = first + tb;
-  for (int b0 = first; b0 < end; b0 += G) {
-    const int rows = min(G, end - b0) * L;
-    const T* qb = qkv + (size_t)b0 * L * ld;
-    for (int hh = 0; hh < kHeads; ++hh) {
-      for (int r0 = 0; r0 < rows; r0 += L) {  // attention sample by sample
-        const T* q = qb + (size_t)r0 * ld + hh * kD;
-        AttnHead<T, A>::run(q, q + kE, q + 2 * kE, ld, nullptr, ctx + (size_t)r0 * kE + hh * kD,
-                            L, kScale, smem_raw);
-        __syncthreads();
-      }
+  if constexpr (std::is_same<T, bf16>::value) {
+    Ring ring = make_ring(smem_raw);
+    const int ctx_row0 = (int)(blockIdx.x * slot / kE);
+    for (int b0 = first; b0 < end; b0 += G) {
+      const size_t off = (size_t)b0 * L * kE;
+      core_out_group<8 * A>(maps, x + off, qkv + (size_t)b0 * L * ld, b_out, out + off, ctx,
+                            ctx_row0, min(G, end - b0), L, ring);
     }
-    const size_t off = (size_t)b0 * L * kE;
-    out_projection_residual<T>(ctx, rows, w_out, b_out, x + off, out + off, smem_raw);
+  } else {
+    for (int b0 = first; b0 < end; b0 += G) {
+      const int rows = min(G, end - b0) * L;
+      const T* qb = qkv + (size_t)b0 * L * ld;
+      for (int hh = 0; hh < kHeads; ++hh) {
+        for (int r0 = 0; r0 < rows; r0 += L) {  // attention sample by sample
+          const T* q = qb + (size_t)r0 * ld + hh * kD;
+          AttnHead<T, A>::run(q, q + kE, q + 2 * kE, ld, nullptr,
+                              ctx + (size_t)r0 * kE + hh * kD, L, kScale, smem_raw);
+          __syncthreads();
+        }
+      }
+      const size_t off = (size_t)b0 * L * kE;
+      out_projection_residual<T>(ctx, rows, w_out, b_out, x + off, out + off, smem_raw);
+    }
   }
 }
 
@@ -141,12 +155,6 @@ cudaError_t prepare(K kernel, size_t smem) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
-}
-
-// dynamic shared memory of E2, and of E1 in fp32 (the mma.sync body)
-template <typename T, int A>
-constexpr size_t kernel_smem() {
-  return AttnHead<T, A>::smem_bytes > kGemmSmem ? AttnHead<T, A>::smem_bytes : kGemmSmem;
 }
 
 // f(T{}, integral_constant<int, A>{}) at the attention tile of length L, as
@@ -184,7 +192,7 @@ template <typename T, int A, int V>
 cudaError_t launch_variant(const VariantArgs& a) {
   auto kernel = attn_half_variant_kernel<T, A, V>;
   constexpr bool bf = std::is_same<T, bf16>::value;
-  const size_t smem = bf ? kWgmmaSmem : kernel_smem<T, A>();
+  constexpr size_t smem = halfblock_smem<T, A>();
   if (a.G > a.tb || (bf && !bf16_group_fits(a.G, a.L)) ||
       a.slot < variant_slot_elems<T>(a.G, a.L) || (bf && a.slot % kE != 0))
     return cudaErrorInvalidValue;
@@ -212,13 +220,21 @@ cudaError_t launch_core_out(const void* x, const void* qkv, const void* w_out,
                             const float* b_out, void* out, void* ws, long long slot, int B,
                             int L, int tb, int G, cudaStream_t stream) {
   auto kernel = core_out_kernel<T, A>;
-  const size_t smem = kernel_smem<T, A>();
-  if (G > tb || slot < core_out_slot_elems(G, L)) return cudaErrorInvalidValue;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
+  constexpr bool bf = std::is_same<T, bf16>::value;
+  constexpr size_t smem = halfblock_smem<T, A>();
+  if (G > tb || (bf && !bf16_group_fits(G, L)) || slot < core_out_slot_elems(G, L) ||
+      (bf && slot % kE != 0))
+    return cudaErrorInvalidValue;
+  HalfMaps maps{};
+  cudaError_t err;
+  if (bf) {  // the workspace's B / tb slices, and w_out
+    if ((err = tile_map(&maps.ws, ws, B / tb * slot / kE, kBoxRows)) != cudaSuccess) return err;
+    if ((err = tile_map(&maps.w_out, w_out, kE, kD)) != cudaSuccess) return err;
+  }
+  if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
   kernel<<<B / tb, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(qkv), static_cast<const T*>(w_out), b_out,
-      static_cast<T*>(out), static_cast<T*>(ws), slot, L, tb, G);
+      maps, static_cast<const T*>(x), static_cast<const T*>(qkv), static_cast<const T*>(w_out),
+      b_out, static_cast<T*>(out), static_cast<T*>(ws), slot, L, tb, G);
   return cudaGetLastError();
 }
 
@@ -261,8 +277,9 @@ extern "C" int msclip_attention_halfblock_variant(const void* x, const void* ln_
 
 // E2. x, out: [B, L, 768]; qkv: [B, L, 2304] (q | k | v columns); w_out:
 // [768, 768]; one dtype as above. b_out [768]: fp32. B % tb == 0; groups of
-// G <= tb samples; ws holds B / tb slices of slot elements, each at least
-// ctx [G L, 768].
+// G <= tb samples (bf16: at most 256 rows and 512 padded attention rows, or
+// one sample); ws holds B / tb slices of slot elements, each at least ctx
+// [G L, 768] (bf16: a whole number of rows of 768).
 extern "C" int msclip_core_out_halfblock(const void* x, const void* qkv, const void* w_out,
                                          const float* b_out, void* out, void* ws, long long slot,
                                          int B, int L, int tb, int G, int dtype, void* stream) {

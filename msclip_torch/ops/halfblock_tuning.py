@@ -19,9 +19,9 @@ GEMM as a library call (the JAX package leaves it to XLA), then E2.
 ``tb`` is the samples a kernel block takes, the script's batch tile: the
 grid is ``B / tb`` blocks, and ``B % tb`` must be 0 (the JAX grid drops a
 remainder silently; these functions raise). A block walks its samples in
-groups of at most ``tb`` (:func:`variant_group`, :func:`core_out_group`),
-and the default ``tb`` is K5's group (``block_fused.group_samples``), or
-the largest divisor of ``B`` below it.
+groups of at most ``tb`` (:func:`tuning_group`, K5's largest group), and
+the default ``tb`` is K5's group (``block_fused.group_samples``), or the
+largest divisor of ``B`` below it.
 The plain versions ignore ``tb``: the result does not depend on it.
 Parameters are a block's tensors under the port's local names, linear
 weights ``[out, in]``; inference only.
@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .block_fused import (_DTYPE_CODE, GROUP_ROWS, HEAD_DIM, WIDTH,
+from .block_fused import (_DTYPE_CODE, HEAD_DIM, WIDTH,
                           _check_cuda_input, _device_type, _operands, _proj,
                           group_samples, layer_norm, max_group, slot_elems,
                           sm_count)
@@ -61,16 +61,12 @@ def default_tb(B: int, L: int, dtype: torch.dtype,
     return tb
 
 
-def variant_group(L: int, tb: int, dtype: torch.dtype) -> int:
-    """E1's samples per group inside a block of ``tb``: K5's largest group
-    (``block_fused.max_group``), at most ``tb``."""
+def tuning_group(L: int, tb: int, dtype: torch.dtype) -> int:
+    """E1's and E2's samples per group inside a block of ``tb``: K5's
+    largest group (``block_fused.max_group``: in bf16 at most 256 rows and
+    512 padded attention rows, in fp32 a GEMM pass of 128 rows), at most
+    ``tb``."""
     return min(tb, max_group(L, dtype))
-
-
-def core_out_group(L: int, tb: int) -> int:
-    """E2's samples per group inside a block of ``tb``: as many as fill a
-    GEMM pass of 128 rows, at most ``tb``."""
-    return min(tb, max(1, GROUP_ROWS // L))
 
 
 def workspace_elems(B: int, L: int, tb: int, dtype: torch.dtype,
@@ -78,11 +74,8 @@ def workspace_elems(B: int, L: int, tb: int, dtype: torch.dtype,
     """``(G, slot)``: a block's group and the elements of its workspace
     slice, of which there are ``B / tb``: E1's h and ctx ``[G L, E]`` (and
     q/k/v ``[G L, 3 D]`` in fp32), E2's ctx ``[G L, E]``."""
-    if core_out:
-        G = core_out_group(L, tb)
-        return G, G * L * WIDTH
-    G = variant_group(L, tb, dtype)
-    return G, slot_elems(G, L, dtype)
+    G = tuning_group(L, tb, dtype)
+    return G, G * L * WIDTH if core_out else slot_elems(G, L, dtype)
 
 
 def _softmax_weights(s, dtype, reciprocal):

@@ -278,6 +278,59 @@ def test_tuning_blocks_cover_every_sample_once(dtype):
                     assert walks[B, tb, g], (B, L, tb, g)
 
 
+def _source_group_fits():
+    """``bf16_group_fits`` of ``csrc/halfblock.cuh`` as Python, with the
+    source's own constants and ``padded_len`` (``csrc/attn_core.cuh``),
+    after checking that its body is the one read here."""
+    import re
+
+    def read(name):
+        with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+            return f.read()
+
+    half, core = read("halfblock.cuh"), read("attn_core.cuh")
+    body = re.search(r"bool bf16_group_fits\(int ns, int L\) \{\s*return ([^;]*);",
+                     half).group(1)
+    assert " ".join(body.split()) == ("ns == 1 || (ns >= 1 && ns * L <= kWgRows "
+                                      "&& ns * padded_len(L) <= kWgTileRows)")
+    rows, tile = (int(re.search(rf"constexpr int {n} = (\d+);", half).group(1))
+                  for n in ("kWgRows", "kWgTileRows"))
+    pad = re.search(r"constexpr int padded_len\(int L\) \{\s*return ([^;]*);",
+                    core).group(1)
+    steps = [(int(a), int(b)) for a, b in re.findall(r"L <= (\d+) \? (\d+)", pad)]
+    last = int(pad.rsplit(":", 1)[1])
+
+    def fits(ns, L):
+        lp = next((p for at, p in steps if L <= at), last)
+        return ns == 1 or (ns >= 1 and ns * L <= rows and ns * lp <= tile)
+
+    return fits
+
+
+def test_core_out_bf16_groups_fit_the_source():
+    """E2's bf16 group plan for every B in 1..300, L in 1..256 and every tb
+    that divides B: the group ``G`` fits ``bf16_group_fits`` as the source
+    computes it (which the kernel checks and refuses otherwise), the slice
+    is ctx ``[G L, 768]``, a whole number of rows of 768 (the kernel's
+    tensor map over the workspace), and the block's walk covers every
+    sample exactly once; ``G`` is K5's largest group wherever tb allows."""
+    fits = _source_group_fits()
+    walks = {}
+    for B in range(1, 301):
+        tbs = [tb for tb in range(1, B + 1) if B % tb == 0]
+        for L in range(1, 257):
+            for tb in tbs:
+                G, slot = HT.workspace_elems(B, L, tb, torch.bfloat16,
+                                             core_out=True)
+                assert 1 <= G <= tb and fits(G, L), (B, L, tb, G)
+                assert G == min(tb, BF.max_group(L, torch.bfloat16))
+                assert slot == G * L * 768 and slot % 768 == 0
+                if (B, tb, G) not in walks:
+                    walks[B, tb, G] = bool((_e1_walk(B, tb, G) == 1).all())
+                assert walks[B, tb, G], (B, L, tb, G)
+    assert len(walks) > 1000
+
+
 def test_tool_main_runs_every_row_on_the_cpu(capsys):
     rows = tool.main(["--device", "cpu", "--batch", "4", "--seq", "8",
                       "--width", "128", "--iters", "2", "--tbs", "1,2",

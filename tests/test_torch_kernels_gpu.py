@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 attention forward, K2 attention backward, K3
 and K4 the int8 quantizers, K5 and K6 the fused half-blocks, E1 and E2 the
-half-block tuning kernels) against their plain versions, on the card.
+half-block tuning kernels) against their plain versions, on the card; K4
+bit for bit, on every bf16 bit pattern too.
 
 JAX-free, so that it runs where JAX is absent:
 
@@ -280,6 +281,65 @@ def test_quant_kernels_edge_rows(cuda, dtype, E):
     assert (q == 0).all() and (s == torch.tensor(1e-8)).all()
 
 
+def _gelu_quant_bitwise(x):
+    """K4's q and s against ``gelu_quant_plain``'s, bit for bit (any NaN
+    scale equal to any NaN)."""
+    (q, s), (qp, sp) = Q.gelu_quant(x), Q.gelu_quant_plain(x)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == qp.shape
+    assert torch.equal(q, qp)
+    assert ((s.view(torch.int32) == sp.view(torch.int32))
+            | (torch.isnan(s) & torch.isnan(sp))).all()
+
+
+def test_gelu_quant_kernel_every_bf16_pattern(cuda):
+    """All 65,536 bf16 bit patterns, one a row of 3072 with planted row
+    maxima (``chip_smoke.every_bf16_rows``): K4 equals its plain version
+    bit for bit, NaN and infinite rows included."""
+    import chip_smoke
+
+    x = chip_smoke.every_bf16_rows(3072, cuda)
+    assert x.shape == (1 << 16, 3072)
+    _gelu_quant_bitwise(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,E", [(256, 197, 3072), (3, 17, 3072),
+                                   (5, 77, 64), (1, 1, 4096), (2, 3, 1032)])
+def test_gelu_quant_kernel_equals_plain_bitwise(cuda, dtype, B, L, E):
+    """K4's q and s equal the plain version's bit for bit at the B/16 int8
+    shape and at widths that leave threads without a chunk, on random
+    rows and on rows with an exact GELU maximum, ties, zeros and an
+    outlier."""
+    gen = torch.Generator(device=cuda).manual_seed(B + L + E)
+    x = 2 * torch.randn(B, L, E, device=cuda, generator=gen)
+    _gelu_quant_bitwise(x.to(dtype))
+    ties = torch.tensor([254.0, 61.0, 63.0, 65.0, 67.0, 0.0, -61.0],
+                        device=cuda).repeat(E // 7 + 1)[:E]
+    rows = torch.stack([ties, torch.zeros(E, device=cuda),
+                        torch.zeros(E, device=cuda).index_fill(0, torch.tensor(
+                            [E // 2], device=cuda), 100.0)])
+    _gelu_quant_bitwise(rows.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_quant_kernel_wide_rows(cuda, dtype):
+    """Rows holding what K4's main sequence does not take (e overflowing
+    below x = -52.1, 1 / (1 + e) below 2^-126 down to x = -51.3, +-inf,
+    NaN), among ordinary values: the block recomputes the row exactly, and
+    q and s equal the plain version's bit for bit; the other rows are
+    untouched by it."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(8, 3072, device=cuda, generator=gen)
+    x[0, 5] = -53.0
+    x[1, 7] = -51.75
+    x[2, 9] = float("inf")
+    x[3, 11] = float("-inf")
+    x[4, 13] = float("nan")
+    x[5, 100:200] = torch.linspace(-52.5, -51.0, 100, device=cuda)
+    _gelu_quant_bitwise(x.to(dtype))
+
+
 def test_quant_kernels_refuse_bad_inputs(cuda):
     x = torch.randn(2, 8, 772, device=cuda)
     w = torch.ones(772, device=cuda)
@@ -464,7 +524,7 @@ def test_halfblock_variant_kernel_groups(cuda, dtype, variant, L, extra):
     """E1 at blocks of K5's largest group (``extra`` 0) and of one sample
     more, whose last group holds one sample; two blocks."""
     tb = BF.max_group(L, dtype) + extra
-    assert HT.variant_group(L, tb, dtype) == tb - extra
+    assert HT.tuning_group(L, tb, dtype) == tb - extra
     gen = torch.Generator(device=cuda).manual_seed(L + tb)
     p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
     x = torch.randn(2 * tb, L, 768, device=cuda, generator=gen).to(dtype)
@@ -490,6 +550,46 @@ def test_core_out_kernel_matches_plain(cuda, dtype, L, B, tb):
     torch.cuda.synchronize()
     assert HT.core_out_halfblock.launches == before + 1
     _assert_tuning_close(got, HT.core_out_plain(x, qkv, p), x, dtype)
+
+
+def _core_out_case(cuda, dtype, B, L, tb, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    h = BF.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"])
+    qkv = (h @ p["attn.in_proj_weight"].t() + p["attn.in_proj_bias"]) \
+        .contiguous()
+    got = HT.core_out_halfblock(x, qkv, p, tb)
+    torch.cuda.synchronize()
+    _assert_tuning_close(got, HT.core_out_plain(x, qkv, p), x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", range(1, 257))
+def test_core_out_kernel_every_length(cuda, dtype, L):
+    """E2 at every L in 1..256 on an odd batch of 3 at the default tile (in
+    bf16 K5's group cut to a divisor of 3: groups of 1 or 3 samples)."""
+    _core_out_case(cuda, dtype, 3, L, None, L)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [50, 77, 197])
+@pytest.mark.parametrize("tb", [8, 16, 32, None])
+def test_core_out_kernel_script_tiles(cuda, dtype, L, tb):
+    """E2 at the tool's batch tiles (8, 16, 32) and its default, on 32
+    samples: blocks of several groups, ragged last groups in bf16 (8 = 5 +
+    3 at L = 50), one sample a group at L = 197."""
+    _core_out_case(cuda, dtype, 32, L, tb, L + (tb or 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,tb", [(1, None), (7, 1), (7, 7), (45, 5),
+                                  (45, None), (135, 27)])
+@pytest.mark.parametrize("L", [50, 129])
+def test_core_out_kernel_odd_batches(cuda, dtype, B, tb, L):
+    """E2 on odd batches, at one sample a block, the whole batch a block,
+    and tiles that leave groups ragged."""
+    _core_out_case(cuda, dtype, B, L, tb, B + L)
 
 
 def test_halfblock_tuning_kernels_refuse_bad_inputs(cuda):

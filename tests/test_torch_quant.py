@@ -136,6 +136,195 @@ def test_gelu_quant_plain_matches_jax_kernel(dtype, kind):
         assert (got[0] == 0).all() and (got[1] == torch.tensor(1e-8)).all()
 
 
+# K4's division sequences (csrc/quant.cu), emulated with numpy: an fp32
+# fma rounds the exact a b + c once; fp64 holds a b exactly and a two-sum
+# gives the error of a b + c in fp64, which breaks an fp32 tie.
+F32, F64 = np.float32, np.float64
+
+
+def _round32(s, e):
+    """fp32 rounding of the exact ``s + e`` (``s`` fp64, ``|e|`` at most
+    half an fp64 ulp of ``s``): fp64 to fp32 rounds ``s``, right unless
+    ``s`` lies on an fp32 midpoint and ``e`` moves it off."""
+    r = s.astype(F32)
+    up = r.astype(F64) > s
+    lo = np.where(up, np.nextafter(r, F32(-np.inf)), r)
+    hi = np.where(up, r, np.nextafter(r, F32(np.inf)))
+    tie = (s == (lo.astype(F64) + hi.astype(F64)) / 2) & (e != 0)
+    return np.where(tie, np.where(e > 0, hi, lo), r)
+
+
+def _fma32(a, b, c):
+    p = a.astype(F64) * b.astype(F64)
+    c = np.broadcast_to(c, p.shape).astype(F64)
+    s = p + c
+    bb = s - p
+    return _round32(s, (p - (s - bb)) + (c - bb))
+
+
+def _mul32(a, b):
+    return (a.astype(F64) * b.astype(F64)).astype(F32)
+
+
+def _div_newton(x, d, r0):
+    """``div_newton``: an approximate 1 / d, one Newton step, q = x r and
+    Markstein's correction."""
+    r = _fma32(r0, _fma32(-d, r0, F32(1)), r0)
+    q = _mul32(x, r)
+    return _fma32(_fma32(-q, d, x), r, q)
+
+
+def _div_rn(x, y, r):
+    """``hopper.cuh div_rn``: q = x r, then q + (x - q y) r."""
+    q = _mul32(x, r)
+    return _fma32(_fma32(-q, y, x), r, q)
+
+
+def _ulps(v, k):
+    """``v`` moved ``k`` fp32 ulps away from zero (``v > 0``)."""
+    return (v.view(np.int32) + np.int32(k)).view(F32)
+
+
+def _same(a, b):
+    """Bitwise equal, but any NaN equal to any NaN and -0 to 0."""
+    return (a.view(np.int32) == b.view(np.int32)) | (a == b) \
+        | (np.isnan(a) & np.isnan(b))
+
+
+def _quick_gelu_kernel(x, d, r_off):
+    """K4's QuickGELU quotient of ``x`` and ``d = 1 + exp(-1.702 x)``:
+    ``div_newton``, the reciprocal approximation ``r_off`` ulps off 1 / d
+    rounded, or where ``gelu_is_wide`` holds, ``quick_gelu_wide``."""
+    with np.errstate(all="ignore"):
+        ones = (d.view(np.uint32) & 0x7FFFFF) == 0x7FFFFF
+        wide = ~(d < F32(2.0 ** 126)) | (x == np.inf) | ones
+        safe = np.where(d < F32(2.0 ** 126), d, F32(1))
+        h = _div_newton(x, safe, _ulps(F32(1) / safe, r_off))
+        big = d >= F32(2.0 ** 126)
+        xs = np.where(big, x * F32(2.0 ** -64), x)
+        ds = np.where(big & np.isfinite(d), d * F32(2.0 ** -64), safe)
+        exact = _div_rn(xs, ds, F32(1) / ds)  # rcp_rn: 1 / d rounded once
+        special = np.where(np.isnan(x) | np.isnan(d), x + d,
+                           np.where(d == np.inf, x * F32(0), x))
+        rare = np.isnan(x) | np.isnan(d) | (d == np.inf) | (x == np.inf)
+        return np.where(wide, np.where(rare, special, exact), h)
+
+
+def test_quick_gelu_quotient_rounds_as_ieee_division():
+    """K4's ``x / (1 + e)`` (``div_newton``, and ``quick_gelu_wide`` where
+    1 / d is not normal or x is not finite) equals IEEE division bit for
+    bit on every bf16 x and on 2^20 fp32 x, at the denominator numpy's exp
+    gives and two ulps either side (the card's expf may differ by one;
+    there the quotient of an |x| below 2^-100 need only stay below it), the hardware
+    reciprocal two ulps off either way: -0 where e overflows, exact scaled
+    quotients down to x = -52.1, NaN and infinities as IEEE has them."""
+    rng = np.random.default_rng(0)
+    bf16 = (np.arange(1 << 16, dtype=np.uint32) << 16).view(F32)
+    fp32 = (rng.choice([-1, 1], 1 << 20) * rng.random(1 << 20)
+            * np.exp2(rng.integers(-40, 12, 1 << 20))).astype(F32)
+    near = np.linspace(-52.5, -51.0, 4096, dtype=F32)  # d >= 2^126 and inf
+    x = np.concatenate([bf16, fp32, near])
+    with np.errstate(all="ignore"):
+        d0 = F32(1) + np.exp(F32(-1.702) * x)
+        checked = 0
+        for d_off in (-2, -1, 0, 1, 2):
+            d = np.where(np.isfinite(d0), _ulps(d0, d_off), d0)
+            d = np.where(np.isnan(d) | (d >= 1), d, F32(1))
+            want = x / d
+            # below |x| = 2^-100 the residual x - q d can underflow; there
+            # exp gives 1 and d = 2, where the sequence is exact, but at a
+            # neighbouring d it need only stay below 2^-100 (rint(h / s) = 0
+            # and h is under the scale's floor)
+            tiny = (np.abs(x) < F32(2.0 ** -100)) & (d_off != 0)
+            for r_off in (-2, -1, 0, 1, 2):
+                got = _quick_gelu_kernel(x, d, r_off)
+                bad = ~_same(got, want) & ~tiny
+                assert not bad.any(), (x[bad][:5], d[bad][:5], got[bad][:5])
+                assert (np.abs(got[tiny]) < F32(2.0 ** -100)).all()
+                checked += x.size
+    assert checked >= 25 * (1 << 20)
+    assert (bf16 == 0).any() and np.isnan(bf16).sum() == 254
+    # the sequence alone (no wide path) is wrong where it must be: e
+    # overflowing (NaN, not -0), x = +inf, d >= 2^126 (-0, not x / d), and
+    # an all-ones significand with the reciprocal an ulp low
+    for xv, dv, off in ((-53.0, np.inf, 0), (np.inf, 1.0, 0),
+                        (-51.75, 2.0 ** 127, 0), (2.0 ** -23, 2 - 2.0 ** -23, -1)):
+        xv, dv = np.array([xv], F32), np.array([dv], F32)
+        with np.errstate(all="ignore"):
+            r0 = _ulps(F32(1) / dv, off) if np.isfinite(dv).all() else F32([0])
+            plain = _div_newton(xv, dv, np.where(dv < 2.0 ** 126, r0, F32(0)))
+        assert not _same(plain, xv / dv).all(), (xv, dv, plain)
+
+
+def test_quantize_quotient_rounds_as_ieee_division():
+    """K4's scale ``max(div_rn(amax, 127, RN(1/127)), 1e-8)`` equals the
+    plain version's IEEE ``max(amax / 127, 1e-8)`` on 2^20 amax, and its
+    quantize quotient ``div_rn(h, s, rcp_rn(s))`` the IEEE ``h / s`` on
+    2^21 pairs from the kernel's domain (|h| <= amax, ties at .5 and
+    quotients near +-127), except where that quotient is below 2^-24,
+    where both round to 0; the int8 from ``v + 1.5 2^23`` is
+    ``clamp(rint(h / s), -127, 127)``."""
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    amax = (rng.random(n) * np.exp2(rng.integers(-140, 128, n))).astype(F32)
+    amax = np.concatenate([amax, F32([0, 1e-30, 1.27e-6, 1.27e-6 * 1.0001,
+                                      3.4028235e38])])
+    with np.errstate(over="ignore"):
+        s = np.maximum(_div_rn(amax, F32(127), F32(1) / F32(127)), F32(1e-8))
+        assert _same(s, np.maximum(amax / F32(127), F32(1e-8))).all()
+    # rcp_rn: two fp64 Newton steps from two ulps off, rounded once
+    r = F32(1) / s
+    for off in (-2, 2):
+        rr = _ulps(r, off).astype(F64)
+        for _ in range(2):
+            rr = rr + rr * (1.0 - s.astype(F64) * rr)
+        assert (rr.astype(F32) == r).all()
+    # h: uniform in [-amax, amax], +-amax, ties (k + 0.5) s where exact, and
+    # their neighbours; half the scales with 16-bit significands, on which
+    # most ties are exact
+    amax, s, r = amax[:n], s[:n], r[:n]
+    short = (rng.integers(1 << 15, 1 << 16, n // 2)
+             * np.exp2(rng.integers(-43, 100, n // 2))).astype(F32)
+    s[: n // 2], r[: n // 2] = short, F32(1) / short
+    amax[: n // 2] = (F64(127) * short).astype(F32)
+    k = rng.integers(-127, 127, n).astype(F64) + 0.5
+    tie = (k * s.astype(F64)).astype(F32)
+    tie = np.where(tie.astype(F64) == k * s.astype(F64), tie, F32(0))
+    h = np.concatenate([
+        (rng.uniform(-1, 1, n) * amax).astype(F32), amax, -amax, tie,
+        np.nextafter(tie, F32(np.inf)), np.nextafter(tie, F32(-np.inf))])
+    s, r = np.tile(s, 6), np.tile(r, 6)
+    got = _div_rn(h, s, r)
+    want = h / s
+    # below 2^-24 (h under 2^-100, or far under s) x - q y can underflow;
+    # there both quotients round to 0
+    normal = np.abs(want) >= F32(2.0 ** -24)
+    assert (tie != 0).mean() > 0.3 and np.abs(want).max() <= 127.0001
+    assert _same(got[normal], want[normal]).all()
+    assert (np.rint(got[~normal]) == 0).all()
+    q = ((got + F32(12582912.0)).view(np.uint32) & 0xFF).astype(np.uint8) \
+        .view(np.int8)
+    assert (q == np.clip(np.rint(want), -127, 127).astype(np.int8)).all()
+    assert (np.abs(np.rint(want)) == 127).any() and (q == 0).any()
+
+
+def test_gelu_quant_constants_mirror_the_source():
+    """The literals of K4's sequences in ``csrc/quant.cu`` are the ones the
+    emulations above take: RN(1 / 127), 1.5 2^23, 2^126, 2^-64."""
+    import re
+
+    with open(os.path.join(REPO, "msclip_torch", "csrc", "quant.cu")) as f:
+        src = f.read()
+    rcp = re.search(r"kRcp127 = (0x[0-9a-fp.+-]+)f;", src).group(1)
+    assert F32(float.fromhex(rcp)) == F32(1) / F32(127)
+    assert float(re.search(r"kRintMagic = ([0-9.]+)f;", src).group(1)) \
+        == 1.5 * 2 ** 23
+    assert "!(d < 0x1p126f)" in src and "d >= 0x1p126f" in src
+    assert "x *= 0x1p-64f;" in src and "d *= 0x1p-64f;" in src
+    assert "(__float_as_uint(d) & 0x7FFFFFu) == 0x7FFFFFu" in src
+    assert "rcp.approx.ftz.f32" in src and "max.NaN.f32" in src
+
+
 def test_quantize_linear_weight_matches_jax():
     """The port's ``[out, in]`` weight against JAX's ``[in, out]``."""
     rng = np.random.default_rng(2)
