@@ -9,14 +9,15 @@ Phases, each printed on its own line and each fatal on failure:
 2. build: compile every CUDA kernel of the port from the sources in this
    checkout (one ``nvcc`` per source, all started together), and print
    what ``ptxas -v`` reports for each instantiation by name, the wgmma
-   instructions in each K5/E1/E2 instantiation and K4's SASS instructions
-   an element (``cuobjdump -sass``); a bf16 instantiation of K1, K2, K5,
-   E1 or E2 that spills registers, wgmma that ptxas serializes in K1, K2,
-   K5, E1 or E2, or a bf16 K5/E1/E2 instantiation without wgmma fails the
-   run; then, in a fresh process, the fp32 and
-   bf16 turns of K5, E1, E2 and the hybrid against their yardsticks that
-   phases 3 and 12 report (``traced_turns``: the profiler traced none of
-   them in a process that had run the other phases first);
+   instructions in each K5/K6/E1/E2 instantiation and K3's and K4's SASS
+   instructions an element (``cuobjdump -sass``); a bf16 instantiation of
+   K1, K2, K5, K6, E1 or E2 that spills registers, wgmma that ptxas
+   serializes in K1, K2, K5, K6, E1 or E2, or a bf16 K5/K6/E1/E2
+   instantiation without wgmma fails the run; then, in a fresh process,
+   the fp32 and bf16 turns of K5, K6, E1, E2 and the hybrid against their
+   yardsticks that phases 3 and 12 report (``traced_turns``: the profiler
+   traced none of them in a process that had run the other phases
+   first);
 3. kernels: call each kernel's wrapper at the shapes the main paths give
    it, hold the result against its plain PyTorch version, and time the
    kernel, the plain version and the nearest PyTorch library call: the
@@ -71,7 +72,8 @@ Phases, each printed on its own line and each fatal on failure:
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16
-(K4 bit for bit, and on every bf16 bit pattern, ``k4_exhaustive``),
+(K4 bit for bit, and on every bf16 bit pattern, ``k4_exhaustive``; the
+edge rows of both bit for bit, K3's non-finite rows among them),
 reads faults planted into a torch copy of the plain versions against the
 same check, and times both in turns with the plain version (event and
 device time, ``vs_plain``) and beside ``torch.compile`` of it;
@@ -79,11 +81,12 @@ and it holds the fused half-blocks, attention (K5) and MLP (K6), against
 their plain versions in fp32 and bf16, reads faults planted into a torch
 copy of the plain versions against the same check, and times both beside
 the port's unfused half (with K1, and with SDPA in K1's place, for K5) and
-``torch.compile`` of the plain version; K5 and the unfused half with K1
-in turns, by event and device time, with ``vs_unfused``, the ratio of
-their device times. A ``k5_design`` line gives, apart from the
-measurements, the bytes K5's groups stage from the L2 as the design
-reckons them (``staged_l2_bytes``; no counter reads them).
+``torch.compile`` of the plain version; K5 and K6 each in turns with its
+unfused half (K1's; the cuBLAS MLP half), by event and device time, with
+``vs_unfused``, the ratio of their device times. A ``k5_design`` line
+gives, apart from the measurements, the bytes K5's groups stage from the
+L2 as the design reckons them (``staged_l2_bytes``; no counter reads
+them), a ``k6_design`` line K6's plan (``mlp_plan``).
 
 The ``[seconds]`` line gives each phase's time. The line before the last
 is a JSON object with one entry per kernel; the last line is ``{"ok":
@@ -200,15 +203,16 @@ def device_and_packages():
 
 
 # kernels held to the build check: no bf16 instantiation of these may spill
-# registers, and none of K1, K2, K5, E1 or E2 may have its wgmma serialized
-# (ptxas C7510-C7515); every bf16 K5, E1 and E2 instantiation must hold wgmma
+# registers, and none of K1, K2, K5, K6, E1 or E2 may have its wgmma
+# serialized (ptxas C7510-C7515); every bf16 K5, K6, E1 and E2
+# instantiation must hold wgmma
 SPILL_CHECKED = ("attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel",
-                 "attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16",
-                 "core_out_kernel<bf16")
+                 "attention_halfblock_kernel<bf16", "mlp_halfblock_kernel<bf16",
+                 "attn_half_variant_kernel<bf16", "core_out_kernel<bf16")
 WGMMA_CHECKED = ("attention_fwd", "attention_bwd", "attention_halfblock_kernel",
-                 "attn_half_variant_kernel", "core_out_kernel")
-WGMMA_REQUIRED = ("attention_halfblock_kernel<bf16", "attn_half_variant_kernel<bf16",
-                  "core_out_kernel<bf16")
+                 "mlp_halfblock_kernel", "attn_half_variant_kernel", "core_out_kernel")
+WGMMA_REQUIRED = ("attention_halfblock_kernel<bf16", "mlp_halfblock_kernel<bf16",
+                  "attn_half_variant_kernel<bf16", "core_out_kernel<bf16")
 
 
 def kernel_name(mangled):
@@ -256,21 +260,22 @@ def wgmma_counts(path):
             for k, ops in sass_functions(path).items()}
 
 
-def gelu_sass_per_element(path):
-    """K4's SASS in a built ``quant.cu`` library: per ``gelu_quant_kernel``
-    instantiation, the instructions of its main path (static count: from
-    its first instruction to its last ``EXIT``, the loop over a thread's
-    chunks unrolled, so each instruction once) over the elements a thread
-    (or lane) of it holds, 8 a chunk, and how many of those are MUFU
-    (``ex2``, ``rcp``), fp32 arithmetic and conversions; the subroutines
-    placed after it (the slow path of an IEEE division, or the rare exact
-    row ``gelu_quant_row_wide``), which the main path reaches only through
-    ``CALL``, are counted apart. ``python3 -c "import
-    chip_smoke as C; print(C.gelu_sass_per_element('<lib>.so'))"`` reads
-    any build of ``quant.cu``."""
+def quant_sass_per_element(path, kernel="gelu_quant_kernel"):
+    """K4's (``gelu_quant_kernel``) or K3's (``ln_quant_kernel``) SASS in a
+    built ``quant.cu`` library: per instantiation, the instructions of its
+    main path (static count: from its first instruction to its last
+    ``EXIT``, the loop over a thread's chunks unrolled, so each instruction
+    once) over the elements a thread (or lane) of it holds, 8 a chunk, and
+    how many of those are MUFU (``ex2``, ``rcp``, ``rsq``), fp32 arithmetic
+    and conversions; the subroutines placed after it (the slow path of an
+    IEEE division, or K4's rare exact row ``gelu_quant_row_wide``), which
+    the main path reaches only through ``CALL``, are counted apart.
+    ``python3 -c "import chip_smoke as C;
+    print(C.quant_sass_per_element('<lib>.so', 'ln_quant_kernel'))"``
+    reads any build of ``quant.cu``."""
     out = {}
     for name, ops in sass_functions(path).items():
-        m = re.match(r"gelu_quant_kernel<\w+,(\d+)>", name)
+        m = re.match(kernel + r"<\w+,(\d+)>", name)
         if not m:
             continue
         n = 8 * int(m[1])
@@ -285,7 +290,8 @@ def gelu_sass_per_element(path):
             "per_element": len(main) / n, "mufu_per_element": count("MUFU"),
             "fp32_per_element": count("FFMA", "FMUL", "FADD", "FMNMX",
                                       "FSETP", "FSEL", "FCHK"),
-            "conversions_per_element": count("F2I", "I2F", "FRND", "F2F"),
+            "conversions_per_element": count("F2I", "I2F", "FRND", "F2F",
+                                             "F2FP"),
             "calls_in_main": sum(op.startswith("CALL") for op in main),
             "subroutine_instructions": len(ops) - end}
     return out
@@ -294,11 +300,12 @@ def gelu_sass_per_element(path):
 def build_kernels():
     """Every source at once, one nvcc each. Prints what ``ptxas -v`` reports
     for each kernel instantiation (registers, shared memory, spills), the
-    wgmma instructions of K5's, E1's and E2's, and K4's SASS instructions an
-    element (:func:`gelu_sass_per_element`). Fails if a bf16 instantiation
-    of K1, K2, K5, E1 or E2 spills registers, if ptxas serializes the wgmma
-    of a K1, K2, K5, E1 or E2 instantiation (C7510-C7515), or if a bf16 K5,
-    E1 or E2 instantiation holds no wgmma."""
+    wgmma instructions of K5's, K6's, E1's and E2's, and K3's and K4's SASS
+    instructions an element (:func:`quant_sass_per_element`). Fails if a
+    bf16 instantiation of K1, K2, K5, K6, E1 or E2 spills registers, if
+    ptxas serializes the wgmma of a K1, K2, K5, K6, E1 or E2 instantiation
+    (C7510-C7515), or if a bf16 K5, K6, E1 or E2 instantiation holds no
+    wgmma."""
     t0 = time.time()
     spilled, serialized, no_wgmma = [], [], []
     sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE, HT.SOURCE)
@@ -327,19 +334,21 @@ def build_kernels():
                               f"{lines[i - 1].strip()}")
         extra = {}
         if source == Q.SOURCE:
-            extra["k4_sass"] = json.dumps(gelu_sass_per_element(path))
+            extra["k3_sass"] = json.dumps(quant_sass_per_element(
+                path, "ln_quant_kernel"))
+            extra["k4_sass"] = json.dumps(quant_sass_per_element(path))
         if source in (BF.SOURCE, HT.SOURCE):
             wgmma = wgmma_counts(path)
             extra["wgmma"] = json.dumps(wgmma)
             no_wgmma += [k for k, n in wgmma.items()
                          if n == 0 and any(r in k for r in WGMMA_REQUIRED)]
             if not any(any(r in k for r in WGMMA_REQUIRED) for k in wgmma):
-                no_wgmma.append(f"no bf16 K5/E1/E2 kernel in {source}")
+                no_wgmma.append(f"no bf16 K5/K6/E1/E2 kernel in {source}")
         log("build", source=source, seconds=f"{time.time() - t0:.1f}",
             ptxas=json.dumps(report), **extra)
     if spilled or serialized or no_wgmma:
         raise AssertionError(f"build check: spills {spilled}; serialized wgmma "
-                             f"{serialized}; bf16 K5/E1/E2 without wgmma "
+                             f"{serialized}; bf16 K5/K6/E1/E2 without wgmma "
                              f"{no_wgmma}")
 
 
@@ -348,7 +357,9 @@ def halfblock_jobs(B, L, causal, dtype, p, gen, tuning=False):
     12 time at one shape, defined here once: ``xs``, ``n`` input sets of x
     cycled past the L2 (a timing touches at most 33); ``k5``; ``unfused``,
     the port's unfused half with K1; ``unfused_sdpa``, the same with SDPA
-    in K1's place. With ``tuning`` also ``qkvs``, E2's input for each x
+    in K1's place; ``k6``; ``unfused_mlp``, the port's unfused MLP half
+    (``layer_norm`` + cuBLAS ``c_fc`` + QuickGELU + cuBLAS ``c_proj`` +
+    residual). With ``tuning`` also ``qkvs``, E2's input for each x
     (the hybrid's LayerNorm and library GEMM); ``e1``, a function of the
     variant; ``e2``; ``k1_matmul`` and ``sdpa_matmul``, K1 or SDPA on the
     same qkv with the out-projection, bias and residual in torch; and
@@ -379,7 +390,10 @@ def halfblock_jobs(B, L, causal, dtype, p, gen, tuning=False):
             "k5": lambda i: BF.fused_attention_halfblock(xs[i], p, H, mask),
             "unfused": lambda i: xs[i] + TL.attention(p, ln(xs[i]), H, mask),
             "unfused_sdpa": lambda i: out_proj(i, sdpa(TL.linear(
-                ln(xs[i]), p["attn.in_proj_weight"], p["attn.in_proj_bias"])))}
+                ln(xs[i]), p["attn.in_proj_weight"], p["attn.in_proj_bias"]))),
+            "k6": lambda i: BF.fused_mlp_halfblock(xs[i], p),
+            "unfused_mlp": lambda i: xs[i] + TL.mlp(p, TL.layer_norm(
+                xs[i], p["ln_2.weight"], p["ln_2.bias"]))}
     if tuning:
         qkvs = [(ln(x) @ p["attn.in_proj_weight"].t()
                  + p["attn.in_proj_bias"]).contiguous() for x in xs]
@@ -396,9 +410,10 @@ def halfblock_jobs(B, L, causal, dtype, p, gen, tuning=False):
 def traced_turns():
     """The turns (:func:`turns`) of phases 3 and 12 in fp32 and bf16: K5
     against the unfused half with K1 at ``HALF_SHAPES`` and
-    ``TUNING_SHAPES``; at ``TUNING_SHAPES`` each E1 variant and the whole
-    hybrid against the unfused half, E2 against K1 with the
-    out-projection; the calls of :func:`halfblock_jobs`. Every call is
+    ``TUNING_SHAPES``; K6 against the unfused MLP half at ``HALF_SHAPES``;
+    at ``TUNING_SHAPES`` each E1 variant and the whole hybrid against the
+    unfused half, E2 against K1 with the out-projection; the calls of
+    :func:`halfblock_jobs`. Every call is
     made once before the first trace. ``{key: turns}``, keys as
     :func:`turn_key`. Runs in a process of its own
     (:func:`traced_turns_in_subprocess`): on the card, in a process that
@@ -417,6 +432,9 @@ def traced_turns():
             key = lambda kind, v=None: turn_key(  # noqa: E731
                 kind, B, L, dtype, causal, v)
             jobs[key("k5")] = (j["k5"], j["unfused"], j["n"], "unfused")
+            if (B, L, causal) in HALF_SHAPES:
+                jobs[key("k6")] = (j["k6"], j["unfused_mlp"], j["n"],
+                                   "unfused")
             if tuning:
                 for v in TUNING_VARIANTS:
                     jobs[key("e1", v)] = (j["e1"](v), j["unfused"], j["n"],
@@ -876,8 +894,15 @@ def quant_reading(got, want, dtype):
     s_p|, the share of q that differ, the worst |dq|, the worst per-row
     |s - s_plain| / (S_RTOL s_plain) and the worst |q s - q_p s_p| over
     one step, max(s, s_p) + 127 |s - s_p|; the check passes when the last
-    three are at most 1."""
+    three are at most 1. Over the rows where the plain scale is finite (a
+    non-finite row is held bit for bit, :func:`quant_bitwise`); a kernel's
+    non-finite scale on such a row reads NaN and fails."""
     (q, s), (qp, sp) = got, want
+    finite = torch.isfinite(sp)
+    q, s, qp, sp = q[finite], s[finite], qp[finite], sp[finite]
+    if s.numel() == 0:
+        return {"max_abs_err": 0.0, "q_mismatch_share": 0.0, "max_dq": 0,
+                "s_reading": 0.0, "dequant_reading": 0.0}
     dq = (q.int() - qp.int()).abs()
     # in fp64, where q s is exact: one step reads exactly 1
     q, s, qp, sp = q.double(), s.double(), qp.double(), sp.double()
@@ -902,7 +927,9 @@ def quant_edge_inputs(name, W, dtype):
     exactly) with the ties as bias (s = 1, q half to even: 127, 0, 2, 2,
     0, -2, -2), then rows of zeros with one outlier W (mean 1 and variance
     W - 1 are exact sums of integers); zero rows with a zero bias (s =
-    1e-8, q = 0). K4: rows of exact GELUs (x >= 61) with max 254 (s = 2,
+    1e-8, q = 0); the rows of :func:`ln_quant_nonfinite_rows` (an inf, a
+    NaN, a -inf, w n + b overflowing to inf, a scale near the largest).
+    K4: rows of exact GELUs (x >= 61) with max 254 (s = 2,
     the others on ties: 61 -> 30, 63 -> 32, 65 -> 32, 67 -> 34), zero rows,
     and zero rows with one outlier."""
     dev = "cuda"
@@ -922,7 +949,8 @@ def quant_edge_inputs(name, W, dtype):
         zeros = torch.zeros(W, device=dev, dtype=dtype)
         return [(x, w, pattern(TIES, 1)[0].to(dtype).contiguous(),
                  (5, torch.round(pattern(TIES, 5)), 1.0)),
-                (torch.zeros_like(x), w, zeros, (8, torch.zeros(8, W), 1e-8))]
+                (torch.zeros_like(x), w, zeros, (8, torch.zeros(8, W), 1e-8)),
+                (*ln_quant_nonfinite_rows(W, dtype), (0, None, None))]
     gelu = [254.0, 61.0, 63.0, 65.0, 67.0, 0.0, -61.0]
     x = torch.cat([pattern(gelu, 4), torch.zeros(4, W, device=dev),
                    outlier])[None].to(dtype).contiguous()
@@ -930,6 +958,24 @@ def quant_edge_inputs(name, W, dtype):
                          torch.zeros(4, W, device=dev)])
     s_known = torch.tensor([2.0] * 4 + [1e-8] * 4, device=dev)
     return [(x, None, None, (8, q_known, s_known))]
+
+
+def ln_quant_nonfinite_rows(W, dtype, device="cuda"):
+    """K3's rows whose LayerNorm or affine is not finite, ``(x [1, 5, W],
+    w, b)`` in ``dtype``: random rows holding one +inf, one NaN and one
+    -inf (mean or variance NaN or infinite: h NaN, s NaN, q 0), then rows
+    of +-1 (mean 0, variance 1) whose column 0 meets w = 2^126 and b = the
+    largest bf16, where w n + b overflows to inf in the first (s inf, q 0)
+    and is 2.5e38 in the second, which starts at -1 (a finite scale near
+    the largest). ``W`` even."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(5, W, generator=gen)
+    x[0, 3 % W], x[1, W // 2], x[2, W - 1] = math.inf, math.nan, -math.inf
+    x[3] = torch.tensor([1.0, -1.0]).repeat(W // 2)
+    x[4] = -x[3]
+    w, b = torch.ones(W), torch.zeros(W)
+    w[0], b[0] = 2.0 ** 126, torch.finfo(torch.bfloat16).max
+    return tuple(t.to(dtype).to(device).contiguous() for t in (x[None], w, b))
 
 
 def every_bf16_rows(W=3072, device="cuda"):
@@ -948,8 +994,8 @@ def every_bf16_rows(W=3072, device="cuda"):
 
 
 def quant_bitwise(got, want):
-    """Whether K4's q and s equal the plain version's bit for bit (any NaN
-    scale equal to any NaN), and the rows where either differs."""
+    """Whether a quantizer's q and s equal the plain version's bit for bit
+    (any NaN scale equal to any NaN), and the rows where either differs."""
     (q, s), (qp, sp) = got, want
     s_same = (s.view(torch.int32) == sp.view(torch.int32)) \
         | (torch.isnan(s) & torch.isnan(sp))
@@ -982,13 +1028,14 @@ def check_gelu_quant_exhaustive():
 def check_quant():
     """K3 and K4 against their plain versions in fp32 and bf16 at the
     shapes of the int8 slice (and an odd batch and one row), on edge rows
-    that must match exactly, and with faults planted into a torch copy of
-    the plain version read against the same check (the run fails unless
-    ``roundf`` and ``no_floor`` are caught); K4's q and s must equal its
-    plain version's bit for bit at every shape, and on every bf16 bit
-    pattern (:func:`check_gelu_quant_exhaustive`). Times the kernels and
-    the plain versions in turns (plain, kernel, kernel, plain; event and
-    device time, as K1's) and, at the headline bf16 shape,
+    that must match bit for bit (:func:`quant_bitwise`: K3's non-finite
+    rows too) and give their known q and s, and with faults planted into a
+    torch copy of the plain version read against the same check (the run
+    fails unless ``roundf`` and ``no_floor`` are caught); K4's q and s must
+    equal its plain version's bit for bit at every shape, and on every
+    bf16 bit pattern (:func:`check_gelu_quant_exhaustive`). Times the
+    kernels and the plain versions in turns (plain, kernel, kernel, plain;
+    event and device time, as K1's) and, at the headline bf16 shape,
     ``torch.compile`` of the plain version."""
     rows = {"ln_quant": [], "gelu_quant": []}
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1021,20 +1068,17 @@ def check_quant():
                     reading["bitwise"] = quant_bitwise(got, want)[0]
                 if label == "edge":
                     k, q_k, s_k = known
-                    exact = bool((got[0] == want[0]).all()
-                                 and (got[1] == want[1]).all()
-                                 and (got[0][0, :k].float() == q_k.cuda()).all()
-                                 and (got[1][0, :k] == torch.as_tensor(
-                                     s_k, device="cuda")).all())
+                    exact = quant_bitwise(got, want)[0] and (k == 0 or bool(
+                        (got[0][0, :k].float() == q_k.cuda()).all()
+                        and (got[1][0, :k] == torch.as_tensor(
+                            s_k, device="cuda")).all()))
                     edge_ok &= exact
                     reading["exact"] = exact
                 for f in faults:
                     bad = quant_plain_with_fault(name, x, w, b, f)
                     faults[f].append(quant_reading(bad, want, dtype))
                     if label == "edge":
-                        faults[f][-1]["exact"] = bool(
-                            (bad[0] == want[0]).all()
-                            and (bad[1] == want[1]).all())
+                        faults[f][-1]["exact"] = quant_bitwise(bad, want)[0]
                 if not quant_passes(reading) or not reading.get("bitwise",
                                                                 True):
                     raise AssertionError(f"{name} kernel {label} {dtype}: "
@@ -1246,9 +1290,10 @@ def check_halfblocks(traced):
     kernel, its plain version and the port's unfused half: for K5 the
     turns of :func:`traced_turns` against ``layer_norm`` + ``linear`` + K1
     + ``linear`` + residual, and the same with SDPA in K1's place; for K6
-    the cuBLAS MLP half; at the image shape in bf16 also ``torch.compile``
-    of the plain version. Logs, apart from the measurements, the bytes
-    K5's groups stage from the L2 as :func:`staged_l2_bytes` reckons them."""
+    its turns against the unfused MLP half (cuBLAS GEMMs); at the image
+    shape in bf16 also ``torch.compile`` of the plain version. Logs, apart
+    from the measurements, the bytes K5's groups stage from the L2 as
+    :func:`staged_l2_bytes` reckons them and K6's plan (``mlp_plan``)."""
     from msclip_torch.models import layers as TL
 
     rows = {"attention_halfblock": [], "mlp_halfblock": []}
@@ -1265,9 +1310,7 @@ def check_halfblocks(traced):
                     BF.attention_halfblock_plain, (p, H, mask),
                     {"unfused_sdpa_ms": j["unfused_sdpa"]}),
                 "mlp_halfblock": (
-                    BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,),
-                    {"unfused_ms": lambda i: xs[i] + TL.mlp(p, TL.layer_norm(
-                        xs[i], p["ln_2.weight"], p["ln_2.bias"]))})}
+                    BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,), {})}
             for name, (kernel, plain, extra, baselines) in kinds.items():
                 got = kernel(xs[0], *extra)
                 want = plain(xs[0], *extra)
@@ -1300,13 +1343,12 @@ def check_halfblocks(traced):
                        "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
                                            n_inputs, iters=10),
                        "library_ms": None}
-                if name == "attention_halfblock":
-                    # K5 and the unfused half with K1 in turns, by event
-                    # and device time; vs_unfused from device times
-                    row.update(traced[turn_key("k5", B, L, dtype, causal)])
-                else:
-                    row["ms"] = cuda_ms(lambda i: kernel(xs[i], *extra),
-                                        n_inputs)
+                # K5 and the unfused half with K1, K6 and the unfused MLP
+                # half, in turns, by event and device time; vs_unfused from
+                # device times
+                row.update(traced[turn_key(
+                    "k5" if name == "attention_halfblock" else "k6", B, L,
+                    dtype, causal)])
                 for key, fn in baselines.items():
                     row[key] = cuda_ms(fn, n_inputs)
                 if dtype == torch.bfloat16 and (B, L) == (256, 50):
@@ -1323,6 +1365,12 @@ def check_halfblocks(traced):
                     staged_l2_gb_mma_sync_design=staged_l2_bytes(
                         B, L, max(1, 128 // L), boxes=False) / 1e9,
                     origin="reckoned by staged_l2_bytes, not measured")
+                plan = BF.mlp_plan(B * L, dtype, BF.sm_count(0))
+                log("k6_design", B=B, L=L, **{k: plan[k] for k in (
+                    "big", "groups", "slots", "slot_rows")},
+                    hidden_rows_gb=2 * B * L * 4 * BF.WIDTH * 2 / 1e9,
+                    origin="the plan of mlp_plan; the hidden rows' bytes "
+                           "written and read back, reckoned, not measured")
             del xs, j
     return rows
 

@@ -28,10 +28,11 @@
 // 62.4 GFLOP (60.4 in the four projections), 63 us at 989 TFLOP/s, against
 // 44 MB of I/O (13 us at 3.35 TB/s); at the text chunk (1024 x 77, causal)
 // 381 GFLOP (372 in the projections), 386 us; K6 at ViT-B/32 is 121 GFLOP,
-// 122 us. x is read from device memory once and the output written once;
-// the weights are read once from device memory and again from the L2 by
-// every group of samples, so the bytes that bound a block are the weight
-// and activation tiles it stages from the L2.
+// 122 us, and at the text chunk 744 GFLOP, 752 us. x is read from device
+// memory once and the output written once; the weights are read once from
+// device memory and again from the L2 by every group of samples, so the
+// bytes that bound a block are the weight and activation tiles it stages
+// from the L2.
 //
 // Design, and what lives where:
 //
@@ -68,30 +69,61 @@
 //   through the workspace, K1's fp32 attention one sample at a time on the
 //   whole block (a warp per query row), GEMM passes of at most 128 rows
 //   through a three-stage ring.
-// * K6: a block owns 32 token rows at a time. LN2 of its rows goes to its
-//   workspace slice; then for each of 24 chunks of 128 hidden columns, a
-//   GEMM [32, 768] x [768, 128] whose epilogue adds the bias and takes the
-//   fp32 QuickGELU, rounded into a [32, 128] workspace tile, and a GEMM
-//   [32, 128] x [128, 768] accumulated across the chunks into [32, 768]
-//   fp32 registers; the epilogue adds the bias and the residual. bf16
-//   products on mma.sync m16n8k16 (fp32 accumulators), cp.async rings of
-//   three stages.
+// * K6, bf16 (mlp_group_wgmma): K5's machinery over groups of token rows.
+//   A persistent grid, one block of two warpgroups an SM, walks groups of
+//   256 rows (two 64-row m-tiles a warpgroup) and then of 128 (one), so
+//   that each weight tile staged serves up to 256 rows. LN2 of the group's
+//   rows goes to the block's slice h of the workspace. Then 16 GEMMs
+//   [rows, 768] x [768, 192] over w_fc (K-major like w_in) on
+//   wgmma.m64n192k16 fed by TMA through the four-stage ring; their
+//   epilogue adds the fp32 bias, takes QuickGELU in fp32 (the hardware 2^x
+//   and reciprocal: a few ulps of fp32, far below the bf16 rounding that
+//   follows), rounds, and writes the hidden rows [rows, 3072] to the
+//   block's slice mid. Last, 4 GEMMs [rows, 3072] x [3072, 192] over w_proj
+//   (48 K chunks each), the bias and the residual in their epilogue: K5's
+//   out-projection (out_projection_wgmma). The wave: 256 x 50 is 12,800
+//   rows, 100 groups of 128 for 132 SMs, and a group of 97 rows would cost
+//   as much as one of 128 (the m-tile is 64 rows a warpgroup, and both
+//   warpgroups wait on the same weight tiles); so the plan (Python,
+//   ops/block_fused.mlp_plan, checked by the kernel) takes as many whole
+//   rounds of 256-row groups as every SM can have, and the rest in
+//   groups of 128: the busiest block takes ceil(rows / 128 / SMs) units
+//   of 128 rows, the least any split into whole m-tile pairs allows, and
+//   256-row groups halve the weight bytes each row stages from the L2.
+//   The hidden rows' trip through the workspace (mid, 6 KB a row, written
+//   once and read by TMA once: 157 MB at 256 x 50, most of it past the
+//   50 MB L2) is the price of keeping 192 columns of fp32 accumulators a
+//   tile in registers.
+// * K6, fp32: CUDA cores in full fp32, a block owns 32 token rows at a
+//   time. LN2 of its rows goes to its workspace slice; then for each of 24
+//   chunks of 128 hidden columns, a GEMM [32, 768] x [768, 128] whose
+//   epilogue adds the bias and takes the fp32 QuickGELU, rounded into a
+//   [32, 128] workspace tile, and a GEMM [32, 128] x [128, 768]
+//   accumulated across the chunks into [32, 768] fp32 registers; the
+//   epilogue adds the bias and the residual; rings of three stages.
 //
 // The device code K5 shares with the tuning kernels E1 and E2
 // (halfblock_tuning.cu) lives in halfblock.cuh: the GEMMs, LayerNorm, the
 // per-head attention and K5's bodies over a group of samples.
 //
-// Later work: overlapping one head's attention with the next head's GEMM,
-// weight tiles multicast to a cluster of blocks, h kept in distributed
-// shared memory instead of the workspace, and more rows per block for K6.
+// Later work: overlapping one head's attention with the next head's GEMM
+// (and one GEMM's epilogue with the next GEMM's loads), weight tiles
+// multicast to a cluster of blocks, h kept in distributed shared memory
+// instead of the workspace.
 
 #include "halfblock.cuh"
 
 namespace {
 
 constexpr int kF = 4 * kE;         // MLP hidden width
-constexpr int kMlpRows = 32;       // token rows per K6 tile
-constexpr int kFChunk = 128;       // hidden columns per K6 chunk
+constexpr int kMlpRows = 32;       // token rows per fp32 K6 tile
+constexpr int kFChunk = 128;       // hidden columns per fp32 K6 chunk
+// the bf16 K6 groups' rows; ops/block_fused.py (MLP_BIG_ROWS,
+// MLP_SMALL_ROWS) plans the groups with them, held to these by a test
+constexpr int kMlpBigRows = 256;   // two 64-row m-tiles a warpgroup
+constexpr int kMlpSmallRows = 128; // one
+constexpr int kFChunks = kF / kChunk;  // K chunks of a c_proj GEMM
+static_assert(kMlpBigRows == kWgRows && kMlpSmallRows == kBoxRows, "the ring's row tiles");
 
 // ---------------------------------------------------------------------------
 // K5 (its body, attention_halfblock_rows, is in halfblock.cuh)
@@ -139,7 +171,7 @@ attention_halfblock_kernel(const __grid_constant__ HalfMaps maps, const T* __res
 // K6
 // ---------------------------------------------------------------------------
 
-// workspace elements of one block: h [32, 768] and the GELU tile [32, 128]
+// fp32 workspace elements of one block: h [32, 768] and the GELU tile [32, 128]
 __host__ __device__ constexpr long long mlp_slot_elems() { return (long long)kMlpRows * (kE + kFChunk); }
 
 using FcTile = Tile<float, 128, 2, 2, 1>;    // [32, 768] x [768, 128]
@@ -149,48 +181,137 @@ static_assert(ProjTile::ROWS == kMlpRows && ProjTile::N == kE, "c_proj tile");
 constexpr size_t kMlpSmem =
     ProjTile::smem_bytes > FcTile::smem_bytes ? ProjTile::smem_bytes : FcTile::smem_bytes;
 
+// The bf16 groups of a launch over `rows` token rows: `big` groups of 256
+// rows first, then groups of 128 (the last one ragged); group g starts at
+// row *r0 and holds *n rows. Block i of the grid takes groups i, i + grid,
+// ... (ops/block_fused.mlp_plan plans them; a CPU test walks them).
+__device__ __forceinline__ int mlp_groups(int rows, int big) {
+  return big + (rows - big * kMlpBigRows + kMlpSmallRows - 1) / kMlpSmallRows;
+}
+
+__device__ __forceinline__ void mlp_group(int g, int rows, int big, int* r0, int* n) {
+  *r0 = g < big ? g * kMlpBigRows : big * kMlpBigRows + (g - big) * kMlpSmallRows;
+  *n = g < big ? kMlpBigRows : min(kMlpSmallRows, rows - *r0);
+}
+
+// The tensor maps of the bf16 K6, kernel parameters (__grid_constant__):
+// the workspace's h (rows of 768) and mid (rows of 3072) in boxes of 128
+// rows, w_fc [3072, 768] and w_proj [768, 3072] in boxes of 64 rows, each
+// box 64 columns wide in the 128-byte swizzle.
+struct MlpMaps {
+  CUtensorMap h, mid, w_fc, w_proj;
+};
+
+// QuickGELU of an fp32 c_fc output, m sigmoid(1.702 m) = m / (1 + e^(-1.702
+// m)), in fp32 from the hardware 2^x and reciprocal (__expf, __fdividef:
+// a few ulps of fp32 off, against a bf16 rounding after it); e^(-1.702 m)
+// infinite or 1 + e >= 2^126 gives -0 for finite m < 0, NaN stays NaN
+__device__ __forceinline__ float quick_gelu_fast(float m) {
+  return __fdividef(m, __fadd_rn(1.0f, __expf(__fmul_rn(-1.702f, m))));
+}
+
+// K6's bf16 body over one group of n rows (contiguous in xb and ob), h
+// already its LayerNorm: the workspace rows from slot_row0 of maps.h and
+// maps.mid; mid the slot's first hidden row (row stride 3072).
+template <int MPW>
+__device__ void mlp_group_wgmma(const MlpMaps& maps, int slot_row0, int n,
+                                const float* __restrict__ b_fc, const float* __restrict__ b_proj,
+                                const bf16* __restrict__ xb, bf16* __restrict__ ob, bf16* mid,
+                                Ring& ring) {
+  for (int f0 = 0; f0 < kF; f0 += kQkv) {  // 16 slabs of 192 hidden columns
+    float acc[MPW][kQkv / 2];
+    wgmma_gemm<MPW>(acc, &maps.h, slot_row0, &maps.w_fc, f0, kD, ring);
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = acc_row(i, hi);
+        if (r >= n) continue;
+        bf16* o = mid + (size_t)r * kF + f0;
+#pragma unroll
+        for (int j = 0; j < kQkv / 8; ++j) {
+          const int col = acc_col(j);
+          const float2 bias = *reinterpret_cast<const float2*>(b_fc + f0 + col);
+          const float y0 = quick_gelu_fast(__fadd_rn(acc[i][4 * j + 2 * hi], bias.x));
+          const float y1 = quick_gelu_fast(__fadd_rn(acc[i][4 * j + 2 * hi + 1], bias.y));
+          *reinterpret_cast<uint32_t*>(o + col) = pack_bf16(y0, y1);
+        }
+      }
+    }
+  }
+  fence_proxy_async_global();  // mid is read by TMA
+  __syncthreads();
+  out_projection_wgmma<MPW, kFChunks>(&maps.mid, slot_row0, &maps.w_proj, n, b_proj, xb, ob, ring);
+  // the next group's LayerNorm writes only h, which these GEMMs do not read
+}
+
+// bf16: the groups of mlp_group, h and mid [slots slot_rows, 768 | 3072]
+// the workspace (block i's slot the rows from i slot_rows); fp32: tiles of
+// 32 rows, each block's slot mlp_slot_elems() elements.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mlp_halfblock_kernel(const T* __restrict__ x, const T* __restrict__ ln_w,
-                     const T* __restrict__ ln_b, const T* __restrict__ w_fc,
-                     const float* __restrict__ b_fc, const T* __restrict__ w_proj,
-                     const float* __restrict__ b_proj, T* __restrict__ out, T* __restrict__ ws,
-                     int rows, float eps) {
+mlp_halfblock_kernel(const __grid_constant__ MlpMaps maps, const T* __restrict__ x,
+                     const T* __restrict__ ln_w, const T* __restrict__ ln_b,
+                     const T* __restrict__ w_fc, const float* __restrict__ b_fc,
+                     const T* __restrict__ w_proj, const float* __restrict__ b_proj,
+                     T* __restrict__ out, T* __restrict__ ws, int rows, int big, int slot_rows,
+                     float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* h = ws + blockIdx.x * mlp_slot_elems();
-  T* mid = h + (size_t)kMlpRows * kE;
 
-  for (int t = blockIdx.x; t * kMlpRows < rows; t += gridDim.x) {
-    const int r0 = t * kMlpRows, n = min(kMlpRows, rows - r0);
-    const T* xt = x + (size_t)r0 * kE;
-    layer_norm_rows<T>(xt, ln_w, ln_b, h, n, eps);
-    __syncthreads();
-
-    float acc[2][12][4];
-    zero(acc);
-    for (int f0 = 0; f0 < kF; f0 += kFChunk) {
-      float fc[2][2][4];
-      zero(fc);
-      block_gemm<T, 128, 2, 2, 1>(fc, h, kE, n, [&](int j) { return w_fc + (size_t)(f0 + j) * kE; },
-                                  kE, smem_raw);
-      for_each_acc<2, 2, 1>(fc, [&](int r, int col, float v) {
-        const float m = __fadd_rn(v, b_fc[f0 + col]);
-        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(__fmul_rn(-1.702f, m))));
-        mid[r * kFChunk + col] = from_f<T>(__fmul_rn(m, sig));
-      });
-      __syncthreads();  // the GELU tile is complete before it is staged
-      block_gemm<T, 64, 2, 12, 1>(acc, mid, kFChunk, n,
-                                  [&](int j) { return w_proj + (size_t)j * kF + f0; }, kFChunk,
-                                  smem_raw);
+  if constexpr (std::is_same<T, bf16>::value) {
+    Ring ring = make_ring(smem_raw);
+    const int slot_row0 = blockIdx.x * slot_rows;
+    bf16* h = ws + (size_t)slot_row0 * kE;
+    bf16* mid = ws + (size_t)gridDim.x * slot_rows * kE + (size_t)slot_row0 * kF;
+    const int groups = mlp_groups(rows, big);
+    for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+      int r0, n;
+      mlp_group(g, rows, big, &r0, &n);
+      const size_t off = (size_t)r0 * kE;
+      layer_norm_rows<bf16>(x + off, ln_w, ln_b, h, n, eps);
+      fence_proxy_async_global();  // h is read by TMA
+      __syncthreads();
+      if (n > kMlpSmallRows)
+        mlp_group_wgmma<2>(maps, slot_row0, n, b_fc, b_proj, x + off, out + off, mid, ring);
+      else
+        mlp_group_wgmma<1>(maps, slot_row0, n, b_fc, b_proj, x + off, out + off, mid, ring);
     }
-    T* ot = out + (size_t)r0 * kE;
-    for_each_acc<2, 12, 1>(acc, [&](int r, int col, float v) {
-      if (r < n) {
-        const size_t o = (size_t)r * kE + col;
-        const float y = round_to<T>(__fadd_rn(v, b_proj[col]));
-        ot[o] = from_f<T>(__fadd_rn(to_f<T>(xt[o]), y));
+  } else {
+    T* h = ws + blockIdx.x * mlp_slot_elems();
+    T* mid = h + (size_t)kMlpRows * kE;
+
+    for (int t = blockIdx.x; t * kMlpRows < rows; t += gridDim.x) {
+      const int r0 = t * kMlpRows, n = min(kMlpRows, rows - r0);
+      const T* xt = x + (size_t)r0 * kE;
+      layer_norm_rows<T>(xt, ln_w, ln_b, h, n, eps);
+      __syncthreads();
+
+      float acc[2][12][4];
+      zero(acc);
+      for (int f0 = 0; f0 < kF; f0 += kFChunk) {
+        float fc[2][2][4];
+        zero(fc);
+        block_gemm<T, 128, 2, 2, 1>(fc, h, kE, n, [&](int j) { return w_fc + (size_t)(f0 + j) * kE; },
+                                    kE, smem_raw);
+        for_each_acc<2, 2, 1>(fc, [&](int r, int col, float v) {
+          const float m = __fadd_rn(v, b_fc[f0 + col]);
+          const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(__fmul_rn(-1.702f, m))));
+          mid[r * kFChunk + col] = from_f<T>(__fmul_rn(m, sig));
+        });
+        __syncthreads();  // the GELU tile is complete before it is staged
+        block_gemm<T, 64, 2, 12, 1>(acc, mid, kFChunk, n,
+                                    [&](int j) { return w_proj + (size_t)j * kF + f0; }, kFChunk,
+                                    smem_raw);
       }
-    });
+      T* ot = out + (size_t)r0 * kE;
+      for_each_acc<2, 12, 1>(acc, [&](int r, int col, float v) {
+        if (r < n) {
+          const size_t o = (size_t)r * kE + col;
+          const float y = round_to<T>(__fadd_rn(v, b_proj[col]));
+          ot[o] = from_f<T>(__fadd_rn(to_f<T>(xt[o]), y));
+        }
+      });
+    }
   }
 }
 
@@ -268,19 +389,46 @@ cudaError_t dispatch_attn(bool bf, const void* x, const void* ln_w, const void* 
 #undef MSCLIP_ATTN
 }
 
+// K6: bf16 on `slots` blocks, one a workspace slot, over the groups of
+// mlp_group; fp32 on the persistent grid of 32-row tiles.
 template <typename T>
 cudaError_t launch_mlp(const void* x, const void* ln_w, const void* ln_b, const void* w_fc,
                        const float* b_fc, const void* w_proj, const float* b_proj, void* out,
-                       void* ws, int slots, int rows, float eps, cudaStream_t stream) {
+                       void* ws, int slots, int slot_rows, int big, int rows, float eps,
+                       cudaStream_t stream) {
   auto kernel = mlp_halfblock_kernel<T>;
+  MlpMaps maps{};
   int grid = 0;
-  cudaError_t err =
-      grid_size(kernel, kMlpSmem, (rows + kMlpRows - 1) / kMlpRows, slots, &grid);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, kMlpSmem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
+  size_t smem = kMlpSmem;
+  cudaError_t err;
+  if (std::is_same<T, bf16>::value) {
+    // the plan of ops/block_fused.mlp_plan: 256-row groups only whole and
+    // only with 256-row slots
+    if ((slot_rows != kMlpSmallRows && slot_rows != kMlpBigRows) || big < 0 ||
+        (big > 0 && slot_rows != kMlpBigRows) || (long long)big * kMlpBigRows > rows)
+      return cudaErrorInvalidValue;
+    const long long ws_rows = (long long)slots * slot_rows;
+    const bf16* h = static_cast<const bf16*>(ws);
+    if ((err = tile_map(&maps.h, h, ws_rows, kBoxRows)) != cudaSuccess ||
+        (err = tile_map(&maps.mid, h + ws_rows * kE, ws_rows, kBoxRows, kF)) != cudaSuccess ||
+        (err = tile_map(&maps.w_fc, w_fc, kF, kD)) != cudaSuccess ||
+        (err = tile_map(&maps.w_proj, w_proj, kE, kD, kF)) != cudaSuccess)
+      return err;
+    smem = kWgmmaSmem;
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+      return err;
+    grid = slots;
+  } else {
+    if (slot_rows != kMlpRows || big != 0) return cudaErrorInvalidValue;
+    if ((err = grid_size(kernel, smem, (rows + kMlpRows - 1) / kMlpRows, slots, &grid)) !=
+        cudaSuccess)
+      return err;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(
+      maps, static_cast<const T*>(x), static_cast<const T*>(ln_w), static_cast<const T*>(ln_b),
       static_cast<const T*>(w_fc), b_fc, static_cast<const T*>(w_proj), b_proj,
-      static_cast<T*>(out), static_cast<T*>(ws), rows, eps);
+      static_cast<T*>(out), static_cast<T*>(ws), rows, big, slot_rows, eps);
   return cudaGetLastError();
 }
 
@@ -307,22 +455,24 @@ extern "C" int msclip_attention_halfblock(const void* x, const void* ln_w, const
                             slot, slots, B, L, S, eps, static_cast<cudaStream_t>(stream));
 }
 
-// Workspace elements (of the input type) of one K6 block.
-extern "C" long long msclip_mlp_halfblock_slot_elems() { return mlp_slot_elems(); }
-
 // K6. x, out: [rows, 768]; ln_w, ln_b: [768]; w_fc: [3072, 768]; w_proj:
-// [768, 3072]; one dtype as above. b_fc [3072] and b_proj [768]: fp32. ws:
-// slots x msclip_mlp_halfblock_slot_elems() elements of the dtype.
+// [768, 3072]; one dtype as above, 16-byte aligned. b_fc [3072] and b_proj
+// [768]: fp32. The plan is ops/block_fused.mlp_plan's. bf16: `big` groups
+// of 256 rows, then groups of 128, on `slots` blocks; ws holds h [slots
+// slot_rows, 768] and then mid [slots slot_rows, 3072], slot_rows 256
+// where big > 0, else 128. fp32: big 0, slot_rows 32, and ws holds slots
+// slices of 32 (768 + 128) elements.
 extern "C" int msclip_mlp_halfblock(const void* x, const void* ln_w, const void* ln_b,
                                     const void* w_fc, const float* b_fc, const void* w_proj,
                                     const float* b_proj, void* out, void* ws, int slots,
-                                    int rows, float eps, int dtype, void* stream) {
+                                    int slot_rows, int big, int rows, float eps, int dtype,
+                                    void* stream) {
   if (rows <= 0 || slots <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1 ? launch_mlp<bf16>(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, out, ws,
-                                             slots, rows, eps, s)
+                                             slots, slot_rows, big, rows, eps, s)
                           : launch_mlp<float>(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, out, ws,
-                                              slots, rows, eps, s));
+                                              slots, slot_rows, big, rows, eps, s));
 }
 
 extern "C" const char* msclip_cuda_error_string(int err) {

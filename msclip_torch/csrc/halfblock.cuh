@@ -14,8 +14,10 @@
 // tensor maps HalfMaps, the mbarrier ring Ring, wgmma_gemm, qkv_head and
 // out_projection_wgmma, with K1's attention from attn_core.cuh); E2's bf16
 // body (core_out_group) is that attention on q/k/v tiles copied straight
-// from its qkv, and the same out-projection. block_fused.cu's header comment has the design and
-// the rounding points.
+// from its qkv, and the same out-projection. K6's bf16 body
+// (block_fused.cu) runs wgmma_gemm and out_projection_wgmma on its own
+// tensor maps. block_fused.cu's header comment has the design and the
+// rounding points.
 
 #pragma once
 
@@ -653,10 +655,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A map of `rows` bf16 rows of 768 at base in boxes of 64 columns x
-// box_rows, through the driver's encoder (fetched once from the runtime,
-// so the library does not link against the driver).
-inline cudaError_t tile_map(CUtensorMap* map, const void* base, long long rows, int box_rows) {
+// A map of `rows` bf16 rows of `width` (768 unless given) at base in boxes
+// of 64 columns x box_rows, through the driver's encoder (fetched once from
+// the runtime, so the library does not link against the driver).
+inline cudaError_t tile_map(CUtensorMap* map, const void* base, long long rows, int box_rows,
+                            int width = kE) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -672,8 +675,8 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, long long rows, 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)kE, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)kE * sizeof(bf16)};
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * sizeof(bf16)};
   const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
@@ -724,16 +727,16 @@ __device__ __forceinline__ Ring make_ring(unsigned char* smem_raw) {
   return ring;
 }
 
-// acc = A W^T over the group: A the workspace rows a_row0 .. a_row0 +
-// 128 MPW of maps.ws (the group's rows first; the products of the rows
-// past them are not used), W the 192 rows w_row0 + t w_step + (0 .. 64),
-// t < 3, of *wmap. Warpgroup w owns the 64-row m-tiles w + 2 i (i < MPW),
+// acc = A W^T over the group, K = 64 KCH: A the rows a_row0 .. a_row0 +
+// 128 MPW of *amap (the group's rows first; the products of the rows past
+// them are not used), W the 192 rows w_row0 + t w_step + (0 .. 64), t < 3,
+// of *wmap. Warpgroup w owns the 64-row m-tiles w + 2 i (i < MPW),
 // wgmma.m64n192k16 with both operands from shared memory (K-major,
 // 128-byte swizzle). Thread 0 keeps kPrefetch chunks in flight; each
 // warpgroup leaves one chunk's products running while it waits for the
 // next chunk.
-template <int MPW>
-__device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const HalfMaps& maps,
+template <int MPW, int KCH = kChunks>
+__device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const CUtensorMap* amap,
                                            int a_row0, const CUtensorMap* wmap, int w_row0,
                                            int w_step, Ring& ring) {
   const int wg = threadIdx.x >> 7;
@@ -751,7 +754,7 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const Ha
     const uint32_t sa = ring.base + s * kStageBytes;
 #pragma unroll
     for (int m = 0; m < MPW; ++m)
-      tma_load_2d(sa + m * kBoxRows * 128, &maps.ws, ring.full(s), kc * kChunk,
+      tma_load_2d(sa + m * kBoxRows * 128, amap, ring.full(s), kc * kChunk,
                   a_row0 + m * kBoxRows);
 #pragma unroll
     for (int t = 0; t < 3; ++t)
@@ -762,8 +765,8 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const Ha
   if (threadIdx.x == 0) {
     for (int kc = 0; kc < kPrefetch; ++kc) load(kc);
   }
-  for (int kc = 0; kc < kChunks; ++kc) {
-    if (threadIdx.x == 0 && kc + kPrefetch < kChunks) load(kc + kPrefetch);
+  for (int kc = 0; kc < KCH; ++kc) {
+    if (threadIdx.x == 0 && kc + kPrefetch < KCH) load(kc + kPrefetch);
     const uint32_t j = it0 + kc, s = j % kStages;
     mbar_wait(ring.full(s), (j / kStages) & 1);
     __syncwarp();
@@ -782,8 +785,8 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const Ha
     if (kc > 0) mbar_arrive(ring.empty((j - 1) % kStages));
   }
   wgmma_wait<0>();
-  mbar_arrive(ring.empty((it0 + kChunks - 1) % kStages));
-  ring.it = it0 + kChunks;
+  mbar_arrive(ring.empty((it0 + KCH - 1) % kStages));
+  ring.it = it0 + KCH;
 #pragma unroll
   for (int i = 0; i < MPW; ++i)
 #pragma unroll
@@ -813,7 +816,7 @@ __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh
   const int rows = ns * L;
   float acc[MPW][kQkv / 2];
   // rows hh 64 .. of the q, k and v blocks of w_in, 768 rows apart
-  wgmma_gemm<MPW>(acc, maps, h_row0, &maps.w_in, hh * kD, kE, ring);
+  wgmma_gemm<MPW>(acc, &maps.ws, h_row0, &maps.w_in, hh * kD, kE, ring);
   __syncthreads();  // every warpgroup's products are done: the ring is free
   unsigned char* tiles = ring.ptr;
 
@@ -871,17 +874,19 @@ __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh
   __syncthreads();
 }
 
-// ob = xb + (ctx W_out^T + b_out) for the group's rows (ctx the workspace
-// rows from ctx_row0): four GEMMs of 192 output columns, the fp32 bias
-// added before the rounding to bf16 and the residual added in bf16 in
-// their epilogue.
-template <int MPW>
-__device__ void out_projection_wgmma(const HalfMaps& maps, int ctx_row0, int rows,
-                                     const float* __restrict__ b_out, const bf16* __restrict__ xb,
-                                     bf16* __restrict__ ob, Ring& ring) {
+// ob = xb + (A W^T + b_out) for the group's rows, rows of 768: A the rows
+// from a_row0 of *amap, 64 KCH wide (K5's and E2's ctx, the workspace rows
+// of maps.ws; K6's hidden rows), W [768, 64 KCH] through *wmap; four GEMMs
+// of 192 output columns, the fp32 bias added before the rounding to bf16
+// and the residual added in bf16 in their epilogue.
+template <int MPW, int KCH = kChunks>
+__device__ void out_projection_wgmma(const CUtensorMap* amap, int a_row0, const CUtensorMap* wmap,
+                                     int rows, const float* __restrict__ b_out,
+                                     const bf16* __restrict__ xb, bf16* __restrict__ ob,
+                                     Ring& ring) {
   for (int n0 = 0; n0 < kE; n0 += kQkv) {
     float acc[MPW][kQkv / 2];
-    wgmma_gemm<MPW>(acc, maps, ctx_row0, &maps.w_out, n0, kD, ring);
+    wgmma_gemm<MPW, KCH>(acc, amap, a_row0, wmap, n0, kD, ring);
 #pragma unroll
     for (int i = 0; i < MPW; ++i) {
 #pragma unroll
@@ -944,9 +949,9 @@ __device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __re
     __syncthreads();
   }
   if (rows > 128)
-    out_projection_wgmma<2>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+    out_projection_wgmma<2>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob, ring);
   else
-    out_projection_wgmma<1>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+    out_projection_wgmma<1>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob, ring);
   // the next group's LayerNorm ends in a barrier before the next GEMM
   // refills the ring
 }
@@ -1026,9 +1031,9 @@ __device__ void core_out_group(const HalfMaps& maps, const bf16* __restrict__ xb
   fence_proxy_async();
   __syncthreads();
   if (rows > 128)
-    out_projection_wgmma<2>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+    out_projection_wgmma<2>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob, ring);
   else
-    out_projection_wgmma<1>(maps, ctx_row0, rows, b_out, xb, ob, ring);
+    out_projection_wgmma<1>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob, ring);
 }
 
 }  // namespace

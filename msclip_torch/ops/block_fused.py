@@ -40,6 +40,12 @@ MAX_SEQ = 256
 GROUP_ROWS = 128  # fp32 K5's GEMM rows per pass
 WGMMA_ROWS = 256  # bf16 K5's GEMM rows per group
 TILE_ROWS = 512   # bf16 K5's padded attention rows per group
+# K6's, as block_fused.cu has them (kMlpBigRows, kMlpSmallRows, kMlpRows,
+# kFChunk; a test holds these to them)
+MLP_BIG_ROWS = 256    # bf16 K6's rows of a big group (two m-tiles a warpgroup)
+MLP_SMALL_ROWS = 128  # and of a small one (one)
+MLP_TILE_ROWS = 32    # fp32 K6's rows a tile
+MLP_F_CHUNK = 128     # fp32 K6's hidden columns a chunk
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -88,6 +94,35 @@ def attn_plan(B: int, L: int, dtype: torch.dtype, sms: int) -> dict:
     groups = -(-B // S)
     return {"S": S, "groups": groups, "slots": max(1, min(groups, 2 * sms)),
             "slot": slot_elems(S, L, dtype)}
+
+
+def mlp_plan(rows: int, dtype: torch.dtype, sms: int) -> dict:
+    """K6's launch plan over ``rows`` token rows on a card of ``sms`` SMs.
+
+    bf16: ``big`` groups of 256 rows first, as many whole rounds of one a
+    block as the rows hold, then groups of 128 (``mlp_group`` in
+    block_fused.cu; the last one ragged), on
+    ``slots`` blocks, one an SM, block ``i`` taking groups ``i, i + slots,
+    ...``: the busiest block takes ``ceil(ceil(rows / 128) / sms)`` units of
+    128 rows, as few as any walk of whole m-tile pairs allows, and most
+    rows sit in 256-row groups, whose weight tiles serve twice the rows.
+    Each slot holds ``slot_rows`` rows of h (768) and of the hidden rows
+    (3072): 256 where there are big groups, else 128. fp32: tiles of 32
+    rows on at most two blocks an SM, slots of 32 x (768 + 128).
+    ``elems``: the workspace's elements of ``dtype``."""
+    if dtype == torch.bfloat16:
+        big = rows // (MLP_BIG_ROWS * sms) * sms
+        groups = big + -(-(rows - big * MLP_BIG_ROWS) // MLP_SMALL_ROWS)
+        slots = min(sms, groups)
+        slot_rows = MLP_BIG_ROWS if big else MLP_SMALL_ROWS
+        return {"big": big, "groups": groups, "slots": slots,
+                "slot_rows": slot_rows,
+                "elems": slots * slot_rows * 5 * WIDTH}
+    groups = -(-rows // MLP_TILE_ROWS)
+    slots = max(1, min(groups, 2 * sms))
+    return {"big": 0, "groups": groups, "slots": slots,
+            "slot_rows": MLP_TILE_ROWS,
+            "elems": slots * MLP_TILE_ROWS * (WIDTH + MLP_F_CHUNK)}
 
 
 def layer_norm(x, weight, bias, eps=1e-12):
@@ -142,10 +177,8 @@ def _lib():
     lib.msclip_attention_halfblock.argtypes = [ptr] * 10 + [
         i64, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.msclip_attention_halfblock.restype = i32
-    lib.msclip_mlp_halfblock_slot_elems.argtypes = []
-    lib.msclip_mlp_halfblock_slot_elems.restype = i64
     lib.msclip_mlp_halfblock.argtypes = [ptr] * 9 + [
-        i32, i32, ctypes.c_float, i32, ptr]
+        i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.msclip_mlp_halfblock.restype = i32
     return lib
 
@@ -247,7 +280,8 @@ def fused_mlp_halfblock(x: torch.Tensor, p, eps: float = 1e-12
                         ) -> torch.Tensor:
     """``x + c_proj(QuickGELU(c_fc(LN2(x))))`` for ``x [B, L, E]``. CPU
     tensors take :func:`mlp_halfblock_plain`; CUDA tensors launch K6
-    (E = 768), counted in ``fused_mlp_halfblock.launches``."""
+    (E = 768) on the plan of :func:`mlp_plan`, counted in
+    ``fused_mlp_halfblock.launches``."""
     if _device_type(x) == "cpu":
         return mlp_halfblock_plain(x, p, eps)
     _check_cuda_input(x)
@@ -261,16 +295,14 @@ def fused_mlp_halfblock(x: torch.Tensor, p, eps: float = 1e-12
     lib = _lib()
     out = torch.empty_like(x)
     rows = x.shape[0] * x.shape[1]
-    # one slice per block that can be resident (at most two an SM, and one
-    # per 32 rows, the kernel's tile)
-    slots = max(1, min(-(-rows // 32), 2 * sm_count(x.device)))
-    ws = torch.empty(slots * lib.msclip_mlp_halfblock_slot_elems(),
-                     dtype=x.dtype, device=x.device)
+    plan = mlp_plan(rows, x.dtype, sm_count(x.device))
+    ws = torch.empty(plan["elems"], dtype=x.dtype, device=x.device)
     err = lib.msclip_mlp_halfblock(
         x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
         b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), slots, rows, eps,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), ws.data_ptr(), plan["slots"], plan["slot_rows"],
+        plan["big"], rows, eps, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_mlp_halfblock")
     fused_mlp_halfblock.launches += 1
     return out

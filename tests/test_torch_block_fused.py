@@ -242,6 +242,87 @@ def test_group_limits_mirror_the_source():
     assert BF.slot_elems(1, 77, torch.float32) == 77 * (2 * 768 + 3 * 64)
 
 
+# token counts of the main paths and edges of K6's plan on 132 SMs: the
+# image tower, the text chunk, B/16, one round of big groups exactly, one
+# row past it, and one row short of it
+MLP_ROWS = list(range(1, 3001)) + [12_800, 78_848, 50_432, 33_792, 33_793,
+                                   33_791]
+
+
+def _mlp_group(g, rows, big):
+    """``(first row, rows)`` of bf16 K6's group ``g``, as ``mlp_group`` in
+    block_fused.cu walks them: ``big`` groups of 256 rows, then groups of
+    128, the last ragged."""
+    if g < big:
+        return g * 256, 256
+    r0 = big * 256 + (g - big) * 128
+    return r0, min(128, rows - r0)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7, 1])
+def test_mlp_plan_covers_every_row_once(sms):
+    """bf16 K6's groups (``mlp_plan``, ``mlp_group``, as block_fused.cu
+    walks them) for every row count up to 3000 and the main paths': block
+    ``i < slots`` takes groups ``i, i + slots, ...``; every row lies in
+    exactly one group, a group of 256 rows only whole and only in 256-row
+    slots, no more blocks than SMs or groups, and the busiest block takes
+    ``ceil(ceil(rows / 128) / sms)`` units of 128 rows (a big group two),
+    the least a walk of whole m-tile pairs allows. fp32: 32-row tiles on at
+    most two blocks an SM, their slices of 32 x (768 + 128)."""
+    for rows in MLP_ROWS:
+        plan = BF.mlp_plan(rows, torch.bfloat16, sms)
+        big, groups, slots = plan["big"], plan["groups"], plan["slots"]
+        assert big % sms == 0 and big * 256 <= rows
+        assert plan["slot_rows"] == (256 if big else 128)
+        assert 1 <= slots <= min(sms, groups)
+        assert plan["elems"] == slots * plan["slot_rows"] * (768 + 3072)
+        covered = np.zeros(rows, dtype=np.int64)
+        units = np.zeros(slots, dtype=np.int64)
+        for g in range(groups):
+            r0, n = _mlp_group(g, rows, big)
+            assert 1 <= n <= plan["slot_rows"] and (n == 256) == (g < big)
+            covered[r0:r0 + n] += 1
+            units[g % slots] += 2 if n > 128 else 1
+        assert (covered == 1).all(), rows
+        assert units.max() == -(-(-(-rows // 128)) // sms), (rows, plan)
+        fp = BF.mlp_plan(rows, torch.float32, sms)
+        assert fp["big"] == 0 and fp["slot_rows"] == 32
+        assert fp["groups"] == -(-rows // 32)
+        assert fp["slots"] == min(fp["groups"], 2 * sms)
+        assert fp["elems"] == fp["slots"] * 32 * (768 + 128)
+
+
+def test_mlp_group_limits_mirror_the_source():
+    """K6's plan takes block_fused.cu's limits, which the kernel checks: the
+    bf16 groups' rows (``kMlpBigRows``, ``kMlpSmallRows``, the ring's row
+    tiles), the fp32 tile (``kMlpRows``, ``kFChunk``), the walk of
+    ``mlp_group`` and ``mlp_groups``, and the plan the launch accepts."""
+    src = _source("block_fused.cu")
+    assert _constant(src, "kMlpBigRows") == BF.MLP_BIG_ROWS == BF.WGMMA_ROWS
+    assert _constant(src, "kMlpSmallRows") == BF.MLP_SMALL_ROWS
+    assert _constant(src, "kMlpRows") == BF.MLP_TILE_ROWS
+    assert _constant(src, "kFChunk") == BF.MLP_F_CHUNK
+    assert _constant(_source("halfblock.cuh"), "kBoxRows") == BF.MLP_SMALL_ROWS
+    for line in (
+            "return big + (rows - big * kMlpBigRows + kMlpSmallRows - 1) / "
+            "kMlpSmallRows;",
+            "*r0 = g < big ? g * kMlpBigRows : big * kMlpBigRows + "
+            "(g - big) * kMlpSmallRows;",
+            "*n = g < big ? kMlpBigRows : min(kMlpSmallRows, rows - *r0);",
+            "for (int g = blockIdx.x; g < groups; g += gridDim.x) {",
+            "(big > 0 && slot_rows != kMlpBigRows) || "
+            "(long long)big * kMlpBigRows > rows)",
+            "if (slot_rows != kMlpRows || big != 0) return "
+            "cudaErrorInvalidValue;"):
+        assert line in src, line
+    assert "return (long long)kMlpRows * (kE + kFChunk);" in src
+    # the walk's group count, from the Python groups
+    for rows, sms in ((12_800, 132), (78_848, 132), (1, 7)):
+        plan = BF.mlp_plan(rows, torch.bfloat16, sms)
+        big = plan["big"]
+        assert plan["groups"] == big + (rows - big * 256 + 127) // 128
+
+
 def _tiny_fused_config():
     cfg = tiny_msclips_config()
     cfg.TPU.USE_FUSED_BLOCK = True  # as bench.py sets it

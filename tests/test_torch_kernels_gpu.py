@@ -266,7 +266,12 @@ def test_quant_kernels_match_plain(cuda, dtype, E, L):
 def test_quant_kernels_edge_rows(cuda, dtype, E):
     """Constant rows give h = bias exactly: with the ties as bias, s = 1
     and q rounds half to even; zero rows with a zero bias (K3) or zero
-    input (K4) give s = 1e-8 and q = 0."""
+    input (K4) give s = 1e-8 and q = 0. K3's rows whose LayerNorm or
+    affine is not finite (``chip_smoke.ln_quant_nonfinite_rows``: an inf, a
+    NaN, a -inf, w n + b overflowing to inf, a scale near the largest)
+    equal the plain version's bit for bit: q equal, s equal or both NaN."""
+    import chip_smoke
+
     ties = torch.tensor(TIES, device=cuda).repeat(E // len(TIES) + 1)[:E]
     x = torch.tensor([0.0, 1.0, -3.0, 0.5, 1024.0], device=cuda)[:, None]
     x = x.expand(5, E).contiguous().to(dtype)
@@ -279,17 +284,30 @@ def test_quant_kernels_edge_rows(cuda, dtype, E):
     assert (q == 0).all() and (s == 1e-8).all()
     q, s = Q.gelu_quant(torch.zeros(4, E, device=cuda, dtype=dtype))
     assert (q == 0).all() and (s == torch.tensor(1e-8)).all()
+    x, w, b = chip_smoke.ln_quant_nonfinite_rows(E, dtype, cuda)
+    _assert_bitwise(Q.ln_quant(x, w, b), Q.ln_quant_plain(x, w, b))
+
+
+def _assert_bitwise(got, want):
+    """q and s of a quantizer against its plain version's, bit for bit
+    (any NaN scale equal to any NaN)."""
+    torch.cuda.synchronize()
+    (q, s), (qp, sp) = got, want
+    assert q.dtype == torch.int8 and q.shape == qp.shape
+    s_same = (s.view(torch.int32) == sp.view(torch.int32)) \
+        | (torch.isnan(s) & torch.isnan(sp))
+    q_same = (q == qp).all(dim=-1)
+    bad = ~(s_same & q_same)
+    assert not bad.any(), (
+        f"{int(bad.sum())} rows differ: s {s[bad][:8].tolist()} against "
+        f"{sp[bad][:8].tolist()}, q differing in "
+        f"{(q != qp).sum(dim=-1)[bad][:8].tolist()} elements, q "
+        f"{q[bad][:8, :4].tolist()} against {qp[bad][:8, :4].tolist()}")
 
 
 def _gelu_quant_bitwise(x):
-    """K4's q and s against ``gelu_quant_plain``'s, bit for bit (any NaN
-    scale equal to any NaN)."""
-    (q, s), (qp, sp) = Q.gelu_quant(x), Q.gelu_quant_plain(x)
-    torch.cuda.synchronize()
-    assert q.dtype == torch.int8 and q.shape == qp.shape
-    assert torch.equal(q, qp)
-    assert ((s.view(torch.int32) == sp.view(torch.int32))
-            | (torch.isnan(s) & torch.isnan(sp))).all()
+    """K4's q and s against ``gelu_quant_plain``'s, bit for bit."""
+    _assert_bitwise(Q.gelu_quant(x), Q.gelu_quant_plain(x))
 
 
 def test_gelu_quant_kernel_every_bf16_pattern(cuda):
@@ -446,7 +464,8 @@ def test_attention_halfblock_kernel_groups(cuda, dtype, causal, L, fill):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L", [(1, 1), (3, 17), (5, 50), (3, 77), (2, 197)])
 def test_mlp_halfblock_kernel_matches_plain(cuda, dtype, B, L):
-    """K6 over token counts that fill and leave ragged its 32-row tiles."""
+    """K6 over token counts that fill and leave ragged its row groups (fp32:
+    tiles of 32; bf16: one or two m-tiles of 64 a warpgroup)."""
     gen = torch.Generator(device=cuda).manual_seed(B * L)
     p = {k: v.to(dtype) for k, v in _block(768, gen, cuda).items()}
     x = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
@@ -455,6 +474,30 @@ def test_mlp_halfblock_kernel_matches_plain(cuda, dtype, B, L):
     torch.cuda.synchronize()
     assert BF.fused_mlp_halfblock.launches == before + 1
     _assert_half_close(got, BF.mlp_halfblock_plain(x, p), x, dtype)
+
+
+@pytest.mark.parametrize("fill", ["one_round_of_big", "big_and_small",
+                                  "below_sms", "one_small_each"])
+def test_mlp_halfblock_kernel_groups(cuda, fill):
+    """bf16 K6 at the edges of its plan on this card (``mlp_plan``): one
+    round of 256-row groups exactly, a round of them and a ragged round of
+    128-row groups, fewer 128-row groups than SMs, and one 128-row group a
+    block; elementwise and at the mean limit."""
+    sms = BF.sm_count(cuda)
+    rows = {"one_round_of_big": 256 * sms, "big_and_small": 256 * sms + 129,
+            "below_sms": 128 * (sms - 3) - 5, "one_small_each": 128 * sms}[fill]
+    plan = BF.mlp_plan(rows, torch.bfloat16, sms)
+    assert (plan["big"] > 0) == fill.startswith(("one_round", "big"))
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    p = {k: v.to(torch.bfloat16) for k, v in _block(768, gen, cuda).items()}
+    x = torch.randn(rows, 1, 768, device=cuda, generator=gen).to(torch.bfloat16)
+    got = BF.fused_mlp_halfblock(x, p)
+    torch.cuda.synchronize()
+    want = BF.mlp_halfblock_plain(x, p)
+    _assert_half_close(got, want, x, torch.bfloat16)
+    mean = (got.float() - want.float()).abs().mean().item()
+    branch = (want.float() - x.float()).abs().mean().item()
+    assert mean <= 2.0 ** -10 * branch, (mean, branch)
 
 
 def test_halfblock_kernels_refuse_bad_inputs(cuda):

@@ -3,6 +3,7 @@ CPU: the plain versions of K3/K4 against the Pallas kernels in interpret
 mode, weight quantization, the int8 blocks, the towers, the resolved B/16
 config and the zero-shot CLI, on inputs made with numpy from a seed."""
 
+import math
 import os
 import subprocess
 import sys
@@ -323,6 +324,185 @@ def test_gelu_quant_constants_mirror_the_source():
     assert "x *= 0x1p-64f;" in src and "d *= 0x1p-64f;" in src
     assert "(__float_as_uint(d) & 0x7FFFFFu) == 0x7FFFFFu" in src
     assert "rcp.approx.ftz.f32" in src and "max.NaN.f32" in src
+
+
+def test_ln_quant_constants_mirror_the_source():
+    """K3 in ``csrc/quant.cu`` takes the quantization K4 takes (the scale by
+    ``div_rn`` with RN(1 / 127), the quotient by ``div_rn`` with one rounded
+    reciprocal a row, the NaN-propagating abs-max, zeros for a non-finite
+    scale: the sequences the emulations here check) and the sums the
+    emulation below takes; its widest row is the wrapper's ``MAX_WIDTH``."""
+    import re
+
+    with open(os.path.join(REPO, "msclip_torch", "csrc", "quant.cu")) as f:
+        src = f.read()
+    k3 = src[src.index("ln_quant_kernel(const T*"):src.index("// K4\n")]
+    for piece in ("tree_sum8(v[j])", "sq[j] = fmaf(v[j][i], v[j][i], sq[j]);",
+                  "__fdiv_rn(warp_sum(sum), (float)E)",
+                  "rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq_all), (float)E), eps))",
+                  "affine.run(v[j], wc, bc, rstd);",
+                  "row_scale(warp_max_nan(affine.amax()))", "scale_rcp(sc)",
+                  "quantize8(v[j], sc, r)"):
+        assert piece in k3, piece
+    # the affine: bf16 rounded once an op on bf16x2 (equal to an fp32 op
+    # rounded to bf16: fp32's 24 bits >= 2 x 8 + 2), fp32 unfused
+    for piece in ("__floats2bfloat162_rn(__fmul_rn(v[i], rstd),",
+                  "__hadd2_rn(__hmul2_rn(w2[i / 2], n2), b2[i / 2])",
+                  "amax2 = __hmax2_nan(amax2, __habs2(h2));",
+                  "__fadd_rn(__fmul_rn(w.get(i), __fmul_rn(v[i], rstd)), b.get(i))",
+                  "amax_ = max_nan(amax_, fabsf(v[i]));"):
+        assert piece in src, piece
+    assert "amax <= kFltMax ? fmaxf(div_rn(amax, 127.0f, kRcp127), 1e-8f) : amax" in src
+    assert "sc <= kFltMax ? packed : make_uint2(0u, 0u)" in src
+    assert "__fadd_rn(div_rn(h[i], sc, r), kRintMagic)" in src
+    chunks = int(re.search(r"constexpr int kLnMaxChunks = (\d+);", src).group(1))
+    chunk = int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+    assert 32 * chunks * chunk == Q.MAX_WIDTH
+
+
+def _bf16_round_once(x):
+    """fp64 ``x`` rounded once to bf16 (to nearest even, bf16's subnormals
+    below 2^-126, inf past the largest), as fp32."""
+    with np.errstate(all="ignore"):
+        e = np.floor(np.log2(np.abs(x)))
+        quantum = np.exp2(np.maximum(np.where(np.isfinite(e), e, 0), -126) - 7)
+        r = np.round(x / quantum) * quantum
+        return np.where(np.abs(r) >= 2.0 ** 128, np.sign(r) * np.inf, r).astype(F32)
+
+
+def test_bf16_ops_round_once_as_fp32_then_bf16():
+    """K3's packed bf16 affine (``__hmul2_rn``, ``__hadd2_rn``: the exact
+    product or sum rounded once to bf16) against torch's (the fp32 op,
+    then bf16): equal on 2^20 pairs of random bf16 values of every sign and
+    binade (fp32's 24 bits are at least 2 x 8 + 2, so rounding through fp32
+    is the one rounding), but for products in fp32's subnormal range, below
+    2^-126, which K3 needs equal only up to quantizing to 0 under the
+    scale's floor."""
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    bits = rng.integers(0, 1 << 16, (2, n), dtype=np.int64).astype(np.int16)
+    a, b = (torch.from_numpy(v).view(torch.bfloat16).float().numpy() for v in bits)
+    ok = np.isfinite(a) & np.isfinite(b)
+    a, b = a[ok], b[ok]
+    with np.errstate(all="ignore"):
+        # half the pairs close in exponent, where the sum rounds at all
+        near = np.arange(a.size) % 2 == 0
+        b = np.where(near, _round_to((a * F32(rng.uniform(-4, 4, a.size)))
+                                     .astype(F32), torch.bfloat16), b)
+        for op in (np.add, np.multiply):
+            once = _bf16_round_once(op(a.astype(F64), b.astype(F64)))
+            torch_way = _round_to(op(a, b).astype(F32), torch.bfloat16)
+            normal = np.abs(op(a.astype(F64), b.astype(F64))) >= 2.0 ** -126
+            both = normal | (op is np.add)
+            assert _same(once[both], torch_way[both]).all(), op
+            assert (np.abs(once[~both]) < 2.0 ** -100).all()
+
+
+def _round_to(v, dtype):
+    """fp32 ``v`` rounded to ``dtype`` (to nearest even) and back."""
+    return torch.from_numpy(v).to(dtype).float().numpy()
+
+
+def _warp_sum(v):
+    """``warp_sum`` over the lane axis (-1) of 32: the xor butterfly, each
+    step one fp32 add (commutative, so every lane ends with one value)."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., lanes ^ o]).astype(F32)
+    return v[..., 0]
+
+
+def _ln_quant_kernel(x, w, b, dtype, eps=1e-12):
+    """K3 of ``csrc/quant.cu`` emulated with numpy on rows ``x [R, E]`` of
+    values of ``dtype`` (fp32 arrays): lane l holds the chunks l, l + 32, ...
+    of 8; each chunk's tree sum into the lane's sum; ``warp_sum``; the
+    squares as fp32 fmas a chunk; rsqrt rounded once (the card's
+    ``rsqrtf`` is within an ulp or two); the three roundings to ``dtype``;
+    the NaN-propagating abs-max; ``row_scale``, ``div_rn`` by the rounded
+    reciprocal, and the low byte of ``v + 1.5 2^23``, 0 where s is not
+    finite."""
+    R, E = x.shape
+    C = -(-E // 256)
+    v = np.zeros((R, C, 32, 8), F32)  # chunk lane + 32 j at [:, j, lane]
+    have = np.zeros((C, 32), bool)
+    for c in range(E // 8):
+        v[:, c // 32, c % 32] = x[:, 8 * c:8 * c + 8]
+        have[c // 32, c % 32] = True
+    with np.errstate(all="ignore"):
+        t = [(v[..., 2 * i] + v[..., 2 * i + 1]).astype(F32) for i in range(4)]
+        tree = ((t[0] + t[1]).astype(F32) + (t[2] + t[3]).astype(F32)).astype(F32)
+        lane_sum = np.zeros((R, 32), F32)
+        for j in range(C):
+            lane_sum = np.where(have[j], (lane_sum + tree[:, j]).astype(F32), lane_sum)
+        mean = (_warp_sum(lane_sum) / F32(E)).astype(F32)[:, None, None, None]
+        d = (v - mean).astype(F32)
+        sq = np.zeros((R, C, 32), F32)
+        for i in range(8):
+            sq = _fma32(d[..., i], d[..., i], sq)
+        sq_lane = np.zeros((R, 32), F32)
+        for j in range(C):
+            sq_lane = np.where(have[j], (sq_lane + sq[:, j]).astype(F32), sq_lane)
+        var = (_warp_sum(sq_lane) / F32(E)).astype(F32)
+        rstd = (1.0 / np.sqrt((var + F32(eps)).astype(F32).astype(F64))).astype(F32)
+        wv, bv = (np.zeros((C, 32, 8), F32) for _ in range(2))
+        for c in range(E // 8):
+            wv[c // 32, c % 32] = w[8 * c:8 * c + 8]
+            bv[c // 32, c % 32] = b[8 * c:8 * c + 8]
+        normed = _round_to((d * rstd[:, None, None, None]).astype(F32), dtype)
+        prod = _round_to((wv * normed).astype(F32), dtype)
+        h = _round_to((prod + bv).astype(F32), dtype)
+        habs = np.where(have[..., None], np.abs(h), F32(0)).reshape(R, -1)
+        amax = np.where(np.isnan(habs).any(-1), F32(np.nan), habs.max(-1))
+        finite = amax <= F32(3.402823466e38)
+        s = np.where(finite, np.maximum(_div_rn(amax, F32(127), F32(1) / F32(127)),
+                                        F32(1e-8)), amax).astype(F32)
+        ss = np.where(finite, s, F32(1))[:, None, None, None]
+        u = (_div_rn(h, ss, (F32(1) / ss).astype(F32)) + F32(12582912.0)).astype(F32)
+        q = (u.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+        q = np.where(finite[:, None, None, None], q, np.int8(0))
+    out = np.zeros((R, E), np.int8)
+    for c in range(E // 8):
+        out[:, 8 * c:8 * c + 8] = q[:, c // 32, c % 32]
+    return torch.from_numpy(out), torch.from_numpy(s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E", [64, 768, 1032])
+def test_ln_quant_kernel_arithmetic_matches_plain(dtype, E):
+    """K3's arithmetic (:func:`_ln_quant_kernel`) against ``ln_quant_plain``
+    on the CPU, at the card checks' limits: random rows, rows with ties, and
+    a zero row (q within 1, per row |s - s_plain| <= S_RTOL s_plain, q s
+    within one step), and ``chip_smoke.ln_quant_nonfinite_rows`` (an inf,
+    a NaN, a -inf, w n + b overflowing, a scale near the largest) bit for
+    bit: q equal, s equal or both NaN. E = 1032 leaves lanes without their
+    last chunk."""
+    import chip_smoke
+
+    s_rtol = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}[dtype]
+    rng = np.random.default_rng(E)
+    x = _np(rng, 64, E)
+    x[5] = 3.0  # constant row: h = b
+    x[6] = 0.0
+    w = (1 + _np(rng, E, scale=0.1))
+    b = np.resize(np.array(TIES, F32), E)
+    x, w, b = (torch.from_numpy(a).to(dtype) for a in (x, w, b))
+    q, s = _ln_quant_kernel(x.float().numpy(), w.float().numpy(),
+                            b.float().numpy(), dtype)
+    qp, sp = Q.ln_quant_plain(x, w, b)
+    assert (q.int() - qp.int()).abs().max() <= 1
+    assert ((s - sp).abs() <= s_rtol * sp).all()
+    step = torch.maximum(s, sp).double() + 127 * (s - sp).abs().double()
+    deq = (q.double() * s.double()[:, None] - qp.double() * sp.double()[:, None])
+    assert (deq.abs() <= step[:, None]).all()
+    assert (q[5] == torch.round(b.float()).to(torch.int8)).all() and s[5] == 1.0
+    xn, wn, bn = chip_smoke.ln_quant_nonfinite_rows(E, dtype, "cpu")
+    q, s = _ln_quant_kernel(xn[0].float().numpy(), wn.float().numpy(),
+                            bn.float().numpy(), dtype)
+    qp, sp = Q.ln_quant_plain(xn[0], wn, bn)
+    assert torch.equal(q, qp)
+    assert ((s.view(torch.int32) == sp.view(torch.int32))
+            | (torch.isnan(s) & torch.isnan(sp))).all()
+    assert torch.isnan(sp[:3]).all() and sp[3] == math.inf and sp[4] > 1e36
 
 
 def test_quantize_linear_weight_matches_jax():
