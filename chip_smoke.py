@@ -68,7 +68,17 @@ Phases, each printed on its own line and each fatal on failure:
    out-projection, each by event and device time, ``vs_unfused`` and
    ``vs_k1_matmul`` ratios of device times); then the tool's full-width
    sweep, ``msclip_torch.tools.halfblock_tuning.main``, with each row's
-   launches counted.
+   launches counted;
+13. transfer: the transfer-eval surface at full B/32 width in bf16 on
+   fixtures it writes in each dataset's real layout (VOC2007, HatefulMemes,
+   Caltech-101, CIFAR-10, a Karpathy retrieval split; 256 evaluated images
+   each, 2,048 probe train images): ``run_zero_shot`` with 11-point mAP,
+   ROC-AUC and mean-per-class, ``run_linear_probe(probe="torch")`` and
+   ``run_retrieval``, K1's launches in each run held to 11 x image batches
+   + 12 x text chunks and each metric to its recomputation from the saved
+   logits; fp32 VOC logits of 16 images, the card against the CPU (within
+   0.1); and the dispatcher ``msclip_torch.tools.eval_zeroshot --device
+   cuda`` as a subprocess.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16
@@ -98,12 +108,14 @@ printing any result.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import functools
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2025,6 +2037,256 @@ def run_tuning_sweep():
     return launches, rows
 
 
+TRANSFER_N = 256  # images of each transfer set's evaluated split: one batch
+CALTECH_CLASSES = ("accordion", "airplanes", "anchor", "ant", "barrel",
+                   "bass", "beaver", "binocular")
+DATASET_DIR = os.path.join(REPO, "experiments", "dataset")
+
+
+def write_transfer_fixtures(root, seed=0):
+    """The transfer sets of phase 13 in their public layouts, written from
+    ``seed``: a VOC2007 test split, a HatefulMemes ``dev_seen.jsonl`` set, a
+    Caltech-101 tree (30 train and 32 test images a class), a CIFAR-10
+    pickle train/test pair (8 x n and n) and a Karpathy retrieval split
+    (n images x 5 captions). Images are random blocks of 96-200 px."""
+    import pickle
+
+    from PIL import Image
+
+    from msclip_torch.data.datasets import Voc2007Classification
+
+    n = TRANSFER_N
+    rng = np.random.default_rng(seed)
+
+    def image(path, i):
+        h, w = 96 + 8 * (i % 13), 96 + 8 * (i % 11)
+        arr = np.kron(rng.random((h // 8, w // 8, 3)), np.ones((8, 8, 1)))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray((arr * 255).astype(np.uint8)).save(path)
+
+    voc = os.path.join(root, "voc", "test", "VOCdevkit 2", "VOC2007")
+    os.makedirs(os.path.join(voc, "ImageSets", "Main"))
+    ids = [f"{i:06d}" for i in range(1, n + 1)]
+    labels = rng.random((n, 20)) < 0.15
+    labels[np.arange(n), rng.integers(0, 20, n)] = True
+    for ci, cls in enumerate(Voc2007Classification.CATEGORIES):
+        with open(os.path.join(voc, "ImageSets", "Main",
+                               f"{cls}_test.txt"), "w") as f:
+            f.write("".join(f"{d} {1 if labels[i, ci] else -1}\n"
+                            for i, d in enumerate(ids)))
+    for i, d in enumerate(ids):
+        image(os.path.join(voc, "JPEGImages", d + ".jpg"), i)
+
+    hm = os.path.join(root, "hatefulmemes")
+    recs = []
+    for i in range(n):
+        image(os.path.join(hm, "img", f"{i:05d}.png"), i)
+        recs.append({"id": i, "img": f"img/{i:05d}.png", "label": i % 2,
+                     "text": f"meme {i}"})
+    with open(os.path.join(hm, "dev_seen.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(r) for r in recs))
+
+    caltech = os.path.join(root, "caltech", "101_ObjectCategories")
+    per_class = 30 + n // len(CALTECH_CLASSES)
+    for ci, cls in enumerate(CALTECH_CLASSES):
+        for i in range(per_class):
+            image(os.path.join(caltech, cls, f"image_{i:04d}.jpg"), i + ci)
+
+    cifar = os.path.join(root, "cifar", "cifar-10-batches-py")
+    os.makedirs(cifar)
+    for name, m in [(f"data_batch_{b}", 8 * n // 5 + (b <= 8 * n % 5))
+                    for b in range(1, 6)] + [("test_batch", n)]:
+        with open(os.path.join(cifar, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (m, 3072), np.uint8),
+                         b"labels": [int(v) for v in
+                                     rng.integers(0, 10, m)]}, f)
+
+    karpathy = os.path.join(root, "karpathy")
+    things = ("dog", "bicycle", "harbour", "kitchen", "market", "mountain")
+    records = []
+    for i in range(n):
+        image(os.path.join(karpathy, "images", f"{i:05d}.jpg"), i)
+        records.append({"filename": f"{i:05d}.jpg", "split": "test",
+                        "sentences": [{"raw": f"a {things[(i + j) % 6]} "
+                                              f"seen in photo {i}, take {j}"}
+                                      for j in range(5)]})
+    with open(os.path.join(karpathy, "dataset_flickr30k.json"), "w") as f:
+        json.dump({"images": records}, f)
+    return {"voc": os.path.join(root, "voc") + "/", "hatefulmemes": hm,
+            "caltech": os.path.dirname(caltech),
+            "cifar": os.path.dirname(cifar),
+            "karpathy": (os.path.join(karpathy, "images"),
+                         os.path.join(karpathy, "dataset_flickr30k.json"))}
+
+
+def transfer_config(ds_yaml, root, *opts, dtype="bfloat16"):
+    """Full-width B/32 on one transfer set (``ds_yaml`` None: no dataset
+    config): random weights from seed 0, batch 256, ``dtype``."""
+    from msclip_torch.config import get_default_config, update_config
+
+    cfg = get_default_config()
+    if ds_yaml:
+        update_config(cfg, os.path.join(DATASET_DIR, ds_yaml))
+    update_config(cfg, B32_CONFIG, opts=[
+        "DATASET.ROOT", root, "TEST.BATCH_SIZE_PER_GPU", TRANSFER_N,
+        "TPU.COMPUTE_DTYPE", dtype, "TPU.SEED", 0,
+        "MODEL.PRETRAINED_MODEL", "", *opts])
+    return cfg
+
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def k1_launches_held(run, launches, image_batches, text_chunks):
+    expected = 11 * image_batches + 12 * text_chunks
+    if launches != expected or launches == 0:
+        raise AssertionError(
+            f"{run}: K1 launched {launches} times, expected 11 x "
+            f"{image_batches} image batches + 12 x {text_chunks} text "
+            f"chunks = {expected}")
+    return launches
+
+
+def run_transfer(tmp, device="cuda"):
+    """Phase 13: the transfer-eval surface at full B/32 width in bf16 on
+    fixtures written to ``tmp``: zero-shot on VOC2007 (11-point mAP),
+    HatefulMemes (ROC-AUC) and Caltech-101 (mean-per-class) through
+    ``run_zero_shot``, the torch linear probe on CIFAR-10 through
+    ``run_linear_probe``, retrieval on a Karpathy split through
+    ``run_retrieval`` (BN folded, as its CLI), each with K1's launches
+    counted and held to 11 x image batches + 12 x text chunks and each
+    metric recomputed from the saved logits; then fp32 VOC logits of 16
+    images, the card against the CPU, and the dispatcher CLI
+    ``msclip_torch.tools.eval_zeroshot --device cuda`` on the VOC set.
+    Returns K1's launches over the five runs. ``device="cpu"`` rehearses
+    the phase with the plain versions (no launches to count)."""
+    from torch.utils.data import Subset
+
+    from msclip_torch.data.retrieval_datasets import load_karpathy_split
+    from msclip_torch.data.transforms import pil_eval_transform
+    from msclip_torch.eval.linear_probe import run_linear_probe
+    from msclip_torch.eval.retrieval import run_retrieval
+    from msclip_torch.eval.zero_shot import (
+        LOGIT_METRICS,
+        load_eval_model,
+        make_dataset,
+        run_zero_shot,
+    )
+    from msclip_torch.models.msclip import build_spec
+
+    t0 = time.time()
+    roots = write_transfer_fixtures(tmp)
+    log("transfer_fixtures", seconds=round(time.time() - t0, 1),
+        image_files=4 * TRANSFER_N + 30 * len(CALTECH_CLASSES),
+        cifar_images=9 * TRANSFER_N)
+    total = 0
+    for ds_yaml, key, metric in (
+            ("voc2007.yaml", "voc", "11point_mAP"),
+            ("hatefulmemes.yaml", "hatefulmemes", "roc_auc"),
+            ("caltech-101.yaml", "caltech", "mean-per-class")):
+        pred = os.path.join(tmp, f"{key}.npz")
+        cfg = transfer_config(ds_yaml, roots[key], "TEST.SAVE_PRED", pred)
+        reset_launches()
+        value, stats = run_zero_shot(cfg, device=device)
+        sync(device)
+        launches = k1_launches_held(
+            key, A.fused_attention_qkv.launches, stats["n_image_batches"],
+            stats["n_text_chunks"])
+        saved = np.load(pred)
+        again = LOGIT_METRICS[metric](saved["label"], saved["logits"])
+        log("transfer_zero_shot", dataset=cfg.DATASET.DATASET, metric=metric,
+            value=value, recomputed=again, n_images=stats["n_images"],
+            images_per_s=stats["images_per_sec"],
+            classifier_s=stats["classifier_s"],
+            image_batches=stats["n_image_batches"],
+            text_chunks=stats["n_text_chunks"], k1_launches=launches)
+        if stats["metric"] != metric or stats["n_images"] != TRANSFER_N:
+            raise AssertionError(f"{key}: {stats}")
+        if not (math.isfinite(value) and 0.0 <= value <= 100.0
+                and again == value):
+            raise AssertionError(f"{key}: {metric} {value}, recomputed from "
+                                 f"the saved logits {again}")
+        total += launches
+
+    cfg = transfer_config("cifar-10.yaml", roots["cifar"])
+    train, test = (make_dataset(cfg, image_set=s) for s in ("train", "test"))
+    reset_launches()
+    start = time.time()
+    acc = run_linear_probe(cfg, train, test, probe="torch", device=device)
+    sync(device)
+    seconds = time.time() - start
+    batches = sum(-(-len(d) // TRANSFER_N) for d in (train, test))
+    launches = k1_launches_held("linear probe",
+                                A.fused_attention_qkv.launches, batches, 0)
+    log("transfer_linear_probe", dataset="cifar-10", accuracy=acc,
+        n_train=len(train), n_test=len(test), seconds=seconds,
+        images_per_s=(len(train) + len(test)) / seconds,
+        image_batches=batches, k1_launches=launches)
+    if not (len(train) == 8 * TRANSFER_N and 0.0 <= acc <= 100.0):
+        raise AssertionError(f"linear probe: {acc} on {len(train)} images")
+    total += launches
+
+    cfg = transfer_config(None, "")
+    images, ann = roots["karpathy"]
+    ds, captions, cap2img = load_karpathy_split(
+        images, ann, transform=functools.partial(
+            pil_eval_transform, size=cfg.TEST.IMAGE_SIZE[0],
+            mean=tuple(cfg.INPUT.MEAN), std=tuple(cfg.INPUT.STD)))
+    model = load_eval_model(cfg, build_spec(cfg), device, int8=False)
+    reset_launches()
+    start = time.time()
+    out = run_retrieval(model, ds, captions, cap2img, batch_size=TRANSFER_N,
+                        workers=cfg.WORKERS)
+    sync(device)
+    seconds = time.time() - start
+    launches = k1_launches_held(
+        "retrieval", A.fused_attention_qkv.launches,
+        -(-len(ds) // TRANSFER_N), -(-len(captions) // TRANSFER_N))
+    log("transfer_retrieval", n_images=len(ds), n_captions=len(captions),
+        seconds=seconds, images_per_s=len(ds) / seconds,
+        i2t=json.dumps(out["i2t"]), t2i=json.dumps(out["t2i"]),
+        k1_launches=launches)
+    if not all(0.0 <= v <= 100.0 for d in out.values() for v in d.values()):
+        raise AssertionError(f"retrieval recalls {out}")
+    total += launches
+    del model
+
+    # fp32 VOC logits of 16 images: the card (K1) against the CPU (plain)
+    logits = {}
+    for dev in (device, "cpu"):
+        pred = os.path.join(tmp, f"voc16_{dev}.npz")
+        cfg = transfer_config("voc2007.yaml", roots["voc"], "TEST.SAVE_PRED",
+                              pred, dtype="float32")
+        run_zero_shot(cfg, dataset=Subset(make_dataset(cfg), range(16)),
+                      device=dev)
+        logits[dev] = np.load(pred)["logits"]
+    err = float(np.abs(logits[device] - logits["cpu"]).max())
+    log("transfer_card_vs_cpu", dataset="voc2007classification",
+        dtype="float32", images=16, logits_err=err, atol=0.1)
+    if not (logits[device].shape == (16, 20) and err <= 0.1):
+        raise AssertionError(f"fp32 VOC logits, card against CPU: {err}")
+
+    start = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "msclip_torch.tools.eval_zeroshot",
+         "--model", B32_CONFIG, "--ds", "voc2007", "--device", device,
+         "DATASET.ROOT", roots["voc"], "TEST.BATCH_SIZE_PER_GPU",
+         str(TRANSFER_N), "TPU.COMPUTE_DTYPE", "bfloat16",
+         "OUTPUT_DIR", os.path.join(tmp, "out")],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    result = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]
+    log("transfer_cli", returncode=r.returncode,
+        seconds=round(time.time() - start, 1),
+        result=json.dumps(result[0] if result else None))
+    if r.returncode != 0 or not result or "11point_mAP=" not in result[0]:
+        raise AssertionError(f"eval_zeroshot --device cuda: rc "
+                             f"{r.returncode}\n{r.stderr[-3000:]}")
+    return total
+
+
+
 def headline(rows, **match):
     return next(r for r in rows if "ms" in r
                 and all(r[k] == v for k, v in match.items()))
@@ -2086,6 +2348,8 @@ def main():
     timed("fused_card_vs_cpu", card_against_cpu, fused=True)
     tuning_rows = timed("e1_e2", check_tuning, traced)
     tuning_launches, sweep = timed("sweep", run_tuning_sweep)
+    with tempfile.TemporaryDirectory() as tmp:
+        transfer_launches = timed("transfer", run_transfer, tmp)
     timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
@@ -2094,7 +2358,8 @@ def main():
     variants = tuning_rows["attention_halfblock_variants"]
     core_out = tuning_rows["core_out_halfblock"]
     print(json.dumps({"kernels": [
-        kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0],
+        kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0]
+                    + transfer_launches,
                     "attention_fwd", "msclip_tpu/ops/attention.py:243",
                     headline(attn_rows, B=256, L=50, dtype="bfloat16"),
                     "B=256 L=50 E=768 H=12 bfloat16"),

@@ -2,12 +2,15 @@
 
 Classifier build (every ``class x template`` prompt tokenized on the host,
 text-encoded in chunks on the device), then the image loop over a
-prefetching loader, then top-1 accuracy. Single process, one device; the
+prefetching loader, then the metric ``TEST.METRIC`` selects: top-1
+accuracy, 11-point mAP, mean-per-class accuracy or ROC-AUC. Single
+process, one device (striping over processes waits for ROADMAP M7); the
 entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -26,15 +29,12 @@ from ..models.msclip import (
 )
 from ..utils import metrics as M
 
-# datasets the JAX package evaluates with loaders of their own; this port
-# reads ImageFolder trees and the synthetic set only (ROADMAP M4/M8)
-_UNPORTED_DATASETS = frozenset({
-    "voc2007classification", "hatefulmemes", "chestxray8", "cifar-10",
-    "cifar-100", "mnist", "fer-2013", "stl-10", "food-101", "dtd", "sun397",
-    "oxford-iiit-pets", "gtsrb", "oxford-flower-102", "fgvc-aircraft-2013b",
-    "stanford-cars", "pcam", "eurosat", "resisc45", "caltech-101",
-    "country211", "rendered-sst2", "birdsnap", "kitti-distance",
-})
+# metrics computed over the masked logits of the whole run, on the host
+LOGIT_METRICS = {
+    "11point_mAP": M.multilabel_map_11points,
+    "mean-per-class": M.mean_per_class_accuracy,
+    "roc_auc": M.roc_auc,
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -90,42 +90,84 @@ def resolve_prompts(prompt_name: str, dataset):
         return classnames, get_templates("imagenet")
 
 
-def make_dataset(config):
-    """The test split: an ImageFolder tree under ``DATASET.ROOT`` or the
-    synthetic set."""
-    from ..data.datasets import ImageFolderDataset, SyntheticImageDataset
+def make_dataset(config, transform=None, image_set: str = "test"):
+    """The dataset the config names, with the JAX package's dispatch
+    (``msclip_tpu/eval/zero_shot.py:108-176``): the transfer-suite loaders,
+    VOC2007, HatefulMemes (its labeled ``val`` split for ``test``),
+    ChestXRay8, the synthetic set (the train split from seed 10,000) or an
+    ImageFolder tree under ``DATASET.ROOT``. ``image_set``: ``"test"``,
+    the split each dataset's protocol evaluates, or ``"train"`` (linear
+    probe features)."""
+    from ..data.datasets import (
+        ChestXRay8,
+        HatefulMemes,
+        ImageFolderDataset,
+        SyntheticImageDataset,
+        Voc2007Classification,
+    )
+    from ..data.probe_datasets import PROBE_DATASETS, build_probe_dataset
+    from ..data.transforms import pil_eval_transform
+
+    # the JAX package's C++ decoder (msclip_tpu/native) serves ImageFolder
+    # trees under the default transform; the port has none, and a PIL
+    # decode in its place would be another pipeline than the one asked for
+    native = transform is None and os.environ.get("MSCLIP_NATIVE_DECODE") == "1"
+    if transform is None:
+        transform = functools.partial(
+            pil_eval_transform, size=config.TEST.IMAGE_SIZE[0],
+            mean=tuple(config.INPUT.MEAN), std=tuple(config.INPUT.STD))
 
     name = config.DATASET.DATASET
-    if name in _UNPORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset {name!r} has a loader of its own in msclip_tpu that "
-            "is not ported yet (ROADMAP M4/M8)")
+    root = config.DATASET.ROOT
+    if name in PROBE_DATASETS:
+        return build_probe_dataset(name, root, image_set, transform=transform)
+    if name == "voc2007classification":
+        return Voc2007Classification(root, image_set=image_set,
+                                     transform=transform)
+    if name == "hatefulmemes":
+        split = "val" if image_set == "test" else image_set
+        return HatefulMemes(root, image_set=split, transform=transform)
+    if name == "chestxray8":
+        return ChestXRay8(root, image_set=image_set, transform=transform)
     if name == "synthetic":
         return SyntheticImageDataset(
             n=config.DATASET.get("NUM_SAMPLES", 256),
             size=config.TEST.IMAGE_SIZE[0],
-            n_classes=config.DATASET.get("NUM_CLASSES", 1000))
-    return ImageFolderDataset(
-        os.path.join(config.DATASET.ROOT, config.DATASET.TEST_SET),
-        image_size=config.TEST.IMAGE_SIZE[0],
-        mean=tuple(config.INPUT.MEAN), std=tuple(config.INPUT.STD))
+            n_classes=config.DATASET.get("NUM_CLASSES", 1000),
+            seed=10_000 if image_set == "train" else 0)
+    if native:
+        raise NotImplementedError(
+            "MSCLIP_NATIVE_DECODE=1: the native image decoder is not ported "
+            "(ROADMAP M14); unset it to decode with PIL")
+    folder = os.path.join(
+        root, config.DATASET.TRAIN_SET if image_set == "train"
+        else config.DATASET.TEST_SET)
+    return ImageFolderDataset(folder, transform=transform)
 
 
-def load_eval_model(config, spec: MSClipSpec, device) -> MSClipModel:
-    """Parameters from the config, BN folded (``TPU.FOLD_BN``, default
-    on), with ``TPU.INT8_EVAL`` the trunk's GEMM weights quantized from the
-    fp32 weights (as ``msclip_tpu/eval/zero_shot.py:200-207``), then cast
-    to the compute dtype (BN running stats and the int8 weights with their
-    scales stay as they are; every weight is cast to the compute dtype at
-    use anyway, so casting once changes no result), on ``device``."""
+def load_eval_model(config, spec: MSClipSpec, device, *,
+                    fold_bn: bool | None = None,
+                    int8: bool | None = None) -> MSClipModel:
+    """Parameters from the config, BN folded (``fold_bn``, by default
+    ``TPU.FOLD_BN``, on unless set), the trunk's GEMM weights int8-quantized
+    from the fp32 weights (``int8``, by default ``TPU.INT8_EVAL``; as
+    ``msclip_tpu/eval/zero_shot.py:200-207``), then cast to the compute
+    dtype (BN running stats and the int8 weights with their scales stay as
+    they are; every weight is cast to the compute dtype at use anyway, so
+    casting once changes no result), on ``device``. Unfolded BN runs in
+    eval mode on the running statistics."""
     from ..models.folding import fold_params_for_eval
     from ..models.quantize import quantize_params_for_eval
     from .checkpoint_load import load_model_params
 
+    if fold_bn is None:
+        fold_bn = config.TPU.get("FOLD_BN", True)
+    if int8 is None:
+        int8 = config.TPU.get("INT8_EVAL", False)
     params = load_model_params(config, spec)
-    if config.TPU.get("FOLD_BN", True):
+    if fold_bn:
         params = fold_params_for_eval(params, spec)
-    if config.TPU.get("INT8_EVAL", False):
+    if int8:
         params = quantize_params_for_eval(params, spec)
     params = cast_params(params, spec.dtype)
     return MSClipModel(spec, params).to(device)
@@ -137,10 +179,9 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
     """Full zero-shot eval; returns ``(metric_value, stats)``."""
     device = resolve_device(device)
     metric = config.TEST.get("METRIC", "accuracy")
-    if metric != "accuracy":
-        raise NotImplementedError(
-            f"TEST.METRIC={metric!r}: only 'accuracy' is ported (11-point "
-            "mAP, mean-per-class and ROC-AUC: ROADMAP M4)")
+    if metric != "accuracy" and metric not in LOGIT_METRICS:
+        raise ValueError(f"TEST.METRIC={metric!r}: one of 'accuracy', "
+                         f"{', '.join(map(repr, LOGIT_METRICS))}")
     spec = build_spec(config)
     model = load_eval_model(config, spec, device)
 
@@ -169,7 +210,7 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
     pre = dataset_normalizer(dataset)
     save_pred = config.TEST.get("SAVE_PRED", "")
     top1 = M.AverageMeter()
-    preds, labels = [], []
+    preds, labels, all_logits, all_y = [], [], [], []
     n_images = n_batches = 0
     t0 = time.time()
     logging.info("=> Start to inference")
@@ -177,11 +218,16 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
     def consume(logits_dev, batch):
         logits = logits_dev.float().cpu().numpy()
         mask = batch["mask"]
+        label = np.asarray(batch["label"])
         if save_pred:
             preds.append(logits[mask].argmax(-1).astype(np.int64))
-            labels.append(np.asarray(batch["label"])[mask])
-        top1.update(M.topk_accuracy(logits, batch["label"], (1,), mask)[0],
-                    int(mask.sum()))
+            labels.append(label[mask])
+        if metric in LOGIT_METRICS:
+            all_logits.append(logits[mask])
+            all_y.append(label[mask])
+        else:
+            top1.update(M.topk_accuracy(logits, label, (1,), mask)[0],
+                        int(mask.sum()))
         return int(mask.sum())
 
     # double buffering: batch i+1 is queued on the device before batch i's
@@ -199,10 +245,17 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
     elapsed = time.time() - t0
 
     if save_pred and preds:
-        np.savez(save_pred, pred=np.concatenate(preds),
-                 label=np.concatenate(labels))
+        arrs = {"pred": np.concatenate(preds), "label": np.concatenate(labels)}
+        if all_logits:
+            arrs["logits"] = np.concatenate(all_logits)
+        np.savez(save_pred, **arrs)
         logging.info(f"=> saved per-image predictions to {save_pred}")
 
+    if metric in LOGIT_METRICS:
+        value = LOGIT_METRICS[metric](np.concatenate(all_y),
+                                      np.concatenate(all_logits))
+    else:
+        value = top1.avg
     stats = {
         "n_images": n_images,
         "elapsed_s": elapsed,
@@ -214,6 +267,6 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
         "device": str(device),
     }
     logging.info(
-        f"=> {config.DATASET.DATASET}% TEST:\tError@1 {100 - top1.avg:.3f}%"
-        f"\t{metric}@1 {top1.avg:.3f}%\t({stats['images_per_sec']:.0f} img/s)")
-    return top1.avg, stats
+        f"=> {config.DATASET.DATASET}% TEST:\tError@1 {100 - value:.3f}%"
+        f"\t{metric}@1 {value:.3f}%\t({stats['images_per_sec']:.0f} img/s)")
+    return value, stats

@@ -4,18 +4,20 @@
         --model <model.yaml> [--device cpu] [KEY VALUE ...]
 
 The interface of the JAX package's ``tools/zero_shot.py``: the dataset
-config is merged, then the model config with the overrides. Runs on the
-CUDA card unless ``--device cpu`` is given.
+config is merged, then the model config with the overrides; the log goes
+under ``OUTPUT_DIR`` (``utils/logging.create_logger``). Runs on the CUDA
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import sys
+import pprint
 
 from ..config import get_default_config, update_config
-from ..eval.zero_shot import run_zero_shot
+from ..eval.zero_shot import resolve_device, run_zero_shot
+from ..utils.logging import create_logger
 
 
 def parse_args(argv=None):
@@ -34,14 +36,18 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
-                        format="%(asctime)s %(message)s")
     args = parse_args(argv)
+    device = resolve_device(args.device)
     config = get_default_config()
     update_config(config, args.ds)
     update_config(config, args.model, opts=args.opts)
     config.NAME = ""
-    value, stats = run_zero_shot(config, device=args.device)
+    pretrained = config.MODEL.get("PRETRAINED_MODEL", "") or "scratch/none"
+    tag = pretrained.split("/")[-2] if "/" in pretrained else "none"
+    final_output_dir = create_logger(config, args.model, f"zero_shot_{tag}")
+    logging.info(pprint.pformat(vars(args)))
+    logging.info(f"=> saving logging info into: {final_output_dir}")
+    value, stats = run_zero_shot(config, device=device)
     print(f"RESULT {config.DATASET.DATASET} "
           f"{stats['metric']}={value:.3f} "
           f"images_per_sec={stats['images_per_sec']:.0f}")

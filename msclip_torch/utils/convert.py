@@ -10,6 +10,7 @@ so a released ``.pth`` loads without transposes. What loading checks:
   is held once;
 * shapes match the spec; ``num_batches_tracked`` is ignored.
 
+``export_state_dict`` writes the layout back, aliases included.
 ``params_from_jax`` carries a ``msclip_tpu`` ``init_params`` tree (as numpy
 arrays) across through the same key map: JAX linear weights are
 ``[in, out]`` and convs HWIO, the port's ``[out, in]`` and OIHW. A tree
@@ -218,3 +219,16 @@ def load_state_dict(state_dict, spec: MSClipSpec, expected_shapes=None):
                  len(sd), len(out), sum(k in sd for k in aliases))
     return out
 
+
+
+def export_state_dict(params, spec: MSClipSpec):
+    """The port's parameter dict -> a reference-layout ``state_dict``
+    (contiguous fp32 CPU tensors), the counterpart of the JAX package's
+    ``export_torch_state_dict``: a shared text-layer key is emitted under
+    its own name too, holding its trunk twin's tensor, as the reference's
+    ``model.state_dict()`` writes it."""
+    stored, aliases = build_key_map(spec)
+    out = {k: params[k].detach().cpu().float().contiguous() for k in stored}
+    for key, twin in aliases.items():
+        out[key] = out[twin].clone()
+    return out

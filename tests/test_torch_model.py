@@ -322,3 +322,30 @@ def test_full_width_b32_towers_match_jax():
         TM.encode_text(tp, spec, torch.from_numpy(tokens)).numpy(),
         np.asarray(jax.jit(jm.encode_text)(jp, jnp.asarray(tokens))),
         atol=ATOL)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("folded", [True, False])
+def test_full_width_b16_towers_match_jax(folded):
+    """Full-width MS-CLIP-S B/16 (L=197 in the image tower), fp32, with BN
+    folded and unfolded (eval mode on the running statistics)."""
+    path = os.path.join(REPO, "experiments", "model", "b16-yfcc-msclips.yaml")
+    cfg, jcfg = get_default_config(), jax_default_config()
+    update_config(cfg, path)
+    jax_update_config(jcfg, path)
+    jm = jax_build_model(jcfg)
+    jp = random_jax_params(jm, 2)
+    spec = TM.spec_from_config(cfg)
+    tp = params_from_jax(jp, spec)
+    if folded:
+        jp = jax.jit(lambda p: jax_fold(p, jm.spec))(jp)
+        tp = fold_params_for_eval(tp, spec)
+    images, tokens = _inputs(image=224, vocab=49408, batch=2)
+    np.testing.assert_allclose(
+        TM.encode_image(tp, spec, torch.from_numpy(images)).numpy(),
+        np.asarray(jax.jit(jm.encode_image)(jp, jnp.asarray(images))),
+        atol=ATOL)
+    np.testing.assert_allclose(
+        TM.encode_text(tp, spec, torch.from_numpy(tokens)).numpy(),
+        np.asarray(jax.jit(jm.encode_text)(jp, jnp.asarray(tokens))),
+        atol=ATOL)

@@ -86,6 +86,7 @@ def test_cli_matches_jax_cli_per_image(imagefolder, checkpoint, tmp_path):
         "TEST.SAVE_PRED", str(tmp_path / "jax.npz")]
     port_cmd = [sys.executable, "-m", "msclip_torch.tools.zero_shot",
                 "--device", "cpu"] + common + [
+        "OUTPUT_DIR", str(tmp_path / "port_out"),
         "TEST.SAVE_PRED", str(tmp_path / "port.npz")]
     procs = [subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -129,7 +130,7 @@ def test_topk_accuracy_with_mask():
     assert meter.avg == 75.0 and meter.count == 4
 
 
-def test_prompts_and_datasets():
+def test_prompts_and_datasets(tmp_path):
     cfg = get_default_config()
     update_config(cfg, DS_YAML)
     classnames, templates = ZS.resolve_prompts("imagenet", None)
@@ -140,9 +141,13 @@ def test_prompts_and_datasets():
 
     with pytest.raises(ValueError, match="placeholder"):
         ZS.resolve_prompts("no-such-set", Numeric())
+    # the transfer datasets take their own loaders
+    from torch_transfer_fixtures import voc2007
+
     cfg.DATASET.DATASET = "voc2007classification"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ZS.make_dataset(cfg)
+    cfg.DATASET.ROOT, _ = voc2007(str(tmp_path), n=3)
+    ds = ZS.make_dataset(cfg)
+    assert type(ds).__name__ == "Voc2007Classification" and len(ds) == 3
 
 
 def test_entry_point_needs_a_card_unless_told_cpu():
@@ -155,7 +160,11 @@ def test_entry_point_needs_a_card_unless_told_cpu():
 
 
 def test_unported_metric_is_rejected():
+    """A metric neither package computes fails before any work (the JAX
+    package would report top-1 under its name)."""
     cfg = get_default_config()
-    update_config(cfg, DS_YAML, opts=["TEST.METRIC", "11point_mAP"])
-    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
+    update_config(cfg, DS_YAML, opts=["TEST.METRIC", "top5"])
+    with pytest.raises(ValueError, match="TEST.METRIC='top5'"):
         ZS.run_zero_shot(cfg, device="cpu")
+    assert set(ZS.LOGIT_METRICS) == {"11point_mAP", "mean-per-class",
+                                     "roc_auc"}
