@@ -78,7 +78,29 @@ Phases, each printed on its own line and each fatal on failure:
    + 12 x text chunks and each metric to its recomputation from the saved
    logits; fp32 VOC logits of 16 images, the card against the CPU (within
    0.1); and the dispatcher ``msclip_torch.tools.eval_zeroshot --device
-   cuda`` as a subprocess.
+   cuda`` as a subprocess;
+14. train data: full-width B/32 bf16 training at batch 256 through
+   ``msclip_torch.tools.train.train`` on 4 WebDataset tar shards of 256
+   JPEG + caption pairs (``DATASET.SAMPLER chunk``, one epoch of 4 steps)
+   and one step on a 256-row TSV, fixtures it writes; K1 and K2 held to
+   23 launches a step; samples/s end to end, peak memory and the host's
+   share of a step (against phase 6's resident step);
+15. GradCache and REMAT: the fp32 ``ACCUM_STEPS 4`` gradients of every
+   tensor against the one-shot step's on the card (frozen BN, TF32 off,
+   batch 32) beside the fp32 noise floor; then bf16 at batch 1024 with
+   ``ACCUM_STEPS 4`` and ``TPU.REMAT`` at batch 256, 3 steps each: peak
+   memory, ms a step and samples/s beside phase 6's; K1 held to 46a and
+   K2 to 23a launches a step under ``ACCUM_STEPS a``, 46 and 23 under
+   REMAT;
+16. resume: the train CLI as a subprocess at full width in bf16 (batch
+   32, 2 epochs of 8 steps, ``SAVE_EVERY_STEPS 3``, EMA, SWA), SIGKILLed
+   once its step-6 checkpoint exists and rerun: it resumes at step 6,
+   fast-forwards and finishes at step 16, its losses within 4x of the gap
+   between two uninterrupted runs; the EMA and SWA shadows through
+   ``checkpoint_load`` into ``run_zero_shot``, the EMA one exported by
+   ``export_torch_checkpoint --ckpt`` and read back to the same features
+   bit for bit, and ``msclip_torch.tools.finetune`` on phase 13's CIFAR-10
+   fixture, K1 counted in each.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16
@@ -1490,7 +1512,8 @@ def train_config(*opts):
 def run_train_slice(steps=6, batch=256, timed_steps=5):
     """Full-width B/32 bf16 training through the port's entry point, with
     both kernels' launches counted over the run; then the step time on a
-    batch already on the card (CUDA events, after 2 warm-up steps)."""
+    batch already on the card (CUDA events, after 2 warm-up steps).
+    Returns the launches and the resident step's ms and peak memory."""
     from msclip_torch.models.msclip import build_spec, init_params
     from msclip_torch.tools.train import train
     from msclip_torch.train.trainer import MAX_LOGIT_SCALE, make_train_step
@@ -1549,10 +1572,10 @@ def run_train_slice(steps=6, batch=256, timed_steps=5):
     stop.record()
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(stop) / timed_steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log("train_step", batch=batch, dtype="bfloat16", step_ms=step_ms,
-        samples_per_s_resident=batch / step_ms * 1e3,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return launches
+        samples_per_s_resident=batch / step_ms * 1e3, peak_mem_gb=peak)
+    return launches, {"step_ms": step_ms, "peak_mem_gb": peak}
 
 
 def train_card_against_cpu(batch=4, loss_tol=1e-4, grad_rel=1e-4,
@@ -2287,6 +2310,407 @@ def run_transfer(tmp, device="cuda"):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: training on real data, GradCache and REMAT, resume
+# ---------------------------------------------------------------------------
+
+SHARDS, PER_SHARD, TSV_ROWS = 4, 256, 256
+SHARD_RUNS = 3
+B32_BLOCKS = 23  # 11 trunk + 12 text blocks: K1 (and K2) a block a pass
+
+
+def write_pair_fixtures(root, seed=0):
+    """Phase 14's pairs, written from ``seed`` by
+    ``tests/torch_pair_fixtures.py``: ``SHARDS`` WebDataset tar shards of
+    ``PER_SHARD`` JPEG + caption members and a ``TSV_ROWS``-row TSV over
+    JPEG files, images of 96-320 px a side in colour blocks of 16 px."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_pair_fixtures", os.path.join(REPO, "tests",
+                                            "torch_pair_fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    size = {"min_px": 96, "max_px": 320, "block": 16}
+    shards = fixtures.write_shards(os.path.join(root, "shards"), SHARDS,
+                                   PER_SHARD, seed, **size)
+    tsv = fixtures.write_tsv(os.path.join(root, "tsv"), TSV_ROWS, seed + 1,
+                             **size)
+    return shards, tsv
+
+
+def attention_launches():
+    return A.fused_attention_qkv.launches, A.fused_attention_qkv_bwd.launches
+
+
+def launches_held(run, got, k1, k2):
+    if tuple(got) != (k1, k2):
+        raise AssertionError(f"{run}: K1, K2 launched {tuple(got)} times, "
+                             f"expected ({k1}, {k2})")
+    return got
+
+
+def run_train_data(tmp, resident, batch=256):
+    """Phase 14: full-width B/32 bf16 training at batch 256 through
+    ``tools.train.train`` on real formats: one epoch of ``SHARDS`` tar
+    shards with the ``chunk`` sampler (4 steps), ``SHARD_RUNS`` times to
+    show the host's spread within a call, then one step on the TSV.
+    Each run's K1 and K2 held to 23 launches a step; end-to-end samples/s,
+    peak memory, and the host's share of a step, 1 - (phase 6's resident
+    step ms) / (this run's ms a step): over the whole window (the first
+    step holds the loader's fill) and at steady state (the steps after the
+    first, each timed from the previous step's end on the device's clock)."""
+    from msclip_torch.tools.train import train
+
+    t0 = time.time()
+    shards, tsv = write_pair_fixtures(tmp)
+    log("train_data_fixtures", seconds=round(time.time() - t0, 1),
+        shards=len(shards), pairs_per_shard=PER_SHARD, tsv_rows=TSV_ROWS)
+    total = [0, 0]
+    shard_opts = ["DATASET.TRAIN_SHARD_LIST", json.dumps(shards),
+                  "DATASET.SAMPLER", "chunk"]
+    for run, (name, opts) in enumerate(
+            [("shards", shard_opts)] * SHARD_RUNS
+            + [("tsv", ["DATASET.TRAIN_TSV_LIST", json.dumps([tsv])])]):
+        cfg = train_config("TRAIN.BATCH_SIZE_PER_GPU", batch,
+                           "TPU.COMPUTE_DTYPE", "bfloat16",
+                           "TRAIN.END_EPOCH", 1, "TPU.SEED", 0, *opts)
+        reset_launches()
+        A.fused_attention_qkv_bwd.launches = 0
+        _, stats = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        steps = stats["steps"]
+        got = launches_held(name, attention_launches(), B32_BLOCKS * steps,
+                            B32_BLOCKS * steps)
+        step_ms = stats["seconds"] / max(steps, 1) * 1e3
+        steady = stats["step_ms"][1:]
+        steady_ms = sum(steady) / len(steady) if steady else None
+        log("train_data", source=name, run=run, batch=batch, steps=steps,
+            losses=json.dumps(stats["losses"]),
+            samples_per_s=stats["samples_per_s"], step_ms=step_ms,
+            resident_step_ms=resident["step_ms"],
+            host_share=1.0 - resident["step_ms"] / step_ms,
+            each_step_ms=json.dumps(stats["step_ms"]),
+            fill_step_ms=stats["step_ms"][0], steady_step_ms=steady_ms,
+            steady_samples_per_s=steady_ms and batch / steady_ms * 1e3,
+            steady_host_share=steady_ms and 1.0 - resident["step_ms"]
+            / steady_ms,
+            peak_mem_gb=stats["peak_mem_gb"], k1_launches=got[0],
+            k2_launches=got[1])
+        want = len(shards) * PER_SHARD // batch if name == "shards" \
+            else TSV_ROWS // batch
+        if steps != want or not all(map(math.isfinite, stats["losses"])):
+            raise AssertionError(f"{name}: {steps} steps (expected {want}), "
+                                 f"losses {stats['losses']}")
+        total = [total[0] + got[0], total[1] + got[1]]
+    return total
+
+
+def gradcache_card_check(batch=32, accum=4, grad_rel=1e-4, noise_room=4.0):
+    """Phase 15 (i): full-width fp32 B/32 (TF32 off), frozen BN, no drop
+    path, ``batch`` synthetic pairs: every gradient of ``ACCUM_STEPS
+    accum`` (GradCache) against the one-shot step's, both on the card,
+    each read relative to its own largest value beside the fp32 noise
+    floor (the one-shot step with the images nudged by +-2^-22, as phase
+    7). Returns the K1, K2 launches of the GradCache run (the nudged and
+    one-shot runs are its yardsticks)."""
+    from msclip_torch.data.pairs import make_train_dataset
+    from msclip_torch.models.msclip import (MSClipModel, build_spec,
+                                            init_params)
+    from msclip_torch.train.trainer import (gradcache_backward,
+                                            make_encode_fn, make_loss_fn)
+
+    cfg = train_config("TPU.COMPUTE_DTYPE", "float32",
+                       "DATASET.NUM_SAMPLES", batch)
+    spec = build_spec(cfg)
+    ds = make_train_dataset(cfg)
+    images, tokens = (torch.from_numpy(np.stack(x)).cuda()
+                      for x in zip(*(ds[i] for i in range(batch))))
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    loss_fn = make_loss_fn(spec, freeze_bn=True)
+    encode = make_encode_fn(spec, freeze_bn=True)
+    grads, losses, launches = {}, {}, {}
+    for run, nudge in (("accum", 0.0), ("one_shot", 0.0),
+                       ("up", 2.0 ** -22), ("down", -2.0 ** -22)):
+        model = MSClipModel(spec, {k: v.clone() for k, v in params.items()},
+                            trainable=True).cuda()
+        reset_launches()
+        A.fused_attention_qkv_bwd.launches = 0
+        x = images * (1 + nudge)
+        if run == "accum":
+            loss, _ = gradcache_backward(encode, model.params(), x, tokens,
+                                         accum)
+        else:
+            loss, _ = loss_fn(model.params(), x, tokens)
+            loss.backward()
+        torch.cuda.synchronize()
+        launches[run] = attention_launches()
+        losses[run] = loss.item()
+        grads[run] = {k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None}
+        del model
+    launches_held("gradcache fp32", launches["accum"],
+                  2 * B32_BLOCKS * accum, B32_BLOCKS * accum)
+    launches_held("one-shot fp32", launches["one_shot"], B32_BLOCKS,
+                  B32_BLOCKS)
+    ref = grads["one_shot"]
+    if any(set(g) != set(ref) for g in grads.values()) or len(ref) < 300:
+        raise AssertionError("gradients of " + ", ".join(
+            f"{len(g)} tensors ({run})" for run, g in grads.items()))
+    rel = {run: {k: (g[k] - ref[k]).abs().max().item()
+                 / max(ref[k].abs().max().item(), 1e-12) for k in ref}
+           for run, g in grads.items() if run != "one_shot"}
+    readings = {k: (rel["accum"][k], max(rel["up"][k], rel["down"][k]))
+                for k in ref}
+    limit = {k: max(grad_rel, noise_room * n) for k, (_, n) in readings.items()}
+    worst = max(readings, key=lambda k: readings[k][0] / limit[k])
+    log("gradcache_card_vs_one_shot", dtype="float32", batch=batch,
+        accum_steps=accum, loss_one_shot=losses["one_shot"],
+        loss_accum=losses["accum"],
+        loss_err=abs(losses["accum"] - losses["one_shot"]),
+        grad_tensors=len(ref),
+        worst_accum_rel_err=max(c for c, _ in readings.values()),
+        worst_noise_rel_err=max(n for _, n in readings.values()),
+        worst_of_limit=readings[worst][0] / limit[worst], worst_tensor=worst,
+        grad_rel_tol=grad_rel, noise_room=noise_room,
+        k1_launches=launches["accum"][0], k2_launches=launches["accum"][1])
+    if not (abs(losses["accum"] - losses["one_shot"]) <= 1e-5
+            and readings[worst][0] <= limit[worst]):
+        raise AssertionError(f"GradCache and the one-shot step differ: loss "
+                             f"{losses['accum']} vs {losses['one_shot']}, "
+                             f"{worst} {readings[worst]} (accum, noise)")
+    return list(launches["accum"])
+
+
+def timed_train_steps(cfg, spec, state, batch, steps=3):
+    """``steps`` steps of the config's step on one resident batch: peak
+    memory over all, ms a step over all but the first (CUDA events), and
+    the K1, K2 launches of all."""
+    from msclip_torch.train.trainer import make_train_step_from_config
+
+    step_fn = make_train_step_from_config(cfg, spec)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randn(batch, 224, 224, 3, device="cuda", generator=gen)
+    tokens = torch.randint(1, 49406, (batch, 77), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    tokens[:, 0], tokens[:, 20] = 49406, 49407
+    tokens[:, 21:] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    A.fused_attention_qkv_bwd.launches = 0
+    losses = [step_fn(state, images, tokens)["loss"]]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps - 1):
+        losses.append(step_fn(state, images, tokens)["loss"])
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / (steps - 1)
+    return {"step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "losses": [float(x) for x in losses],
+            "launches": attention_launches()}
+
+
+def run_gradcache(resident):
+    """Phase 15: (i) :func:`gradcache_card_check`; (ii) bf16 at batch 1024
+    with ``ACCUM_STEPS 4``, 3 steps: peak memory (under the card's 80 GB),
+    ms a step and samples/s; (iii) ``TPU.REMAT`` at batch 256 in bf16: the
+    same beside phase 6's resident step. Launches held to 46a K1 and 23a
+    K2 a step under ``ACCUM_STEPS a``, 46 and 23 under REMAT."""
+    import dataclasses
+
+    from msclip_torch.models.msclip import build_spec, init_params
+    from msclip_torch.train.trainer import init_train_state
+
+    total = gradcache_card_check()
+    cfg = train_config("TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEED", 0)
+    spec = build_spec(cfg)
+    state = init_train_state(cfg, spec, init_params(
+        spec, torch.Generator().manual_seed(0)), 4, "cuda")
+    for name, batch, opts, k1, k2 in (
+            ("accum", 1024, ("TPU.ACCUM_STEPS", 4), 2 * B32_BLOCKS * 4,
+             B32_BLOCKS * 4),
+            ("remat", 256, ("TPU.REMAT", True), 2 * B32_BLOCKS,
+             B32_BLOCKS)):
+        run_cfg = train_config("TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEED",
+                               0, *opts)
+        run_spec = dataclasses.replace(spec, remat=name == "remat")
+        out = timed_train_steps(run_cfg, run_spec, state, batch)
+        launches_held(name, out["launches"], 3 * k1, 3 * k2)
+        log("train_" + name, batch=batch, dtype="bfloat16",
+            opts=json.dumps(list(opts)), step_ms=out["step_ms"],
+            samples_per_s=out["samples_per_s"],
+            peak_mem_gb=out["peak_mem_gb"],
+            one_shot_step_ms=resident["step_ms"],
+            one_shot_samples_per_s=256 / resident["step_ms"] * 1e3,
+            one_shot_peak_mem_gb=resident["peak_mem_gb"],
+            losses=json.dumps(out["losses"]), k1_launches=out["launches"][0],
+            k2_launches=out["launches"][1])
+        if not (out["peak_mem_gb"] < 80 and all(
+                map(math.isfinite, out["losses"]))):
+            raise AssertionError(f"{name}: {out}")
+        total = [total[0] + out["launches"][0],
+                 total[1] + out["launches"][1]]
+    del state
+    torch.cuda.empty_cache()
+    return total
+
+
+RESUME_OPTS = ("TRAIN.BATCH_SIZE_PER_GPU", 32, "DATASET.NUM_SAMPLES", 256,
+               "TRAIN.END_EPOCH", 2, "TRAIN.SAVE_EVERY_STEPS", 3,
+               "TRAIN.EMA_DECAY", 0.999, "SWA.ENABLED", True,
+               "SWA.BEGIN_EPOCH", 1, "TPU.COMPUTE_DTYPE", "bfloat16",
+               "TPU.SEED", 0, "PRINT_FREQ", 1)
+RESUME_STEPS, RESUME_AT = 16, 6
+
+
+def run_resume(tmp, transfer_roots):
+    """Phase 16: the train CLI at full width in bf16 (batch 32, synthetic,
+    8 steps an epoch, 2 epochs, ``SAVE_EVERY_STEPS 3``, EMA 0.999, SWA
+    from epoch 1) as a subprocess, SIGKILLed once its step-6 checkpoint
+    exists and rerun: it must resume at step 6, fast-forward 6 batches,
+    finish at step 16, and its losses from step 7 on lie within 4x of the
+    largest gap between two uninterrupted runs (in this process,
+    ``tools.train.train``; K1, K2 held). Then the EMA and SWA shadows
+    through ``checkpoint_load`` into ``run_zero_shot`` (K1 held as in
+    phase 4), one exported by ``export_torch_checkpoint --ckpt`` and read
+    back to the same features bit for bit, and ``tools.finetune --device
+    cuda`` on phase 13's CIFAR-10 fixture with K1 counted."""
+    from msclip_torch.eval.zero_shot import load_eval_model, run_zero_shot
+    from msclip_torch.models.msclip import build_spec
+    from msclip_torch.tools import finetune
+    from msclip_torch.tools.train import train
+    from msclip_torch.train.checkpoint import EXTRA_FILE, CheckpointManager
+
+    cfg = train_config(*RESUME_OPTS)
+    total = [0, 0]
+    full = []
+    for _ in range(2):
+        reset_launches()
+        A.fused_attention_qkv_bwd.launches = 0
+        _, stats = train(cfg, device="cuda")
+        torch.cuda.synchronize()
+        # the SWA BN refresh runs the image tower over one epoch
+        got = launches_held("uninterrupted", attention_launches(),
+                            B32_BLOCKS * RESUME_STEPS + 11 * 8,
+                            B32_BLOCKS * RESUME_STEPS)
+        total = [total[0] + got[0], total[1] + got[1]]
+        full.append(stats["losses"])
+    out_dir = os.path.join(tmp, "resume")
+    cmd = [sys.executable, "-u", "-m", "msclip_torch.tools.train", "--cfg",
+           B32_CONFIG, "--device", "cuda", "OUTPUT_DIR", out_dir,
+           "DATASET.DATASET", "synthetic", *map(str, RESUME_OPTS)]
+    t0 = time.time()
+    first = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL)
+    ck = os.path.join(out_dir, "synthetic", "b32-yfcc-msclips", "checkpoints")
+    marker = os.path.join(ck, str(RESUME_AT), EXTRA_FILE)
+    try:
+        while not os.path.exists(marker):
+            if first.poll() is not None or time.time() - t0 > 600:
+                raise AssertionError(f"the first run ended ({first.poll()}) "
+                                     f"before its step-{RESUME_AT} save")
+            time.sleep(0.05)
+    finally:
+        first.kill()
+        first.wait()
+    killed_at = CheckpointManager(ck).latest_step()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=900)
+    seconds = time.time() - t0
+    result = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]
+    if r.returncode != 0 or not result:
+        raise AssertionError(f"resumed run: rc {r.returncode}\n"
+                             f"{r.stderr[-3000:]}")
+    fields = dict(kv.split("=", 1) for kv in result[0].split()[1:])
+    losses = json.loads(fields["losses"])
+    resumed = re.search(r"auto-resumed from step (\d+)", r.stderr)
+    skipped = re.search(r"skipping (\d+) already-seen batches", r.stderr)
+    mgr = CheckpointManager(ck)
+    gap = max(abs(a - b) for a, b in zip(full[0][RESUME_AT:],
+                                         full[1][RESUME_AT:]))
+    err = max(abs(a - b) for a, b in zip(losses, full[0][RESUME_AT:]))
+    log("resume", killed_at=killed_at, resumed_at=resumed and int(
+        resumed.group(1)), skipped=skipped and int(skipped.group(1)),
+        first_step=int(fields["first_step"]), steps=len(losses),
+        final_step=mgr.latest_step(),
+        final_epoch=mgr.restore()["extra"]["epoch"],
+        loss_err=err, uninterrupted_gap=gap, limit=4 * gap,
+        losses=json.dumps(losses), uninterrupted=json.dumps(full),
+        seconds=round(seconds, 1))
+    if not (killed_at == RESUME_AT and resumed
+            and int(resumed.group(1)) == RESUME_AT and skipped
+            and int(skipped.group(1)) == RESUME_AT
+            and int(fields["first_step"]) == RESUME_AT
+            and len(losses) == RESUME_STEPS - RESUME_AT
+            and mgr.latest_step() == RESUME_STEPS and err <= 4 * gap):
+        raise AssertionError("resume: see the [resume] line")
+
+    feats = {}
+    for shadow in ("ema", "swa"):
+        zcfg = b32_zero_shot_config()
+        zcfg.MODEL.PRETRAINED_MODEL = os.path.join(ck, shadow)
+        zcfg.DATASET.NUM_SAMPLES = 256
+        reset_launches()
+        value, stats = run_zero_shot(zcfg, device="cuda")
+        torch.cuda.synchronize()
+        launches = k1_launches_held(
+            shadow, A.fused_attention_qkv.launches,
+            stats["n_image_batches"], stats["n_text_chunks"])
+        total[0] += launches
+        log("resume_zero_shot", shadow=shadow, top1=value,
+            n_images=stats["n_images"], images_per_s=stats["images_per_sec"],
+            k1_launches=launches)
+        if stats["n_images"] != 256 or not 0.0 <= value <= 100.0:
+            raise AssertionError(f"{shadow} zero-shot: {value}, {stats}")
+    exported = os.path.join(tmp, "ema.pth")
+    r = subprocess.run(
+        [sys.executable, "-m", "msclip_torch.tools.export_torch_checkpoint",
+         "--model", B32_CONFIG, "--ckpt", os.path.join(ck, "ema"),
+         "--out", exported, "--device", "cuda"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"export: rc {r.returncode}\n{r.stderr[-3000:]}")
+    # a check of the export, not a main-path run: its launches go uncounted
+    images = torch.randn(64, 224, 224, 3, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+    zcfg = b32_zero_shot_config()
+    spec = build_spec(zcfg)
+    for path in (os.path.join(ck, "ema"), exported):
+        zcfg.MODEL.PRETRAINED_MODEL = path
+        with torch.no_grad():
+            feats[path] = load_eval_model(zcfg, spec, "cuda").encode_image(
+                images)
+    torch.cuda.synchronize()
+    same = torch.equal(*feats.values())
+    log("resume_export", tensors=r.stdout.strip(), same_features=same)
+    if not same:
+        raise AssertionError("features of the exported EMA shadow differ")
+
+    reset_launches()
+    t0 = time.time()
+    top1 = finetune.main([
+        "--ds", os.path.join(DATASET_DIR, "cifar-10.yaml"), "--model",
+        B32_CONFIG, "--device", "cuda", "DATASET.ROOT",
+        transfer_roots["cifar"], "FINETUNE.BATCH_SIZE", "64",
+        "TRAIN.END_EPOCH", "2", "TEST.BATCH_SIZE_PER_GPU", str(TRANSFER_N),
+        "TPU.COMPUTE_DTYPE", "bfloat16", "MODEL.PRETRAINED_MODEL", exported,
+        "OUTPUT_DIR", os.path.join(tmp, "finetune")])
+    torch.cuda.synchronize()
+    # 2 epochs of 256 / 64 batches, then one eval batch: 11 K1 a batch
+    launches = k1_launches_held("finetune", A.fused_attention_qkv.launches,
+                                2 * TRANSFER_N // 64 + 1, 0)
+    total[0] += launches
+    log("resume_finetune", dataset="cifar-10", top1=top1,
+        seconds=round(time.time() - t0, 1), k1_launches=launches)
+    if not 0.0 <= top1 <= 100.0:
+        raise AssertionError(f"finetune top-1 {top1}")
+    return total
+
 def headline(rows, **match):
     return next(r for r in rows if "ms" in r
                 and all(r[k] == v for k, v in match.items()))
@@ -2340,7 +2764,7 @@ def main():
     half_rows = timed("k5_k6", check_halfblocks, traced)
     launches = timed("slice", run_slice)
     timed("card_vs_cpu", card_against_cpu)
-    train_launches = timed("train", run_train_slice)
+    train_launches, resident = timed("train", run_train_slice)
     timed("train_card_vs_cpu", train_card_against_cpu)
     int8_launches = timed("int8", run_int8_slice)
     timed("int8_card_vs_cpu", int8_card_against_cpu)
@@ -2350,6 +2774,10 @@ def main():
     tuning_launches, sweep = timed("sweep", run_tuning_sweep)
     with tempfile.TemporaryDirectory() as tmp:
         transfer_launches = timed("transfer", run_transfer, tmp)
+        roots = {"cifar": os.path.join(tmp, "cifar")}
+        data_launches = timed("train_data", run_train_data, tmp, resident)
+        gc_launches = timed("gradcache", run_gradcache, resident)
+        resume_launches = timed("resume", run_resume, tmp, roots)
     timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
@@ -2359,11 +2787,13 @@ def main():
     core_out = tuning_rows["core_out_halfblock"]
     print(json.dumps({"kernels": [
         kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0]
-                    + transfer_launches,
+                    + transfer_launches + data_launches[0] + gc_launches[0]
+                    + resume_launches[0],
                     "attention_fwd", "msclip_tpu/ops/attention.py:243",
                     headline(attn_rows, B=256, L=50, dtype="bfloat16"),
                     "B=256 L=50 E=768 H=12 bfloat16"),
-        kernel_line(bwd_rows, train_launches[1], "attention_bwd",
+        kernel_line(bwd_rows, train_launches[1] + data_launches[1]
+                    + gc_launches[1] + resume_launches[1], "attention_bwd",
                     "msclip_tpu/ops/attention.py:146",
                     headline(bwd_rows, B=256, L=50, dtype="bfloat16"),
                     "B=256 L=50 E=768 H=12 bfloat16"),

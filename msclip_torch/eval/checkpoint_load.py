@@ -5,9 +5,14 @@
 1. ``*.pth`` / ``*.pt``: a reference torch checkpoint (a bare
    ``state_dict`` like the released files, or a training dict with a
    ``state_dict`` key), loaded through the key map of ``utils/convert.py``;
-2. empty or missing: random parameters from ``TPU.SEED`` (CI, benchmarks).
+2. a directory: a checkpoint of the port's train driver, a step
+   (``checkpoints/<step>``) or an EMA/SWA shadow (``checkpoints/ema``,
+   ``checkpoints/swa``), as the JAX package restores its own
+   (``train/checkpoint.py``);
+3. empty or missing: random parameters from ``TPU.SEED`` (CI, benchmarks).
 
-Native ``msclip_tpu`` checkpoints (msgpack / Orbax) are not read here.
+A JAX-trained checkpoint comes in as a ``.pth`` exported by the JAX
+package (Orbax needs JAX).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import os
 import torch
 
 from ..models.msclip import MSClipSpec, init_params
+from ..train.checkpoint import restore_params
 from ..utils.convert import load_state_dict
 
 
@@ -27,12 +33,19 @@ def load_model_params(config, spec: MSClipSpec):
     template = init_params(spec, torch.Generator().manual_seed(seed))
     path = config.MODEL.get("PRETRAINED_MODEL", "")
     if path and os.path.exists(path):
-        if not path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{path}: only reference torch checkpoints (.pth/.pt) load "
-                "into msclip_torch; native msclip_tpu checkpoints come with "
-                "the train step (ROADMAP M6)")
         logging.info(f"=> load model file: {path}")
+        if os.path.isdir(path):
+            params = restore_params(path)
+            bad = sorted(k for k in set(template) | set(params)
+                         if k not in template or k not in params
+                         or template[k].shape != params[k].shape)
+            if bad:
+                raise ValueError(f"{path}: {len(bad)} tensors do not fit "
+                                 f"the configured model, e.g. {bad[:5]}")
+            return {k: v.float() for k, v in params.items()}
+        if not path.endswith((".pth", ".pt")):
+            raise ValueError(f"{path}: a checkpoint is a .pth/.pt file or "
+                             "a directory of the port's train driver")
         # tensors only: a released or exported checkpoint holds nothing else
         obj = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):

@@ -233,36 +233,41 @@ def int8_block(p, x, n_head, mask=None, eps=1e-12):
                            x.dtype)
 
 
-def drop_path(x, rate, generator):
-    """Stochastic depth on a residual branch (timm ``DropPath``): one keep
-    draw per sample from ``generator``, the kept samples scaled by
-    ``1 / (1 - rate)``."""
-    keep = 1.0 - rate
+def drop_path_keep(x, rate, generator):
+    """The per-sample keep mask of :func:`drop_path` for ``x``: one
+    uniform draw per sample from ``generator``, kept below ``1 - rate``."""
     draw = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
                       generator=generator)
-    return x * (draw < keep).to(x.dtype) / keep
+    return draw < 1.0 - rate
+
+
+def drop_path(x, rate, keep):
+    """Stochastic depth on a residual branch (timm ``DropPath``): the
+    samples ``keep`` (:func:`drop_path_keep`) leaves out are dropped, the
+    kept ones scaled by ``1 / (1 - rate)``."""
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
-                      generator=None):
+                      keep=None):
     """Pre-LN residual attention block (reference ``:1027-1028``), with
-    stochastic depth on both branches in training, when a rate and a
-    ``torch.Generator`` are given. A quantized block without drop-path at
-    ``L >= int8_min_seq()`` runs :func:`int8_block`."""
-    dropping = drop_path_rate > 0.0 and generator is not None
+    stochastic depth on both branches in training when a rate and the
+    branches' two keep masks ``keep`` (:func:`drop_path_keep`, drawn by the
+    caller, so that a rematerialised block's recomputation drops the same
+    samples) are given. A quantized block without drop-path at ``L >=
+    int8_min_seq()`` runs :func:`int8_block`."""
+    dropping = drop_path_rate > 0.0 and keep is not None
     if "attn.in_proj_weight_int8" in p and not dropping \
             and x.shape[1] >= int8_min_seq():
         return int8_block(p, x, n_head, mask, eps)
-    if dropping:
-        def dp(t):
-            return drop_path(t, drop_path_rate, generator)
-    else:
-        def dp(t):
-            return t
+
+    def dp(t, i):
+        return drop_path(t, drop_path_rate, keep[i]) if dropping else t
+
     x = x + dp(attention(p, layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
-                                       eps), n_head, mask))
+                                       eps), n_head, mask), 0)
     return x + dp(mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"],
-                                    eps)))
+                                    eps)), 1)
 
 
 def conv2d(x, weight, stride=1, padding=0, groups=1):
@@ -279,11 +284,12 @@ def add_channel_bias(x, bias):
 BN_MOMENTUM = 0.1  # torch's default, the reference's BatchNorm2d
 
 
-def batch_norm(x, params, prefix, eps=1e-5, training=False):
+def batch_norm(x, params, prefix, eps=1e-5, training=False,
+               momentum=BN_MOMENTUM):
     """BatchNorm over NCHW. Eval: running stats folded into an fp32
     scale/offset; returns ``y``. Training: batch statistics over N, H, W;
     returns ``(y, (new_running_mean, new_running_var))``, the new stats
-    detached."""
+    (blended at ``momentum``) detached."""
     if training:
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
@@ -295,10 +301,10 @@ def batch_norm(x, params, prefix, eps=1e-5, training=False):
         n = x.numel() // x.shape[1]
         unbiased = var.detach() * (n / max(n - 1, 1))
         new_stats = (
-            (1 - BN_MOMENTUM) * params[f"{prefix}.running_mean"]
-            + BN_MOMENTUM * mean.detach(),
-            (1 - BN_MOMENTUM) * params[f"{prefix}.running_var"]
-            + BN_MOMENTUM * unbiased)
+            (1 - momentum) * params[f"{prefix}.running_mean"]
+            + momentum * mean.detach(),
+            (1 - momentum) * params[f"{prefix}.running_var"]
+            + momentum * unbiased)
         return y.to(x.dtype), new_stats
     scale = params[f"{prefix}.weight"].float() * torch.rsqrt(
         params[f"{prefix}.running_var"].float() + eps)

@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..ops.block_fused import fused_block
 from . import layers as L
@@ -89,6 +90,7 @@ class MSClipSpec:
     compute_dtype: str = "float32"
     vision_drop_path: float = 0.0  # MODEL.SPEC.VISION.DROP_PATH
     use_fused_block: bool = False  # TPU.USE_FUSED_BLOCK: eval through K5
+    remat: bool = False  # TPU.REMAT: blocks recomputed in the backward
 
     @property
     def dtype(self) -> torch.dtype:
@@ -237,20 +239,12 @@ def _reject_unported(config, custom: _KeyRecorder) -> None:
             "(the bf16 half-block megakernel reads full-precision "
             "weights; msclip_tpu/models/quantize.py:71-75)")
     # training features outside the one-card train step
-    if int(config.TPU.get("ACCUM_STEPS", 1)) > 1:
-        _not_ported("GradCache accumulation (TPU.ACCUM_STEPS > 1)", "M6")
     for key, what in (("SHARDED_LOSS", "the sharded InfoNCE loss"),
                       ("RING_LOSS", "the ring InfoNCE loss"),
                       ("ZERO1", "ZeRO-1 optimizer sharding"),
                       ("FSDP", "FSDP parameter sharding")):
         if config.TPU.get(key, False):
             _not_ported(f"{what} (TPU.{key})", "M7")
-    if config.TPU.get("REMAT", False):
-        _not_ported("rematerialised blocks (TPU.REMAT)", "M6")
-    if config.TRAIN.get("LARC", False):
-        _not_ported("LARC (TRAIN.LARC)", "M6")
-    if config.SWA.get("ENABLED", False):
-        _not_ported("SWA (SWA.ENABLED)", "M6")
 
 
 def spec_from_config(config) -> MSClipSpec:
@@ -304,6 +298,7 @@ def spec_from_config(config) -> MSClipSpec:
         compute_dtype=dtype,
         vision_drop_path=vision.get("DROP_PATH", 0.0),
         use_fused_block=bool(config.TPU.get("USE_FUSED_BLOCK", False)),
+        remat=bool(config.TPU.get("REMAT", False)),
     )
     unread = (set(config.CUSTOM.keys()) - custom.seen
               - _CUSTOM_KEYS_CONSUMED_ELSEWHERE - _EXT_KNOBS)
@@ -412,12 +407,26 @@ def cast_params(params, dtype=torch.bfloat16):
 
 def _block_fn(spec: MSClipSpec, dropping: bool = False):
     """The trunk/text block (``_block_fn``): the fused block with
-    ``use_fused_block`` and no drop-path, else ``layers.transformer_block``."""
+    ``use_fused_block`` and no drop-path, else ``layers.transformer_block``,
+    under ``torch.utils.checkpoint`` with ``spec.remat`` (its activations
+    recomputed in the backward; any drop-path masks come in as ``keep``,
+    so the recomputation draws nothing)."""
     if spec.use_fused_block and not dropping:
         return lambda p, x, n_head, mask, **kw: fused_block(
             x, p, n_head, mask, spec.ln_eps)
-    return lambda p, x, n_head, mask, **kw: L.transformer_block(
-        p, x, n_head, mask, spec.ln_eps, **kw)
+
+    def block(p, x, n_head, mask, **kw):
+        return L.transformer_block(p, x, n_head, mask, spec.ln_eps, **kw)
+
+    if not spec.remat:
+        return block
+
+    def remat_block(p, x, n_head, mask, **kw):
+        return torch.utils.checkpoint.checkpoint(
+            block, p, x, n_head, mask, use_reentrant=False,
+            preserve_rng_state=False, **kw)
+
+    return remat_block
 
 
 def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
@@ -444,8 +453,8 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
     tokens = L.layer_norm(tokens, params["visual.ln_pre.weight"],
                           params["visual.ln_pre.bias"], spec.ln_eps)
 
-    block = _block_fn(spec, spec.vision_drop_path > 0.0
-                      and generator is not None)
+    dropping = spec.vision_drop_path > 0.0 and generator is not None
+    block = _block_fn(spec, dropping)
     parallel_x = None
     for idx in range(spec.first_block, spec.effective_vision_layers):
         if spec.parallel and idx in spec.lateral_layers:
@@ -460,10 +469,14 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
                 parallel_x, tokens, (g, g),
                 spec.t2b_strides[li], spec.t2b_paddings[li],
                 use_cls=spec.t2b_use_cls, eps=spec.ln_eps, bn=bn)
+        keep = None
+        if dropping:  # drawn here, in block order, for both branches
+            keep = tuple(L.drop_path_keep(tokens, spec.vision_drop_path,
+                                          generator) for _ in range(2))
         tokens = block(
             L.block_params(params, f"visual.transformer.resblocks.{idx}"),
             tokens, spec.vision_heads, None,
-            drop_path_rate=spec.vision_drop_path, generator=generator)
+            drop_path_rate=spec.vision_drop_path, keep=keep)
 
     pooled = _pool(tokens, spec)
     pooled = L.layer_norm(pooled, params["visual.ln_post.weight"],

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import (
+    BN_MOMENTUM,
     add_channel_bias,
     batch_norm,
     conv2d,
@@ -44,17 +45,20 @@ class BNState:
     """BatchNorm context (``msclip_tpu/models/stem.py:40-66``).
 
     ``training=False``: the running statistics are read. ``training=True``:
-    batch statistics are used and the new running statistics are recorded
-    in ``updates`` as ``{prefix: (running_mean, running_var)}``."""
+    batch statistics are used and the new running statistics, blended at
+    ``momentum`` (the SWA BN refresh sweeps it), are recorded in
+    ``updates`` as ``{prefix: (running_mean, running_var)}``."""
 
     training: bool = False
     updates: dict = field(default_factory=dict)
+    momentum: float = BN_MOMENTUM
 
     def __call__(self, x, params, prefix, eps=1e-5):
         if not self.training:
             return batch_norm(x, params, prefix, eps)
         y, self.updates[prefix] = batch_norm(x, params, prefix, eps,
-                                             training=True)
+                                             training=True,
+                                             momentum=self.momentum)
         return y
 
 

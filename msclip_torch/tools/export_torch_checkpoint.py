@@ -6,10 +6,10 @@ package's ``tools/export_torch_checkpoint.py``).
         [--device cuda|cpu] [KEY VALUE ...]
 
 Reads what the port's eval loads (``MODEL.PRETRAINED_MODEL`` or ``--ckpt``:
-a reference ``.pth``; none: random weights from ``TPU.SEED``) and writes
+a reference ``.pth``, or a directory of the port's train driver, a step
+or an EMA/SWA shadow; none: random weights from ``TPU.SEED``) and writes
 the reference ``state_dict``, aliased shared keys under both names, so it
-loads into the reference PyTorch code. Native checkpoints come with the
-port's checkpointing (ROADMAP M6.2). The conversion is host work;
+loads into the reference PyTorch code. The conversion is host work;
 ``--device`` keeps the entry points' rule (cuda unless ``--device cpu``).
 """
 
@@ -29,7 +29,9 @@ from ..utils.convert import export_state_dict
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Export torch checkpoint.")
     p.add_argument("--model", required=True)
-    p.add_argument("--ckpt", default="", help="overrides PRETRAINED_MODEL")
+    p.add_argument("--ckpt", default="",
+                   help="overrides PRETRAINED_MODEL (.pth, or a checkpoint "
+                        "directory of msclip_torch.tools.train)")
     p.add_argument("--out", required=True)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")

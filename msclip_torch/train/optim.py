@@ -3,13 +3,16 @@
 AdamW with a no-weight-decay list (``TRAIN.WITHOUT_WD_LIST``), a separate
 LR/WD for the trunk tensors that both towers share (``CUSTOM.LR_SHARE`` /
 ``CUSTOM.WD_SHARE``), the timm warmup-cosine schedule with optax
-``join_schedules`` semantics step for step, and clipping by the global
-gradient norm as optax ``clip_by_global_norm`` does it.
+``join_schedules`` semantics step for step, the SWA anneal
+(``SWA.*``) wrapped around each group's schedule, clipping by the global
+gradient norm as optax ``clip_by_global_norm`` does it, and LARC
+(``TRAIN.LARC``) on AdamW's update, chained as the JAX package chains
+them: clip -> AdamW -> LARC.
 
 Parameters are named by their reference keys. BatchNorm running statistics
-are buffers, never optimized (the JAX package's ``'state'`` label). LARC,
-the SWA anneal and the Gumbel architecture group wait for later slices
-(ROADMAP M6, M10); the model spec rejects their switches.
+are buffers, never optimized (the JAX package's ``'state'`` label). The
+Gumbel architecture group waits for a later slice (ROADMAP M10); the model
+spec rejects its switch.
 """
 
 from __future__ import annotations
@@ -121,6 +124,34 @@ def build_schedule(config, steps_per_epoch: int):
     raise ValueError(f"Unknown LR scheduler: {method}")
 
 
+def swa_anneal_wrap(base_sched, config, steps_per_epoch: int):
+    """``SWA.LR_RATIO`` / ``ANNEAL_EPOCHS`` / ``ANNEAL_STRATEGY`` with
+    torch ``SWALR`` semantics: from ``SWA.BEGIN_EPOCH`` on, anneal from
+    the base schedule's value at that step (frozen there) to ``swa_lr =
+    TRAIN.LR * LR_RATIO`` over ``ANNEAL_EPOCHS`` ('cos' or 'linear'), then
+    hold. Wraps each group's composed schedule, so every group (the shared
+    one too) anneals to the same ``swa_lr``."""
+    if not (config.SWA.ENABLED and config.SWA.BEGIN_EPOCH >= 0):
+        return base_sched
+    begin = config.SWA.BEGIN_EPOCH * steps_per_epoch
+    anneal = max(config.SWA.ANNEAL_EPOCHS * steps_per_epoch, 1)
+    strategy = config.SWA.ANNEAL_STRATEGY
+    if strategy not in ("cos", "linear"):
+        raise ValueError(f"Unknown SWA.ANNEAL_STRATEGY: {strategy}")
+    swa_lr = config.TRAIN.LR * config.SWA.LR_RATIO
+    lr0 = base_sched(begin)
+
+    def sched(step: int) -> float:
+        if step < begin:
+            return base_sched(step)
+        t = min(max((step - begin) / anneal, 0.0), 1.0)
+        alpha = (1.0 - math.cos(math.pi * t)) / 2.0 if strategy == "cos" \
+            else t
+        return (1.0 - alpha) * lr0 + alpha * swa_lr
+
+    return sched
+
+
 def build_optimizer(config, params, spec: MSClipSpec, steps_per_epoch: int):
     """``(torch.optim.AdamW, LambdaLR)`` over the trained tensors of
     ``params`` (``MSClipModel.params()``: reference key -> tensor; the BN
@@ -128,7 +159,8 @@ def build_optimizer(config, params, spec: MSClipSpec, steps_per_epoch: int):
     are BatchNorms, and are not optimized), in four groups: regular and
     shared, each with and without weight decay. The scheduler sets each
     group's LR to its schedule's value at the step about to run (group LRs
-    start at 1 and the lambdas return the LR itself)."""
+    start at 1 and the lambdas return the LR itself; the SWA anneal, when
+    configured, wraps each group's schedule)."""
     without_wd = list(config.TRAIN.WITHOUT_WD_LIST)
     labels = param_labels(params, spec)
     mask = wd_mask(params, without_wd)
@@ -138,8 +170,11 @@ def build_optimizer(config, params, spec: MSClipSpec, steps_per_epoch: int):
     wd_share = config.CUSTOM.get("WD_SHARE", 0.0) or config.TRAIN.WD
     groups, lambdas = [], []
     for label, wd, sched in (
-            ("regular", config.TRAIN.WD, base_sched),
-            ("shared", wd_share, lambda t: base_sched(t) * share_scale)):
+            ("regular", config.TRAIN.WD,
+             swa_anneal_wrap(base_sched, config, steps_per_epoch)),
+            ("shared", wd_share,
+             swa_anneal_wrap(lambda t: base_sched(t) * share_scale, config,
+                             steps_per_epoch))):
         for decay in (True, False):
             members = [params[k] for k in labels
                        if labels[k] == label and mask[k] == decay]
@@ -168,3 +203,27 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
                        max_norm / norm)
     for g in grads:
         g.mul_(coef)
+
+
+@torch.no_grad()
+def larc_step_(optimizer, trust_coefficient: float = 0.02,
+               eps: float = 1e-8) -> None:
+    """``optimizer.step()`` with LARC on its update (``TRAIN.LARC``,
+    optax's ``larc`` chained after AdamW): each tensor's whole update
+    ``u`` (AdamW's step and weight decay) is scaled by ``min(trust ||p|| /
+    (||u|| + eps), 1)``, with ``||p||`` taken before the update and the
+    ratio 1 where ``||p|| = 0``. torch's AdamW updates in place, so ``u``
+    is read back as ``p_after - p_before`` (exact where the two lie
+    within a factor of 2 of each other, as a step's do)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    before = [p.detach().clone() for p in params]
+    optimizer.step()
+    update = torch._foreach_sub([p.detach() for p in params], before)
+    p_norm = torch.stack(torch._foreach_norm(
+        [b.float() for b in before]))
+    u_norm = torch.stack(torch._foreach_norm([u.float() for u in update]))
+    ratio = trust_coefficient * p_norm / (u_norm + eps)
+    ratio = torch.where(p_norm > 0, ratio, torch.ones_like(ratio))
+    ratio = torch.minimum(ratio, torch.ones_like(ratio))
+    for p, b, u, r in zip(params, before, update, ratio.unbind()):
+        p.copy_(b + u * r.to(u.dtype))

@@ -653,3 +653,115 @@ def test_halfblock_tuning_kernels_refuse_bad_inputs(cuda):
                               .transpose(0, 1), p)
     with pytest.raises(TypeError):
         HT.attention_halfblock_variant(x.half(), p, "v1")
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 under the train path's call patterns (GradCache, REMAT)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,causal", [(64, 50, False), (64, 77, True),
+                                        (8, 50, False), (8, 77, True)])
+def test_attention_kernels_under_no_grad_and_checkpoint(cuda, dtype, B, L,
+                                                        causal):
+    """At GradCache's microbatch shapes (256 / 4 and 32 / 4): under
+    ``torch.no_grad`` (pass A) K1 launches once and nothing is kept for a
+    backward; under non-reentrant ``torch.utils.checkpoint`` (REMAT) K1
+    launches twice (the forward, then its recomputation in the backward)
+    and K2 once, each against its plain version, and the gradient equals
+    the one without the checkpoint bit for bit."""
+    import torch.utils.checkpoint as ckpt
+
+    gen = torch.Generator(device=cuda).manual_seed(B + L)
+    x = torch.randn(B, L, 3 * 768, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda) if causal else None
+    want = A.attention_qkv_plain(x, 12, mask)
+    qkv = x.clone().requires_grad_(True)
+    before = (A.fused_attention_qkv.launches,
+              A.fused_attention_qkv_bwd.launches)
+    with torch.no_grad():
+        out = A.fused_attention_qkv(qkv, 12, mask)
+    torch.cuda.synchronize()
+    assert out.grad_fn is None and not out.requires_grad
+    _assert_fwd_close(out, want, dtype)
+    assert A.fused_attention_qkv.launches == before[0] + 1
+
+    grads = []
+    for remat in (False, True):
+        qkv = x.clone().requires_grad_(True)
+        before = (A.fused_attention_qkv.launches,
+                  A.fused_attention_qkv_bwd.launches)
+        if remat:
+            out = ckpt.checkpoint(A.fused_attention_qkv, qkv, 12, mask,
+                                  use_reentrant=False)
+        else:
+            out = A.fused_attention_qkv(qkv, 12, mask)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert (A.fused_attention_qkv.launches - before[0],
+                A.fused_attention_qkv_bwd.launches - before[1]) == \
+            (1 + remat, 1)
+        _assert_fwd_close(out.detach(), want, dtype)
+        grads.append(qkv.grad)
+    assert torch.equal(grads[0], grads[1])
+    _assert_bwd_close(grads[1], A.attention_qkv_bwd_plain(x, g, 12, mask),
+                      dtype)
+
+
+def test_gradcache_matches_the_one_shot_step_on_the_card(cuda, tmp_path):
+    """A small MS-CLIP-S (width 128, heads of 64) in fp32 with frozen BN on
+    the card: the ``ACCUM_STEPS 4`` gradients (GradCache) against the
+    one-shot step's within 2e-5, with K1 and K2 launched 46a and 23a
+    times per 23 blocks (here 2 x 4 x blocks and 4 x blocks)."""
+    import json
+    import os
+
+    from msclip_torch.config import get_default_config, update_config
+    from msclip_torch.models import msclip as TM
+    from msclip_torch.train import trainer as TT
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "msclip_torch", "config",
+                           "b32-yfcc-msclips.json")) as f:
+        raw = json.load(f)
+    raw["MODEL"]["SPEC"]["EMBED_DIM"] = 64
+    raw["MODEL"]["SPEC"]["VISION"].update(WIDTH=128, LAYERS=6)
+    raw["MODEL"]["SPEC"]["TEXT"].update(WIDTH=128, HEADS=2, LAYERS=6)
+    raw["TRAIN"]["IMAGE_SIZE"] = [64, 64]
+    raw["TPU"] = {"COMPUTE_DTYPE": "float32"}
+    path = tmp_path / "small.json"
+    path.write_text(json.dumps(raw))
+    cfg = get_default_config()
+    update_config(cfg, str(path))
+    spec = TM.build_spec(cfg)
+    params = TM.init_params(spec, torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    images = torch.randn(8, 64, 64, 3, device=cuda, generator=gen)
+    tokens = torch.randint(1, 49406, (8, 77), device=cuda, generator=gen,
+                           dtype=torch.int32)
+    tokens[:, 0], tokens[:, 9], tokens[:, 10:] = 49406, 49407, 0
+    blocks = spec.effective_vision_layers - 1 + spec.text_layers
+    grads, launches = [], []
+    for accum in (1, 4):
+        model = TM.MSClipModel(spec, {k: v.clone() for k, v in
+                                      params.items()}, trainable=True).to(cuda)
+        before = (A.fused_attention_qkv.launches,
+                  A.fused_attention_qkv_bwd.launches)
+        if accum == 1:
+            loss, _ = TT.make_loss_fn(spec, freeze_bn=True)(
+                model.params(), images, tokens)
+            loss.backward()
+        else:
+            TT.gradcache_backward(TT.make_encode_fn(spec, freeze_bn=True),
+                                  model.params(), images, tokens, accum)
+        torch.cuda.synchronize()
+        launches.append((A.fused_attention_qkv.launches - before[0],
+                         A.fused_attention_qkv_bwd.launches - before[1]))
+        grads.append({k: p.grad for k, p in model.named_parameters()
+                      if p.grad is not None})
+    assert launches == [(blocks, blocks), (8 * blocks, 4 * blocks)]
+    assert set(grads[0]) == set(grads[1])
+    for k, g in grads[0].items():
+        torch.testing.assert_close(grads[1][k], g, atol=2e-5, rtol=0,
+                                   msg=k)

@@ -200,14 +200,10 @@ def test_released_configs_build_with_the_reference_key_set(name):
     ("CUSTOM.EARLY_CONV_RES", False, "M10"),
     ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False, "M10"),
     ("MODEL.SPEC.POOL_TYPE", "linear", "M10"),
-    ("TPU.ACCUM_STEPS", 2, "M6"),
     ("TPU.SHARDED_LOSS", True, "M7"),
     ("TPU.RING_LOSS", True, "M7"),
     ("TPU.ZERO1", True, "M7"),
     ("TPU.FSDP", True, "M7"),
-    ("TPU.REMAT", True, "M6"),
-    ("TRAIN.LARC", True, "M6"),
-    ("SWA.ENABLED", True, "M6"),
     ("CUSTOM.GUMBEL_SELECT", True, "M10"),
 ])
 def test_unported_features_are_rejected(key, value, item):

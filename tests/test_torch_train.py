@@ -32,7 +32,7 @@ from msclip_tpu.train import optim as JO
 from msclip_tpu.train.trainer import init_train_state as jax_init_state
 from msclip_tpu.train.trainer import make_loss_fn as jax_make_loss_fn
 from msclip_tpu.train.trainer import make_train_step as jax_make_train_step
-from msclip_torch.data.loader import PairBatchLoader
+from msclip_torch.data.loader import BatchLoaderPairs
 from msclip_torch.data.pairs import SyntheticPairDataset, make_train_dataset
 from msclip_torch.models import layers as TL
 from msclip_torch.models import msclip as TM
@@ -45,6 +45,7 @@ from msclip_torch.utils.convert import params_from_jax
 
 from reference_oracle import tiny_msclips_config
 from torch_port_params import random_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS_PER_EPOCH = 10
@@ -125,7 +126,7 @@ def test_batch_norm_training_matches_jax(eps):
 def test_drop_path_keeps_or_drops_whole_samples():
     x = torch.ones(2000, 3, 4)
     gen = torch.Generator().manual_seed(0)
-    y = TL.drop_path(x, 0.25, gen)
+    y = TL.drop_path(x, 0.25, TL.drop_path_keep(x, 0.25, gen))
     per_sample = y.flatten(1)
     assert set(per_sample.unique().tolist()) == {0.0, float(
         torch.tensor(1.0) / 0.75)}
@@ -377,7 +378,7 @@ def test_synthetic_pairs_match_jax():
 def test_loader_order_matches_jax(seed):
     """Pinned epochs and the epoch a bare ``__iter__`` advances to."""
     ds = SyntheticPairDataset(n=10, size=8, vocab_size=64)
-    ours = PairBatchLoader(ds, 3, workers=2, seed=seed)
+    ours = BatchLoaderPairs(ds, 3, workers=2, seed=seed)
     theirs = JaxBatchLoader(ds, 3, workers=2, shuffle=True, seed=seed,
                             drop_last=True)
     assert ours.num_batches == theirs.num_batches == 3
@@ -390,14 +391,45 @@ def test_loader_order_matches_jax(seed):
             np.testing.assert_array_equal(a["image"], b["image"])
 
 
-def test_only_synthetic_pairs_are_ported():
+def test_only_synthetic_pairs_are_ported(tmp_path):
+    """Every training source the JAX package reads: the same dataset kind,
+    length and samples (eval transform) as ``make_train_dataset`` of the
+    JAX package, for synthetic pairs, a caption folder, a TSV list and tar
+    shards (the order in which the config is read: shards, TSV,
+    synthetic, folder)."""
+    from msclip_tpu.data.pairs import make_train_dataset as jax_make
+    from msclip_tpu.data.transforms import (
+        pil_eval_transform as jax_pil_eval_transform)
+    from msclip_torch.data.transforms import pil_eval_transform
+
+    from torch_pair_fixtures import write_folder, write_shards, write_tsv
+
     cfg = _cfg()
     cfg.DATASET.DATASET = "synthetic"
     cfg.DATASET.NUM_SAMPLES = 6
-    assert len(make_train_dataset(cfg)) == 6
-    cfg.DATASET.DATASET = "yfcc"
-    with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-        make_train_dataset(cfg)
+    cases = {"SyntheticPairDataset": []}
+    write_folder(str(tmp_path / "root" / "train"), 3)
+    cases["FolderPairDataset"] = [("DATASET.DATASET", "yfcc"),
+                                  ("DATASET.ROOT", str(tmp_path / "root"))]
+    cases["TsvPairDataset"] = [("DATASET.TRAIN_TSV_LIST",
+                                [write_tsv(str(tmp_path / "tsv"), 3)])]
+    cases["TarShardPairDataset"] = cases["TsvPairDataset"] + [
+        ("DATASET.TRAIN_SHARD_LIST",
+         write_shards(str(tmp_path / "shards"), 2, 2))]
+    for kind, opts in cases.items():
+        c = cfg.clone()
+        for key, value in opts:
+            node, leaf = key.split(".")
+            c[node][leaf] = value
+        ours, theirs = make_train_dataset(c), jax_make(c)
+        assert type(ours).__name__ == type(theirs).__name__ == kind
+        assert len(ours) == len(theirs) > 0
+        if kind != "SyntheticPairDataset":  # each package's eval transform
+            ours.transform, theirs.transform = (pil_eval_transform,
+                                                jax_pil_eval_transform)
+        for i in range(len(ours)):
+            for a, b in zip(ours[i], theirs[i]):
+                np.testing.assert_array_equal(a, b)
 
 
 def _tiny_cli_config(tmp_path):
@@ -411,7 +443,7 @@ def _tiny_cli_config(tmp_path):
     cfg["TRAIN"].update(IMAGE_SIZE=[64, 64], BATCH_SIZE_PER_GPU=4,
                         END_EPOCH=1)
     cfg["DATASET"] = {"DATASET": "synthetic", "NUM_SAMPLES": 8}
-    cfg.update(PRINT_FREQ=1, WORKERS=2)
+    cfg.update(PRINT_FREQ=1, WORKERS=2, OUTPUT_DIR=str(tmp_path / "out"))
     path = tmp_path / "tiny.json"
     path.write_text(json.dumps(cfg))
     return str(path)
@@ -421,7 +453,8 @@ def test_train_cli_on_the_cpu(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "msclip_torch.tools.train", "--cfg",
          _tiny_cli_config(tmp_path), "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-2000:]
     result = r.stdout.strip().splitlines()[-1].split()
     fields = dict(kv.split("=") for kv in result[1:])
@@ -429,15 +462,28 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert math.isfinite(float(fields["final_loss"]))
 
 
-def test_train_rejects_an_unported_sampler(tmp_path):
+@pytest.mark.parametrize("sampler", ["chunk", "default"])
+def test_train_rejects_an_unported_sampler(tmp_path, sampler):
+    """Every pair sampler trains: ``train`` with ``DATASET.SAMPLER`` runs
+    its epoch, and its loader yields the batches of the JAX driver's
+    (``BatchLoader`` with ``drop_last``, equal stripes, one process)."""
     from msclip_torch.config import get_default_config, update_config
     from msclip_torch.tools.train import train
 
     cfg = get_default_config()
     update_config(cfg, _tiny_cli_config(tmp_path),
-                  opts=["DATASET.SAMPLER", "chunk"])
-    with pytest.raises(NotImplementedError, match="DATASET.SAMPLER"):
-        train(cfg, device="cpu")
+                  opts=["DATASET.SAMPLER", sampler])
+    _, stats = train(cfg, device="cpu")
+    assert stats["steps"] == 2 and all(map(math.isfinite, stats["losses"]))
+    assert len(stats["step_ms"]) == 2 and min(stats["step_ms"]) > 0
+    ds = SyntheticPairDataset(n=10, size=8, vocab_size=64)
+    ours = BatchLoaderPairs(ds, 3, workers=2, seed=4, sampler=sampler)
+    theirs = JaxBatchLoader(ds, 3, workers=2, shuffle=True, seed=4,
+                            drop_last=True, shard=(0, 1), sampler=sampler,
+                            equal_shards=True)
+    ours.chunk_size = theirs.chunk_size = 4
+    for a, b in zip(ours, theirs, strict=True):
+        np.testing.assert_array_equal(a["tokens"], b["label"])
 
 
 def test_train_cli_needs_a_card_or_the_cpu_flag(tmp_path, monkeypatch):

@@ -159,12 +159,29 @@ def test_entry_point_needs_a_card_unless_told_cpu():
     assert ZS.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_metric_is_rejected():
-    """A metric neither package computes fails before any work (the JAX
-    package would report top-1 under its name)."""
-    cfg = get_default_config()
-    update_config(cfg, DS_YAML, opts=["TEST.METRIC", "top5"])
-    with pytest.raises(ValueError, match="TEST.METRIC='top5'"):
-        ZS.run_zero_shot(cfg, device="cpu")
+def test_unported_metric_is_rejected(imagefolder, checkpoint, caplog):
+    """A metric outside accuracy and the logit metrics reports top-1 under
+    its name, as the JAX package does (its value on the same config and
+    weights), with one warning that names it."""
+    from msclip_tpu.config import get_default_config as jax_default_config
+    from msclip_tpu.config import update_config as jax_update_config
+    from msclip_tpu.eval import zero_shot as JZ
+
+    opts = ["TEST.METRIC", "top5", "MODEL.PRETRAINED_MODEL", str(checkpoint),
+            "DATASET.ROOT", str(imagefolder.parent),
+            "DATASET.TEST_SET", imagefolder.name] + TINY_OPTS
+    cfg, jcfg = get_default_config(), jax_default_config()
+    for c, update in ((cfg, update_config), (jcfg, jax_update_config)):
+        update(c, DS_YAML)
+        update(c, MODEL_YAML, opts=opts)
+    with caplog.at_level("WARNING"):
+        value, stats = ZS.run_zero_shot(cfg, device="cpu")
+    want, jstats = JZ.run_zero_shot(jcfg)
+    assert stats["metric"] == jstats["metric"] == "top5"
+    assert stats["n_images"] == jstats["n_images"] == 6
+    assert value == want
+    warned = [r for r in caplog.records
+              if r.levelname == "WARNING" and "'top5'" in r.getMessage()]
+    assert len(warned) == 1
     assert set(ZS.LOGIT_METRICS) == {"11point_mAP", "mean-per-class",
                                      "roc_auc"}
