@@ -100,7 +100,23 @@ Phases, each printed on its own line and each fatal on failure:
    ``checkpoint_load`` into ``run_zero_shot``, the EMA one exported by
    ``export_torch_checkpoint --ckpt`` and read back to the same features
    bit for bit, and ``msclip_torch.tools.finetune`` on phase 13's CIFAR-10
-   fixture, K1 counted in each.
+   fixture, K1 counted in each;
+17. serve (in a process of its own, ``run_serve``): a B/32 bundle (bf16,
+   BN folded, buckets 1/4/16/64, the ImageNet classifier of 1,000 x 80
+   prompts) exported and loaded on the card with a CUDA graph a tower and
+   bucket; each replay against an eager call bit for bit, both timed (CUDA
+   events, and device time from the profiler), with each graph's capture
+   seconds, pool and launches; ``InferenceServer`` on 256 JPEGs of 96-320
+   px with 1 and 32 clients (512 requests each: requests/s, p50/p99, mean
+   batch), every served embedding against an eager batch-1 call (least
+   cosine > 0.999), and every other route; then a ``TPU.USE_FUSED_BLOCK``
+   bundle (buckets 1/64) the same way against the unfused one, and a burst
+   through the server. The replays of the server's traffic times each
+   graph's launches are K1's and K5's serving launches.
+
+Phase 1 also logs whether ``g++`` finds ``<jpeglib.h>`` and links
+``-ljpeg``, and the CUDA toolkit's ``<nvjpeg.h>`` and ``-lnvjpeg``
+(``jpeg_probe``; ROADMAP M14), without failing the run.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16
@@ -233,7 +249,46 @@ def device_and_packages():
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, python=sys.version.split()[0],
         packages=json.dumps(found))
+    jpeg_probe()
     return smi
+
+
+def jpeg_probe():
+    """Whether this host builds what the JAX package's native decoder needs
+    (ROADMAP M14): ``g++`` finding ``<jpeglib.h>`` and linking ``-ljpeg``;
+    and, for a decoder on the card instead, the CUDA toolkit's nvJPEG
+    (``<nvjpeg.h>``, ``-lnvjpeg``). Logged only; it never fails the run."""
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    probes = {
+        "jpeglib": ("#include <cstdio>\n#include <jpeglib.h>\nint main() { "
+                    "jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n",
+                    [], ["-ljpeg"]),
+        "nvjpeg": ("#include <nvjpeg.h>\nint main() { nvjpegHandle_t h; "
+                   "return (int)nvjpegCreateSimple(&h); }\n",
+                   ["-I", os.path.join(cuda, "include")],
+                   ["-L", os.path.join(cuda, "lib64"), "-lnvjpeg"]),
+    }
+    found = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            for name, (src, inc, libs) in probes.items():
+                path = os.path.join(d, f"{name}.cc")
+                with open(path, "w") as f:
+                    f.write(src)
+                for key, extra in ((f"{name}_h", ["-fsyntax-only"]),
+                                   (f"{name}_link",
+                                    ["-o", path + ".out", *libs])):
+                    r = subprocess.run(["g++", path, *inc, *extra],
+                                       capture_output=True, text=True,
+                                       timeout=120)
+                    found[key] = r.returncode == 0
+                    if r.returncode:
+                        found[f"{key}_error"] = json.dumps(
+                            (r.stderr.strip().splitlines() or [""])[0][:160])
+    except Exception as e:  # noqa: BLE001 (a probe: logged, never fatal)
+        found["error"] = json.dumps(repr(e)[:200])
+    log("jpeg_probe", **found)
+    return found
 
 
 # kernels held to the build check: no bf16 instantiation of these may spill
@@ -651,6 +706,15 @@ ATTN_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16 (the int8
 # (B, L) where K1 is also held under a random additive mask: finite values
 # N(0, 1) and a random -inf pattern that leaves a finite score in each row
 FWD_FAULT_SHAPE = (64, 77)
+# phase 17's batch buckets: K1 in every block of a bundle's towers, K5 in
+# every block of a fused bundle's
+SERVE_BUCKETS = (1, 4, 16, 64)
+FUSED_BUCKETS = (1, 64)
+# (B, L, causal) of the served towers, image (50) and text (77), where K1
+# and K5 are also held to their plain versions, untimed: every bucket's
+# launch takes a plan of its own
+SERVE_ATTN_SHAPES = [(b, L, L == 77) for L in (50, 77) for b in SERVE_BUCKETS]
+SERVE_HALF_SHAPES = [(b, L, L == 77) for L in (50, 77) for b in FUSED_BUCKETS]
 
 
 def fwd_mean_reading(got, want):
@@ -712,7 +776,8 @@ def fwd_check(qkv, n_head, mask, dtype):
 def check_attention(E=768, H=12):
     """K1 against its plain version (:func:`fwd_check`) at each shape of
     ``ATTN_SHAPES``, timed in turns with SDPA and beside the plain version,
-    then held, untimed, under a random mask at ``FWD_FAULT_SHAPE``."""
+    then held, untimed, under a random mask at ``FWD_FAULT_SHAPE`` and at
+    the served shapes ``SERVE_ATTN_SHAPES``."""
     from msclip_torch.models.layers import build_causal_mask
 
     rows = []
@@ -757,6 +822,16 @@ def check_attention(E=768, H=12):
                **fwd_check(qkv, H, mask, dtype)}
         log("kernel", name="attention_fwd", **row)
         rows.append(row)
+    for B, L, causal in SERVE_ATTN_SHAPES:
+        mask = build_causal_mask(L, device="cuda") if causal else None
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B, L, 3 * E, device="cuda",
+                              generator=gen).to(dtype)
+            row = {"B": B, "L": L, "causal": causal, "served": True,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   **fwd_check(qkv, H, mask, dtype)}
+            log("kernel", name="attention_fwd", **row)
+            rows.append(row)
     return rows
 
 
@@ -1315,12 +1390,45 @@ def halfblock_bound(name, B, L, dtype, mask):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def half_check(name, kernel, plain, extra, x, p, mask):
+    """K5 (``attention_halfblock``) or K6 (``mlp_halfblock``) against its
+    plain version on ``x`` as :func:`half_reading` gives it, with the
+    faults of :func:`half_with_fault` read against the same check: raises
+    unless the kernel is within the limits and every fault that changes
+    the output is caught. Returns the readings."""
+    dtype = x.dtype
+    B, L, _ = x.shape
+    got = kernel(x, *extra)
+    want = plain(x, *extra)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    reading, mean_reading, mean_err = half_reading(got, want, x, dtype)
+    tol = "atol {} rtol {}".format(*HALF_TOL[dtype])
+    if dtype in HALF_MEAN_TOL:
+        tol += f", mean {HALF_MEAN_TOL[dtype]} mean |plain - x|"
+    if not (reading <= 1.0 and mean_reading <= 1.0
+            and torch.isfinite(got.float()).all()):
+        raise AssertionError(
+            f"{name} kernel B={B} L={L} {dtype}: max |err| {err}, "
+            f"{reading} and {mean_reading} of the limits {tol}")
+    faults = {f: half_reading(half_with_fault(name, x, p, mask, f), want, x,
+                              dtype)
+              for f in HALF_FAULTS[name] if f != "no_mask" or mask is not None}
+    missed = [f for f, (worst, mean, ferr) in faults.items()
+              if ferr > 0 and worst <= 1.0 and mean <= 1.0]
+    if missed:
+        raise AssertionError(f"{name} {dtype} B={B} L={L}: the check misses "
+                             f"{missed}: {faults}")
+    return {"max_abs_err": err, "mean_abs_err": mean_err, "tolerance": tol,
+            "limit_reading": reading, "mean_reading": mean_reading,
+            "planted_faults": faults}
+
+
 def check_halfblocks(traced):
     """K5 and K6 against their plain versions in fp32 and bf16 at the shapes
     of the fused slice (the image tower, a text chunk), B/16's and two odd
-    ones, with the faults of :func:`half_with_fault` read against the same
-    check, each as :func:`half_reading` gives it (the run fails unless every
-    fault that changes the output is caught). Times each
+    ones (:func:`half_check`), and K5 untimed at the served shapes
+    ``SERVE_HALF_SHAPES``. Times each
     kernel, its plain version and the port's unfused half: for K5 the
     turns of :func:`traced_turns` against ``layer_norm`` + ``linear`` + K1
     + ``linear`` + residual, and the same with SDPA in K1's place; for K6
@@ -1332,6 +1440,7 @@ def check_halfblocks(traced):
 
     rows = {"attention_halfblock": [], "mlp_halfblock": []}
     gen = torch.Generator(device="cuda").manual_seed(4)
+    served_gen = torch.Generator(device="cuda").manual_seed(5)
     H = BF.WIDTH // 64
     for dtype in (torch.float32, torch.bfloat16):
         p = half_params(gen, dtype)
@@ -1346,34 +1455,10 @@ def check_halfblocks(traced):
                 "mlp_halfblock": (
                     BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,), {})}
             for name, (kernel, plain, extra, baselines) in kinds.items():
-                got = kernel(xs[0], *extra)
-                want = plain(xs[0], *extra)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                reading, mean_reading, mean_err = half_reading(
-                    got, want, xs[0], dtype)
-                tol = "atol {} rtol {}".format(*HALF_TOL[dtype])
-                if dtype in HALF_MEAN_TOL:
-                    tol += f", mean {HALF_MEAN_TOL[dtype]} mean |plain - x|"
-                if not (reading <= 1.0 and mean_reading <= 1.0
-                        and torch.isfinite(got.float()).all()):
-                    raise AssertionError(
-                        f"{name} kernel B={B} L={L} {dtype}: max |err| {err}, "
-                        f"{reading} and {mean_reading} of the limits {tol}")
-                faults = {f: half_reading(half_with_fault(
-                    name, xs[0], p, mask, f), want, xs[0], dtype)
-                    for f in HALF_FAULTS[name] if f != "no_mask" or causal}
-                missed = [f for f, (worst, mean, ferr) in faults.items()
-                          if ferr > 0 and worst <= 1.0 and mean <= 1.0]
-                if missed:
-                    raise AssertionError(f"{name} {dtype} B={B} L={L}: the "
-                                         f"check misses {missed}: {faults}")
                 row = {"B": B, "L": L, "causal": causal,
                        "dtype": str(dtype).replace("torch.", ""),
-                       "max_abs_err": err, "mean_abs_err": mean_err,
-                       "tolerance": tol, "limit_reading": reading,
-                       "mean_reading": mean_reading,
-                       "planted_faults": faults,
+                       **half_check(name, kernel, plain, extra, xs[0], p,
+                                    mask),
                        "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
                                            n_inputs, iters=10),
                        "library_ms": None}
@@ -1406,6 +1491,18 @@ def check_halfblocks(traced):
                     origin="the plan of mlp_plan; the hidden rows' bytes "
                            "written and read back, reckoned, not measured")
             del xs, j
+        for B, L, causal in SERVE_HALF_SHAPES:
+            mask = TL.build_causal_mask(L, device="cuda") if causal else None
+            x = torch.randn(B, L, BF.WIDTH, device="cuda",
+                            generator=served_gen).to(dtype)
+            row = {"B": B, "L": L, "causal": causal, "served": True,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   **half_check("attention_halfblock",
+                                BF.fused_attention_halfblock,
+                                BF.attention_halfblock_plain, (p, H, mask),
+                                x, p, mask)}
+            log("kernel", name="attention_halfblock", **row)
+            rows["attention_halfblock"].append(row)
     return rows
 
 
@@ -2711,6 +2808,522 @@ def run_resume(tmp, transfer_roots):
         raise AssertionError(f"finetune top-1 {top1}")
     return total
 
+# ---------------------------------------------------------------------------
+# phase 17: serving
+# ---------------------------------------------------------------------------
+
+SERVE_JPEGS = 256
+SERVE_REQUESTS = 512
+SERVE_CLIENTS = (1, 32)
+TRACED_REQUESTS = 256  # the 32-client window run again under torch.profiler
+FUSED_BURST = 128
+SERVE_MIN_COS = 0.999
+# the options that make the CLIs' model phase 17's (b32_zero_shot_config's
+# weights and dtype)
+CLI_OPTS = ["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEED", "0",
+            "MODEL.PRETRAINED_MODEL", ""]
+# the wrappers' counter names -> the kernel names a trace shows
+TRACED_NAMES = {"attention_fwd": "attention_fwd", "attention_halfblock":
+                "attention_halfblock_kernel"}
+
+
+def serve_jpegs(n=SERVE_JPEGS, seed=0):
+    """``n`` JPEG bodies of random 8-px colour blocks, 96-320 px a side."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(v) * 8 for v in rng.integers(12, 41, 2))
+        arr = np.kron(rng.random((h // 8, w // 8, 3)), np.ones((8, 8, 1)))
+        buf = io.BytesIO()
+        Image.fromarray((arr * 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def tower_inputs(tower, b, seed, size=224, vocab=49408):
+    """A bucket's input: uint8 images, or token rows (SOT, 4-19 random
+    ids, EOT, zeros)."""
+    rng = np.random.default_rng(seed)
+    if tower == "image":
+        return rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    tokens = np.zeros((b, 77), np.int32)
+    for i in range(b):
+        k = int(rng.integers(5, 20))
+        tokens[i, 0] = vocab - 2
+        tokens[i, 1:k] = rng.integers(1, vocab - 2, k - 1)
+        tokens[i, k] = vocab - 1
+    return tokens
+
+
+def stream_ms(fn, n_inputs, stream, iters=30, warmup=3):
+    """Mean time of ``fn(i)`` over ``iters`` calls by CUDA events on
+    ``stream`` (each call ends in a copy to the host, so this is the
+    call's latency)."""
+    for i in range(warmup):
+        fn(i % n_inputs)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    for i in range(iters):
+        fn(i % n_inputs)
+    stop.record(stream)
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def graph_rows(served, label, profiled=(1, 64), eager_profiled=True):
+    """Each tower and bucket of ``served``: the replay against an eager
+    call of the same towers on the same padded batch, bit for bit (3
+    inputs), then both timed by CUDA events (30 calls after 3). At the
+    ``profiled`` buckets also the device time of 30 replays from
+    torch.profiler (and of 30 eager calls with ``eager_profiled``), and the
+    K1/K5 kernels that trace shows a replay, beside the launches the
+    capture counted."""
+    rows = []
+    for tower, fns in (("image", served.image_fns),
+                       ("text", served.text_fns)):
+        for b, r in sorted(fns.items()):
+            t0 = time.time()
+            xs = [tower_inputs(tower, b, seed, served.image_size)
+                  for seed in range(3)]
+            for x in xs:
+                got, want = r(x), r.eager(x)
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"{label} {tower} bucket {b}: the graph replay "
+                        f"differs from eager by {np.abs(got - want).max()}")
+            row = {"bundle": label, "tower": tower, "bucket": b,
+                   "capture_s": round(r.capture_s, 4),
+                   "pool_mb": round(r.pool_bytes / 2 ** 20, 2),
+                   "per_replay": {k: v for k, v in r.launches.items() if v}}
+            for name, fn in (("graph", r), ("eager", r.eager)):
+                call = functools.partial(lambda i, f: f(xs[i % 3]), f=fn)
+                row[f"{name}_ms"] = stream_ms(call, 3, r.stream)
+                if b not in profiled or (name == "eager"
+                                         and not eager_profiled):
+                    continue
+                recs = device_records(call, 3, 30)
+                row[f"{name}_device_ms"] = (
+                    sum(us for _, us in recs.values()) / 30 / 1e3
+                    if recs else None)
+                if name == "graph":
+                    row["traced_per_replay"] = {
+                        k: sum(n for key, (n, _) in recs.items()
+                               if kname in key) / 30
+                        for k, kname in TRACED_NAMES.items()} if recs \
+                        else None
+            row["graph_vs_eager"] = row["graph_ms"] / row["eager_ms"]
+            row["seconds"] = round(time.time() - t0, 2)
+            log("serve_graph", **{k: json.dumps(v) if isinstance(v, dict)
+                                  else v for k, v in row.items()})
+            rows.append(row)
+    return rows
+
+
+def http_json(url, body=None, ctype="application/json"):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+# the load of drive_server, in a process of its own without torch: each of
+# `clients` threads keeps one HTTP/1.1 connection and POSTs the JPEGs of a
+# directory (cycled) to /v1/embed/image; the embeddings go to an .npy, the
+# wall seconds and each request's latency to the last line
+HTTP_CLIENT = """
+import concurrent.futures as cf, http.client, json, os, sys, threading, time
+import numpy as np
+host, port, clients, n, jpegs, out = sys.argv[1:]
+port, clients, n = int(port), int(clients), int(n)
+names = sorted(os.listdir(jpegs), key=lambda f: int(f.split(".")[0]))
+bodies = [open(os.path.join(jpegs, f), "rb").read() for f in names]
+local = threading.local()
+lat = [0.0] * n
+def one(i):
+    if not hasattr(local, "conn"):
+        local.conn = http.client.HTTPConnection(host, port, timeout=120)
+    t = time.perf_counter()
+    local.conn.request("POST", "/v1/embed/image", bodies[i % len(bodies)],
+                       {"Content-Type": "image/jpeg"})
+    r = local.conn.getresponse()
+    got = json.loads(r.read())
+    lat[i] = time.perf_counter() - t
+    if r.status != 200:
+        raise RuntimeError(got)
+    return np.asarray(got["embedding"], np.float32)
+t0 = time.perf_counter()
+with cf.ThreadPoolExecutor(clients) as ex:
+    embs = list(ex.map(one, range(n)))
+wall = time.perf_counter() - t0
+np.save(out, np.stack(embs))
+print("CLIENT " + json.dumps({"wall": wall, "lat": lat}), flush=True)
+"""
+
+
+def drive_server(address, clients, n, tmp):
+    """``n`` requests of :data:`HTTP_CLIENT` from another process (the
+    load's threads do not share the server's interpreter) over ``clients``
+    kept-alive connections, on the JPEGs in ``tmp/jpegs``: ``(embeddings by
+    request, stats)``; the mean batch from the difference of /stats."""
+    base = "http://%s:%d" % address
+    before = http_json(base + "/stats")["image"]
+    out = os.path.join(tmp, f"client-{clients}-{n}.npy")
+    r = subprocess.run(
+        [sys.executable, "-c", HTTP_CLIENT, address[0], str(address[1]),
+         str(clients), str(n), os.path.join(tmp, "jpegs"), out],
+        capture_output=True, text=True)
+    done = [ln for ln in r.stdout.splitlines() if ln.startswith("CLIENT ")]
+    if r.returncode or not done:
+        raise AssertionError(f"HTTP load failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+    res = json.loads(done[-1][len("CLIENT "):])
+    after = http_json(base + "/stats")["image"]
+    batches = after["batches"] - before["batches"]
+    lat = np.asarray(res["lat"]) * 1e3
+    stats = {"clients": clients, "requests": n, "wall_s": res["wall"],
+             "requests_per_s": n / res["wall"],
+             "p50_ms": float(np.percentile(lat, 50)),
+             "p90_ms": float(np.percentile(lat, 90)),
+             "p99_ms": float(np.percentile(lat, 99)),
+             "max_ms": float(lat.max()),
+             "mean_batch": (after["samples"] - before["samples"])
+             / max(batches, 1), "batches": batches}
+    return np.load(out), stats
+
+
+def busy_us(spans):
+    """The microseconds that the union of ``(start, end)`` spans covers."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def traced_window(address, clients, n, tmp):
+    """:func:`drive_server` under torch.profiler: ``(embeddings, stats)``
+    with the device's busy share of the load's wall seconds, the union of
+    the spans of the trace's device records over them: ``busy_share`` of
+    every record (kernels, copies, memsets), ``kernel_busy_share`` of the
+    kernels alone; None where the trace holds no device record. The
+    profiler slows the host, so the window's own rate is beside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        embs, stats = drive_server(address, clients, n, tmp)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    wall_us = stats["wall_s"] * 1e6
+    kernels = [(s, e) for name, s, e in spans
+               if not name.startswith(("Memcpy", "Memset"))]
+    stats.update(
+        device_records=len(spans),
+        busy_share=busy_us((s, e) for _, s, e in spans) / wall_us
+        if spans else None,
+        kernel_busy_share=busy_us(kernels) / wall_us if kernels else None,
+        origin="torch.profiler trace of the window; busy = union of the "
+               "device records' spans over the client's wall time")
+    return embs, stats
+
+
+def serve_cli(args, log_path):
+    """``python -m msclip_torch.tools.serve --port 0 <args>`` on its
+    default device, its output to ``log_path``."""
+    with open(log_path, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "msclip_torch.tools.serve", "--port", "0",
+             *args], cwd=REPO, stdout=f, stderr=subprocess.STDOUT, text=True)
+
+
+def serving_url(proc, log_path, deadline_s=300):
+    """The address a serve CLI announces on its ``SERVING`` line, once it
+    has captured and called every bucket; raises if it exits first or
+    takes over ``deadline_s``."""
+    deadline = time.time() + deadline_s
+    while time.time() < deadline:
+        with open(log_path) as f:
+            text = f.read()
+        done = [ln for ln in text.splitlines() if ln.startswith("SERVING ")]
+        if done:
+            return done[0].split()[1]
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    raise AssertionError(f"serve CLI {proc.args[3:]} announced no address "
+                         f"(exit {proc.poll()}): {text[-3000:]}")
+
+
+def stop(procs):
+    for p in procs:
+        p.terminate()
+    for p in procs:
+        try:
+            p.wait(30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def least_cosine(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                     * np.linalg.norm(b, axis=-1))).min())
+
+
+def replayed_launches(served, kernel):
+    """The launches of ``kernel`` that ``served``'s replays ran since
+    their counts were last set to 0: replays x launches a replay."""
+    return sum(r.replays * r.launches[kernel]
+               for fns in (served.image_fns, served.text_fns)
+               for r in fns.values())
+
+
+def reset_replays(*served):
+    for s in served:
+        for fns in (s.image_fns, s.text_fns):
+            for r in fns.values():
+                r.replays = 0
+
+
+def run_serve():
+    """Phase 17: serving MS-CLIP-S B/32 at full width (seed-0 weights, bf16,
+    BN folded). A bundle with buckets 1/4/16/64 and the ImageNet prompt
+    classifier (1,000 x 80) exported by the ``export_serving`` CLI on the
+    card and loaded (a CUDA graph a tower and bucket); each graph against
+    eager bit for bit and both timed; ``InferenceServer`` on 256 JPEGs of
+    96-320 px with 1 and 32 clients in another process (512 requests
+    each), every served embedding against an eager batch-1 call on the
+    same crop (least cosine > 0.999), the 32-client window again under
+    torch.profiler for the device's busy share, and one request to each
+    other route; then a ``TPU.USE_FUSED_BLOCK`` bundle (buckets 1/64):
+    replay against eager bit for bit, against the unfused bundle (least
+    cosine > 0.999), and a burst through the server; last the ``serve``
+    CLI on the card, on the bundle (its /v1/classify top 5 against the
+    in-process server's) and live from the config (buckets 1/64, its
+    embedding of a JPEG against the eager reference). K1's and K5's
+    launches count the replays of the in-process servers' traffic times
+    each graph's launches. Returns a JSON-able dict."""
+    import base64
+    import dataclasses
+    import io
+
+    from PIL import Image
+
+    from msclip_torch.eval.checkpoint_load import load_model_params
+    from msclip_torch.models.msclip import build_spec
+    from msclip_torch.serve import export_bundle, load_bundle, pil_to_uint8
+    from msclip_torch.serve.export import serving_params, spec_from_json
+    from msclip_torch.serve.server import InferenceServer
+
+    seconds = {}
+    t0 = time.time()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = round(time.time() - t0, 2)
+        t0 = time.time()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = b32_zero_shot_config()
+    spec = build_spec(cfg)
+    params = serving_params(spec, load_model_params(cfg, spec))
+    lap("params")
+    out = {"seconds": seconds}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    bundle = os.path.join(tmp, "b32")
+    r = subprocess.run(
+        [sys.executable, "-m", "msclip_torch.tools.export_serving",
+         "--model", B32_CONFIG, "--out", bundle,
+         "--buckets", ",".join(map(str, SERVE_BUCKETS)),
+         "--classify-prompts", "imagenet", *CLI_OPTS],
+        cwd=REPO, capture_output=True, text=True)
+    exported = [ln for ln in r.stdout.splitlines()
+                if ln.startswith("EXPORTED ")]
+    if r.returncode or not exported:
+        raise AssertionError(f"export_serving failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+    lap("export_cli")
+    served = load_bundle(bundle, device="cuda")
+    classifier, classnames = served.classifier, served.classnames
+    if spec_from_json(served.manifest["model"]) != spec:
+        raise AssertionError("the exported bundle's spec is not phase 17's")
+    lap("load")
+    fused_spec = dataclasses.replace(spec, use_fused_block=True)
+    export_bundle(fused_spec, params, os.path.join(tmp, "fused"),
+                  buckets=FUSED_BUCKETS)
+    fused = load_bundle(os.path.join(tmp, "fused"), device="cuda")
+    lap("fused_export_load")
+    graphs = [r for s in (served, fused) for fns in (s.image_fns, s.text_fns)
+              for r in fns.values()]
+    log("serve_load", exported=exported[0],
+        classifier_shape=list(classifier.shape),
+        seconds=json.dumps(seconds), graphs=len(graphs),
+        capture_s=round(sum(r.capture_s for r in graphs), 3),
+        pool_mb=round(sum(r.pool_bytes for r in graphs) / 2 ** 20, 1),
+        bundle_mb=round(os.path.getsize(os.path.join(
+            bundle, "params.npz")) / 2 ** 20, 1))
+    blocks = {"image": spec.effective_vision_layers - spec.first_block,
+              "text": spec.text_layers}
+    for s, kernel, other in ((served, "attention_fwd", "attention_halfblock"),
+                             (fused, "attention_halfblock", "attention_fwd")):
+        for tower, fns in (("image", s.image_fns), ("text", s.text_fns)):
+            for b, r in fns.items():
+                if r.launches[kernel] != blocks[tower] or r.launches[other]:
+                    raise AssertionError(
+                        f"{tower} bucket {b}: the capture recorded "
+                        f"{r.launches}, expected {kernel} x {blocks[tower]}")
+    out["graphs"] = graph_rows(served, "b32") + graph_rows(
+        fused, "b32_fused", eager_profiled=False)
+    lap("graphs")
+
+    jpegs = serve_jpegs()
+    os.makedirs(os.path.join(tmp, "jpegs"))
+    for i, j in enumerate(jpegs):
+        with open(os.path.join(tmp, "jpegs", f"{i}.jpg"), "wb") as f:
+            f.write(j)
+    crops = [pil_to_uint8(Image.open(io.BytesIO(j)), served.image_size)
+             for j in jpegs]
+    ref = np.concatenate([served.image_fns[1].eager(c[None]) for c in crops])
+    lap("references")
+    reset_replays(served, fused)
+    server = InferenceServer(served, "127.0.0.1", 0, max_wait_ms=5.0).start()
+    base = "http://%s:%d" % server.address
+    try:
+        out["server"] = []
+        windows = [(c, SERVE_REQUESTS, drive_server) for c in SERVE_CLIENTS]
+        windows.append((32, TRACED_REQUESTS, traced_window))
+        for clients, n, drive in windows:
+            embs, stats = drive(server.address, clients, n, tmp)
+            stats["least_cos"] = least_cosine(
+                embs, [ref[i % len(jpegs)] for i in range(len(embs))])
+            stats["traced"] = drive is traced_window
+            log("serve_http", **stats)
+            out["server"].append(stats)
+            if stats["least_cos"] <= SERVE_MIN_COS:
+                raise AssertionError(f"served embeddings at {clients} "
+                                     f"clients: least cosine "
+                                     f"{stats['least_cos']}")
+        texts = ["a photo of a dog", "a photo of a cat", "a red square"]
+        emb = http_json(base + "/v1/embed/text",
+                        json.dumps({"texts": texts}).encode())
+        cls = http_json(base + "/v1/classify?topk=5", jpegs[0], "image/jpeg")
+        rank = http_json(base + "/v1/rank", json.dumps({
+            "texts": texts, "image": base64.b64encode(jpegs[0]).decode(),
+            "content_type": "image/jpeg"}).encode())
+        health = http_json(base + "/healthz")
+        want_top = int(np.argmax(ref[0] @ classifier))
+        routes = {"embed_text": np.asarray(emb["embeddings"]).shape,
+                  "classify_top": cls["topk"][0]["label"],
+                  "classify_index": cls["topk"][0]["index"],
+                  "want_index": want_top,
+                  "rank": [r["index"] for r in rank["ranking"]],
+                  "healthz": health["status"]}
+        log("serve_routes", **{k: json.dumps(v) if not isinstance(v, str)
+                               else v for k, v in routes.items()})
+        if (routes["embed_text"] != (3, spec.embed_dim)
+                or len(cls["topk"]) != 5 or len(rank["ranking"]) != 3
+                or routes["classify_index"] != want_top
+                or health["status"] != "ok"
+                or cls["topk"][0]["label"] != classnames[
+                    cls["topk"][0]["index"]]):
+            raise AssertionError(f"serving routes answered {routes}")
+    finally:
+        server.close()
+    k1 = replayed_launches(served, "attention_fwd")
+    lap("server")
+
+    fused_x = {t: tower_inputs(t, 64, 7, served.image_size)
+               for t in ("image", "text")}
+    drift = {"image": least_cosine(fused.encode_image(fused_x["image"]),
+                                   served.encode_image(fused_x["image"])),
+             "text": least_cosine(fused.encode_text(fused_x["text"]),
+                                  served.encode_text(fused_x["text"]))}
+    reset_replays(fused)
+    server = InferenceServer(fused, "127.0.0.1", 0, max_wait_ms=5.0).start()
+    try:
+        embs, stats = drive_server(server.address, 32, FUSED_BURST, tmp)
+    finally:
+        server.close()
+    stats["least_cos"] = least_cosine(
+        embs, [ref[i % len(jpegs)] for i in range(len(embs))])
+    k5 = replayed_launches(fused, "attention_halfblock")
+    lap("fused_server")
+    log("serve_fused", drift_image=drift["image"], drift_text=drift["text"],
+        **stats, k5_launches=k5)
+    out.update(fused_drift=drift, fused_server=stats, k1=k1, k5=k5)
+    if min(drift.values()) <= SERVE_MIN_COS or \
+            stats["least_cos"] <= SERVE_MIN_COS:
+        raise AssertionError(f"fused bundle against unfused: {drift}, "
+                             f"served {stats['least_cos']}")
+
+    # the serve CLI, as a deployment starts it: on the bundle and live
+    del served, fused
+    torch.cuda.empty_cache()
+    logs = {k: os.path.join(tmp, f"serve-{k}.log") for k in ("bundle", "live")}
+    procs = {"bundle": serve_cli(["--bundle", bundle], logs["bundle"]),
+             "live": serve_cli(["--model", B32_CONFIG, "--buckets", "1,64",
+                                *CLI_OPTS], logs["live"])}
+    try:
+        urls = {k: serving_url(p, logs[k]) for k, p in procs.items()}
+        lap("cli_start")
+        cli_cls = http_json(urls["bundle"] + "/v1/classify?topk=5",
+                            jpegs[0], "image/jpeg")
+        live_health = http_json(urls["live"] + "/healthz")
+        live_emb = http_json(urls["live"] + "/v1/embed/image", jpegs[0],
+                             "image/jpeg")["embedding"]
+    finally:
+        stop(procs.values())
+    tmp_dir.cleanup()
+    cli = {"classify": [t["index"] for t in cli_cls["topk"]],
+           "in_process": [t["index"] for t in cls["topk"]],
+           "prob_diff": max(abs(a["prob"] - b["prob"]) for a, b in zip(
+               cli_cls["topk"], cls["topk"])),
+           "live_buckets": live_health["buckets"],
+           "live_cos": least_cosine([live_emb], ref[:1])}
+    lap("cli")
+    log("serve_cli", **{k: json.dumps(v) for k, v in cli.items()})
+    out["cli"] = cli
+    if (cli["classify"] != cli["in_process"] or cli["live_buckets"] != [1, 64]
+            or cli["live_cos"] <= SERVE_MIN_COS):
+        raise AssertionError(f"the serve CLI answered {cli}")
+    if k1 == 0 or k5 == 0:
+        raise AssertionError(f"serving replayed K1 {k1} and K5 {k5} times")
+    log("serve_launches", k1=k1, k5=k5, seconds=json.dumps(seconds))
+    return out
+
+
+def serve_in_subprocess():
+    """:func:`run_serve` in a fresh Python process on the same card (the
+    profiler traces there; see :func:`traced_turns`); its lines are
+    printed through."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as C; "
+         "print('SERVE ' + json.dumps(C.run_serve()))"],
+        cwd=REPO, capture_output=True, text=True)
+    lines = r.stdout.splitlines()
+    for ln in lines:
+        if not ln.startswith("SERVE "):
+            print(ln, flush=True)
+    done = [ln for ln in lines if ln.startswith("SERVE ")]
+    if r.returncode or not done:
+        raise AssertionError(f"serve phase failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+    return json.loads(done[-1][len("SERVE "):])
+
+
 def headline(rows, **match):
     return next(r for r in rows if "ms" in r
                 and all(r[k] == v for k, v in match.items()))
@@ -2778,6 +3391,7 @@ def main():
         data_launches = timed("train_data", run_train_data, tmp, resident)
         gc_launches = timed("gradcache", run_gradcache, resident)
         resume_launches = timed("resume", run_resume, tmp, roots)
+    serve = timed("serve", serve_in_subprocess)
     timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
@@ -2786,12 +3400,14 @@ def main():
     variants = tuning_rows["attention_halfblock_variants"]
     core_out = tuning_rows["core_out_halfblock"]
     print(json.dumps({"kernels": [
-        kernel_line(attn_rows, launches + train_launches[0] + int8_launches[0]
-                    + transfer_launches + data_launches[0] + gc_launches[0]
-                    + resume_launches[0],
-                    "attention_fwd", "msclip_tpu/ops/attention.py:243",
-                    headline(attn_rows, B=256, L=50, dtype="bfloat16"),
-                    "B=256 L=50 E=768 H=12 bfloat16"),
+        {**kernel_line(attn_rows, launches + train_launches[0]
+                       + int8_launches[0] + transfer_launches
+                       + data_launches[0] + gc_launches[0]
+                       + resume_launches[0] + serve["k1"],
+                       "attention_fwd", "msclip_tpu/ops/attention.py:243",
+                       headline(attn_rows, B=256, L=50, dtype="bfloat16"),
+                       "B=256 L=50 E=768 H=12 bfloat16"),
+         "serving_launches": serve["k1"]},
         kernel_line(bwd_rows, train_launches[1] + data_launches[1]
                     + gc_launches[1] + resume_launches[1], "attention_bwd",
                     "msclip_tpu/ops/attention.py:146",
@@ -2805,11 +3421,13 @@ def main():
                     "msclip_tpu/ops/quant.py:124",
                     headline(quant_rows["gelu_quant"], dtype="bfloat16"),
                     "B=256 L=197 F=3072 bfloat16", quant),
-        kernel_line(half_rows["attention_halfblock"], k5_launches,
-                    "attention_halfblock", "msclip_tpu/ops/block_fused.py:132",
-                    headline(half_rows["attention_halfblock"], B=256, L=50,
-                             dtype="bfloat16"),
-                    "B=256 L=50 E=768 H=12 bfloat16", fused_src),
+        {**kernel_line(half_rows["attention_halfblock"],
+                       k5_launches + serve["k5"], "attention_halfblock",
+                       "msclip_tpu/ops/block_fused.py:132",
+                       headline(half_rows["attention_halfblock"], B=256,
+                                L=50, dtype="bfloat16"),
+                       "B=256 L=50 E=768 H=12 bfloat16", fused_src),
+         "serving_launches": serve["k5"]},
         kernel_line(half_rows["mlp_halfblock"], 0, "mlp_halfblock",
                     "msclip_tpu/ops/block_fused.py:185",
                     headline(half_rows["mlp_halfblock"], B=256, L=50,

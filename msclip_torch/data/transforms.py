@@ -57,11 +57,13 @@ def pil_eval_transform(image, size: int = 224,
 def normalize_uint8(images_u8: torch.Tensor, mean=IMAGENET_MEAN,
                     std=IMAGENET_STD) -> torch.Tensor:
     """/255 + mean/std normalize of a uint8 ``[..., 3]`` tensor in fp32,
-    in :func:`pil_eval_transform`'s op order."""
+    in :func:`pil_eval_transform`'s op order. ``mean`` and ``std`` may be
+    fp32 tensors on the batch's device already, which then copies nothing
+    from the host (as a CUDA graph capture requires)."""
     dev = images_u8.device
     x = images_u8.to(torch.float32) / 255.0
-    return (x - torch.tensor(mean, dtype=torch.float32, device=dev)) \
-        / torch.tensor(std, dtype=torch.float32, device=dev)
+    return (x - torch.as_tensor(mean, dtype=torch.float32, device=dev)) \
+        / torch.as_tensor(std, dtype=torch.float32, device=dev)
 
 
 def dataset_normalizer(dataset):

@@ -1,0 +1,112 @@
+"""Serve a model over HTTP with dynamic batching: the port's
+``tools/serve.py``.
+
+Bundle mode (a bundle written by ``msclip_torch.tools.export_serving``):
+
+    python -m msclip_torch.tools.serve --bundle <dir> [--host 0.0.0.0] \\
+        [--port 8000] [--max-wait-ms 5] [--device cuda|cpu]
+
+Live mode (the model built in process from its config):
+
+    python -m msclip_torch.tools.serve --model <model.yaml|json> \\
+        [--classify-prompts imagenet] [--buckets 1,4,16,64] [KEY VALUE ...]
+
+Before it accepts traffic it captures a CUDA graph per tower and bucket
+(``cuda``, the default) and calls every bucket once; then it prints
+``SERVING http://host:port``. Endpoints: POST /v1/embed/image (JPEG/PNG/npy
+body), POST /v1/embed/text ({"texts": [...]}), POST /v1/classify?topk=5,
+POST /v1/rank, GET /healthz, GET /stats. Scale out by running one process
+per card behind any HTTP load balancer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+import numpy as np
+
+from ..eval.zero_shot import resolve_device
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="HTTP inference server.")
+    p.add_argument("--bundle", help="serving bundle dir (bundle mode)")
+    p.add_argument("--model", help="model config yaml/json (live mode)")
+    p.add_argument("--buckets", default="",
+                   help="live mode: comma-separated batch buckets")
+    p.add_argument("--classify-prompts", default="",
+                   help="live mode: prompt-set name (e.g. imagenet) to "
+                        "build a zero-shot classifier for /v1/classify")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="dynamic-batching window")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "versions eagerly)")
+    p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return p.parse_args(argv)
+
+
+def load_live(args, device):
+    """A live ServingModel from a model config on ``device``."""
+    from ..config import get_default_config, update_config
+    from ..eval.checkpoint_load import load_model_params
+    from ..models.msclip import build_spec
+    from ..serve import live_serving_model
+    from ..serve.export import serving_params
+    from .export_serving import build_classifier
+
+    config = get_default_config()
+    update_config(config, args.model, opts=args.opts)
+    spec = build_spec(config)
+    params = serving_params(spec, load_model_params(config, spec))
+    classifier = classnames = None
+    if args.classify_prompts:
+        classifier, classnames = build_classifier(
+            spec, params, args.classify_prompts, device)
+    buckets = [int(b) for b in args.buckets.split(",") if b] or None
+    return live_serving_model(
+        spec, params, buckets=buckets,
+        image_size=config.TEST.IMAGE_SIZE[0],
+        classifier=classifier, classnames=classnames,
+        mean=tuple(config.INPUT.MEAN), std=tuple(config.INPUT.STD),
+        devices=[device],
+    )
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if bool(args.bundle) == bool(args.model):
+        raise SystemExit("pass exactly one of --bundle or --model")
+    device = resolve_device(args.device)
+    logging.basicConfig(level=logging.INFO)
+
+    from ..serve import load_bundle
+    from ..serve.server import InferenceServer
+
+    if args.bundle:
+        logging.info(f"=> loading bundle {args.bundle}")
+        model = load_bundle(args.bundle, device=device)
+    else:
+        logging.info(f"=> building live model from {args.model}")
+        model = load_live(args, device)
+    # one call per bucket before traffic (on a card: each graph replayed)
+    for b in model.buckets:
+        model.encode_image(
+            np.zeros((b, model.image_size, model.image_size, 3), np.uint8))
+        model.encode_text(np.zeros((b, model.context_length), np.int32))
+    logging.info(f"=> warmed {len(model.buckets)} image+text buckets")
+    server = InferenceServer(model, host=args.host, port=args.port,
+                             max_wait_ms=args.max_wait_ms)
+    print(f"SERVING http://{server.address[0]}:{server.address[1]}",
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        server.close()
+
+
+if __name__ == "__main__":
+    main()

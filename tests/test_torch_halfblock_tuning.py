@@ -354,18 +354,24 @@ def test_tool_main_refuses_a_tile_that_does_not_divide_the_batch():
 
 
 @pytest.mark.parametrize("entry", ["halfblock_tuning", "zero_shot", "train",
-                                   "profile_zero_shot", "profile_train"])
-def test_entry_points_default_to_the_card(monkeypatch, entry):
+                                   "profile_zero_shot", "profile_train",
+                                   "export_serving", "serve_bundle",
+                                   "serve_live"])
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     """Every entry point runs on the card unless asked for the CPU, and
     raises where there is none."""
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    mod = importlib.import_module(f"msclip_torch.tools.{entry}")
+    module = {"serve_bundle": "serve", "serve_live": "serve"}.get(entry, entry)
+    mod = importlib.import_module(f"msclip_torch.tools.{module}")
     cfg = os.path.join(REPO, "msclip_torch", "config",
                        "b32-yfcc-msclips.json")
     argv = {"zero_shot": ["--ds", cfg, "--model", cfg],
-            "train": ["--cfg", cfg]}.get(entry, [])
+            "train": ["--cfg", cfg],
+            "export_serving": ["--model", cfg, "--out", str(tmp_path)],
+            "serve_bundle": ["--bundle", str(tmp_path)],
+            "serve_live": ["--model", cfg]}.get(entry, [])
     with pytest.raises((RuntimeError, SystemExit), match="CUDA device"):
         mod.main(argv)
 

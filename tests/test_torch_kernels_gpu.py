@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 attention forward, K2 attention backward, K3
 and K4 the int8 quantizers, K5 and K6 the fused half-blocks, E1 and E2 the
 half-block tuning kernels) against their plain versions, on the card; K4
-bit for bit, on every bf16 bit pattern too.
+bit for bit, on every bf16 bit pattern too. Serving's CUDA graphs (one a
+tower and bucket, K1 or K5 inside) against eager calls, bit for bit.
 
 JAX-free, so that it runs where JAX is absent:
 
@@ -10,6 +11,7 @@ JAX-free, so that it runs where JAX is absent:
 Without a CUDA device every test skips (decided inside the fixture).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -765,3 +767,114 @@ def test_gradcache_matches_the_one_shot_step_on_the_card(cuda, tmp_path):
     for k, g in grads[0].items():
         torch.testing.assert_close(grads[1][k], g, atol=2e-5, rtol=0,
                                    msg=k)
+
+
+# ---------------------------------------------------------------------------
+# serving: one CUDA graph a tower and bucket (msclip_torch.serve)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def b32_served(tmp_path_factory):
+    """Full-width B/32 (seed-0 weights, bf16, BN folded) loaded from
+    bundles on the card: unfused with buckets 1/4/16/64, and fused (K5 in
+    every block) with buckets 1/64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    import os
+
+    from msclip_torch.config import get_default_config, update_config
+    from msclip_torch.eval.checkpoint_load import load_model_params
+    from msclip_torch.models import msclip as TM
+    from msclip_torch.serve import export_bundle, load_bundle
+    from msclip_torch.serve.export import serving_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = get_default_config()
+    update_config(cfg, os.path.join(repo, "msclip_torch", "config",
+                                    "b32-yfcc-msclips.json"),
+                  opts=["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEED", 0,
+                        "MODEL.PRETRAINED_MODEL", ""])
+    spec = TM.build_spec(cfg)
+    params = serving_params(spec, load_model_params(cfg, spec))
+    out = tmp_path_factory.mktemp("serve")
+    export_bundle(spec, params, str(out / "b32"), buckets=(1, 4, 16, 64))
+    export_bundle(dataclasses.replace(spec, use_fused_block=True), params,
+                  str(out / "fused"), buckets=(1, 64))
+    return {name: load_bundle(str(out / name), device="cuda")
+            for name in ("b32", "fused")}
+
+
+@pytest.mark.parametrize("bundle", ["b32", "fused"])
+def test_serving_graph_replay_equals_eager_bitwise(b32_served, bundle):
+    """Every bucket of both towers: the replay equals an eager call of the
+    same towers on the same padded batch bit for bit, and the capture
+    recorded K1 (unfused) or K5 (fused) once a block."""
+    import chip_smoke
+
+    served = b32_served[bundle]
+    kernel = "attention_fwd" if bundle == "b32" else "attention_halfblock"
+    blocks = {"image": 11, "text": 12}
+    for tower, fns in (("image", served.image_fns),
+                       ("text", served.text_fns)):
+        for b, r in fns.items():
+            assert {k: v for k, v in r.launches.items() if v} == \
+                {kernel: blocks[tower]}, (tower, b)
+            for seed in range(2):
+                x = chip_smoke.tower_inputs(tower, b, seed)
+                got = r(x)
+                assert got.shape == (b, 512) and got.dtype == np.float32
+                np.testing.assert_array_equal(got, r.eager(x))
+
+
+def test_serving_concurrent_towers_equal_serial(b32_served):
+    """Image and text replays from two threads at once (each tower its
+    stream and lock, each graph its pool) equal the same calls made one
+    after another."""
+    import threading
+
+    import chip_smoke
+
+    served = b32_served["b32"]
+    images = [chip_smoke.tower_inputs("image", n, 10 + n) for n in
+              (1, 3, 16, 64, 70)]
+    tokens = [chip_smoke.tower_inputs("text", n, 20 + n) for n in
+              (2, 4, 9, 64, 65)]
+    want_i = [served.encode_image(x) for x in images]
+    want_t = [served.encode_text(x) for x in tokens]
+    got = {}
+
+    def run(name, fn, xs):
+        got[name] = [fn(x) for _ in range(5) for x in xs]
+
+    threads = [threading.Thread(target=run, args=(
+                   "image", served.encode_image, images)),
+               threading.Thread(target=run, args=(
+                   "text", served.encode_text, tokens))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    for name, want in (("image", want_i), ("text", want_t)):
+        assert len(got[name]) == 5 * len(want)
+        for i, g in enumerate(got[name]):
+            np.testing.assert_array_equal(g, want[i % len(want)])
+
+
+def test_serving_graph_tracks_changing_inputs(b32_served):
+    """100 replays of one bucket with a new input each: each equals the
+    eager call on its input (no stale static buffer), and consecutive
+    outputs differ."""
+    import chip_smoke
+
+    r = b32_served["b32"].image_fns[4]
+    before = r.replays
+    prev = None
+    for seed in range(100):
+        x = chip_smoke.tower_inputs("image", 4, 1000 + seed)
+        got = r(x)
+        np.testing.assert_array_equal(got, r.eager(x))
+        assert prev is None or not np.array_equal(got, prev)
+        prev = got
+    assert r.replays == before + 100
