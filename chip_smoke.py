@@ -112,7 +112,24 @@ Phases, each printed on its own line and each fatal on failure:
    cosine > 0.999), and every other route; then a ``TPU.USE_FUSED_BLOCK``
    bundle (buckets 1/64) the same way against the unfused one, and a burst
    through the server. The replays of the server's traffic times each
-   graph's launches are K1's and K5's serving launches.
+   graph's launches are K1's and K5's serving launches;
+18. distributed (``run_distributed``): the train CLI under ``torchrun
+   --nproc_per_node 1`` (NCCL, world 1) at full B/32 width in bf16, batch
+   256, 3 steps, in five modes (the gathered loss, ``TPU.SHARDED_LOSS`` at
+   64-column chunks, ``+ TPU.RING_LOSS``, ``TPU.ZERO1``, ``TPU.FSDP``;
+   cuDNN deterministic), against the same run without a process group in
+   this process, run twice for the card's own run-to-run gap: losses, the
+   parameters and AdamW's moments of the epoch-end checkpoint bit for bit
+   where every collective is a copy (held to 4x the run-to-run gap if the
+   card does not repeat itself); for the sharded losses step 1 within
+   1e-5 relative, steps 2-3 within 5e-5, the parameters within AdamW's
+   envelope and its first moment (the gradients) within bounds over the
+   parts whose gradient is not nought but rounding (``moment_gaps``); K1
+   and K2 at 23 launches a step in every run (the CLI's
+   ``attention_launches``), samples/s, peak memory and bytes kept; then
+   the zero-shot CLI under ``torchrun`` against phase 4's top-1 and every
+   image's predicted class. The six CLI runs share one ``torchrun``
+   process (``dist_worker``).
 
 Phase 1 also logs whether ``g++`` finds ``<jpeglib.h>`` and links
 ``-ljpeg``, and the CUDA toolkit's ``<nvjpeg.h>`` and ``-lnvjpeg``
@@ -151,6 +168,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1523,12 +1541,15 @@ def b32_zero_shot_config(fused=False):
     return cfg
 
 
-def run_slice():
+def run_slice(save_pred=""):
     """Zero-shot MS-CLIP-S B/32 at full width through the port's entry
-    point, with the attention kernel's launches counted over the run."""
+    point, with the attention kernel's launches counted over the run; with
+    ``save_pred``, its logits go to that ``.npz`` (``TEST.SAVE_PRED``)
+    for phase 18."""
     from msclip_torch.eval.zero_shot import run_zero_shot
 
     cfg = b32_zero_shot_config()
+    cfg.TEST.SAVE_PRED = save_pred
     torch.cuda.reset_peak_memory_stats()
     A.fused_attention_qkv.launches = 0
     value, stats = run_zero_shot(cfg, device="cuda")
@@ -2809,6 +2830,361 @@ def run_resume(tmp, transfer_roots):
     return total
 
 # ---------------------------------------------------------------------------
+# phase 18: the multi-process train path (torchrun, NCCL, world 1)
+# ---------------------------------------------------------------------------
+
+DIST_STEPS, DIST_BATCH = 3, 256
+DIST_OPTS = ("TRAIN.BATCH_SIZE_PER_GPU", DIST_BATCH, "DATASET.NUM_SAMPLES",
+             DIST_STEPS * DIST_BATCH, "TRAIN.END_EPOCH", 1,
+             "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEED", 0,
+             "CUDNN.DETERMINISTIC", True, "PRINT_FREQ", 1)
+# mode -> (options, exact): exact modes run every collective as a copy at
+# world 1, so they must equal the no-group run bit for bit; the sharded
+# losses reorder the loss's sums
+DIST_MODES = {
+    "dp": ((), True),
+    "chunked": (("TPU.SHARDED_LOSS", True, "TPU.LOSS_CHUNK", 64), False),
+    "ring": (("TPU.SHARDED_LOSS", True, "TPU.RING_LOSS", True), False),
+    "zero1": (("TPU.ZERO1", True), True),
+    "fsdp": (("TPU.FSDP", True), True),
+}
+DIST_FIRST_RTOL = 1e-5  # step 1 of the sharded losses against the no-group run
+DIST_LATER_RTOL = 5e-5  # their steps 2-3 (1.6e-5 measured)
+# The sharded losses' parameters and gradients. AdamW's first steps move
+# each element by about +-lr whatever the gradient's size, so a gradient
+# element that rounding flips moves its parameter the other way: the
+# parameters are held to that envelope, DIST_PARAM_ENVELOPE x the sum of
+# the steps' learning rates (a tensor that starts at 0 reads ~1.7 x its
+# own largest value). The gradients are held through AdamW's first
+# moment (a weighted sum of the steps' gradients) over the parts (each
+# tensor, the q/k/v thirds of a packed attention projection apart) whose
+# reference gradient is not nought but rounding: largest magnitude at
+# least DIST_NOUGHT x the median part's. The k bias is left out so
+# (softmax ignores a shift shared by every key: ~1.7e-3 x the median,
+# the next part 0.14 x).
+# Measured at B/32 bf16 on the H100: the parameters 1.89-1.93 x the sum;
+# the first moment 0.097-0.101 (L2) and 0.23-0.27 (part) for the chunked
+# and ring losses, and 0.32-0.47 and 0.57-1.10 with a wrong gradient
+# planted into the loss's backward (the text features' x2, both x1.3,
+# the image features' x0.5), which the losses (within 1.1e-5) and the
+# parameters (<= 2.0 x) do not show.
+DIST_PARAM_ENVELOPE = 2.2
+DIST_NOUGHT = 1e-2
+DIST_MOMENT_L2 = 0.2  # relative L2 over the kept parts together
+DIST_MOMENT_PART = 0.5  # each kept part's largest gap / its largest value
+
+
+# the one torchrun process of phase 18 (see :func:`dist_worker`)
+DIST_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.dist_worker(*sys.argv[2:])
+"""
+
+
+def dist_train_argv(out_dir, opts):
+    return ["--cfg", B32_CONFIG, "--device", "cuda", "DATASET.DATASET",
+            "synthetic", "OUTPUT_DIR", out_dir, *map(str, DIST_OPTS + opts)]
+
+
+def dist_zero_shot_argv(ds, pred, out_dir):
+    return ["--ds", ds, "--model", B32_CONFIG, "--device", "cuda",
+            "DATASET.NUM_SAMPLES", "512", "TEST.BATCH_SIZE_PER_GPU", "256",
+            "TEST.SUBSET_CLASSES", "100", "TPU.COMPUTE_DTYPE", "bfloat16",
+            "TPU.SEED", "0", "MODEL.PRETRAINED_MODEL", "", "TEST.SAVE_PRED",
+            pred, "OUTPUT_DIR", out_dir]
+
+
+def dist_worker(tmp, ds, pred):
+    """Phase 18's process under ``torchrun``: the train CLI's ``main`` in
+    each of :data:`DIST_MODES`, then the zero-shot CLI's, with the argv a
+    user gives each on the command line, in one process group. Each
+    ``main`` leaves the group as its last step; here the next one would
+    re-join on the launcher's store, so the group is left once, at the
+    end (one process start-up, not six). Prints ``MODE <name>`` before and
+    ``SECONDS <s>`` after each run, around its ``RESULT`` line."""
+    from msclip_torch.tools import train as train_cli
+    from msclip_torch.tools import zero_shot as zero_shot_cli
+    from msclip_torch.utils.comm import init_distributed, shutdown
+
+    init_distributed("cuda")
+    train_cli.shutdown = zero_shot_cli.shutdown = lambda: None
+    runs = [(mode, train_cli.main,
+             dist_train_argv(os.path.join(tmp, "dist", mode), opts))
+            for mode, (opts, _) in DIST_MODES.items()]
+    runs.append(("zero_shot", zero_shot_cli.main,
+                 dist_zero_shot_argv(ds, pred, os.path.join(tmp, "dist_zs"))))
+    for mode, main_fn, argv in runs:
+        print(f"MODE {mode}", flush=True)
+        t0 = time.time()
+        main_fn(argv)
+        print(f"SECONDS {time.time() - t0:.1f}", flush=True)
+    shutdown()
+
+
+def run_dist_worker(tmp, ds, pred, timeout=900):
+    """:func:`dist_worker` under ``torchrun --nproc_per_node 1`` on this
+    card: ``({mode: (result fields, seconds)}, process seconds)``."""
+    from msclip_torch.tools.dryrun import free_port
+
+    script = os.path.join(tmp, "dist_worker.py")
+    with open(script, "w") as f:
+        f.write(DIST_WORKER)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_addr", "localhost", "--master_port",
+           str(free_port()), script, REPO, tmp, ds, pred]
+    t0 = time.time()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=timeout)
+    seconds = time.time() - t0
+    runs, mode = {}, None
+    for ln in r.stdout.splitlines():
+        if ln.startswith("MODE "):
+            mode = ln.split()[1]
+        elif ln.startswith("RESULT") and mode:
+            runs[mode] = dict(kv.split("=", 1) for kv in ln.split()[1:]
+                              if "=" in kv)
+        elif ln.startswith("SECONDS ") and mode in runs:
+            runs[mode] = (runs[mode], float(ln.split()[1]))
+    if r.returncode != 0 or len(runs) != len(DIST_MODES) + 1:
+        raise AssertionError(f"phase 18 worker: rc {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return runs, seconds
+
+
+def largest_rel_diff(got, want):
+    """Over the tensors of ``want``: the largest ``max |got - want| / max
+    |want|``."""
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs().max().item()
+        worst = max(worst, d / max(w.float().abs().max().item(), 1e-30))
+    return worst
+
+
+def qkv_parts(tree):
+    """``tree`` with each packed attention input projection cut into its
+    q, k and v thirds (``name[q]`` ...), the other tensors whole."""
+    out = {}
+    for k, v in tree.items():
+        if ".in_proj_" in k:
+            out.update({f"{k}[{p}]": c for p, c in zip("qkv", v.chunk(3))})
+        else:
+            out[k] = v
+    return out
+
+
+def moment_gaps(got, want, grad):
+    """AdamW's first moment ``got`` against the reference's ``want`` over
+    the parts whose reference gradient ``grad`` is not nought but rounding
+    (:data:`DIST_NOUGHT`): the relative L2 over them together
+    (``exp_avg_l2``), the largest part's max |got - want| / max |want|
+    (``exp_avg_part``), the parts left out (``nought_parts``), and the
+    largest left out's and the least kept part's largest gradient over
+    the median part's (``nought_top``, ``kept_least``)."""
+    got, want, grad = qkv_parts(got), qkv_parts(want), qkv_parts(grad)
+    median = float(np.median([grad[k].float().abs().max().item()
+                              for k in want]))
+    top = {k: grad[k].float().abs().max().item() / median for k in want}
+    kept = [k for k in want if top[k] >= DIST_NOUGHT]
+    gap = sum(((got[k].float() - want[k].float()) ** 2).sum().item()
+              for k in kept)
+    size = sum((want[k].float() ** 2).sum().item() for k in kept)
+    part = max((got[k].float() - want[k].float()).abs().max().item()
+               / max(want[k].float().abs().max().item(), 1e-30)
+               for k in kept)
+    return {"exp_avg_l2": math.sqrt(gap / size), "exp_avg_part": part,
+            "nought_parts": len(want) - len(kept),
+            "nought_top": max([v for k, v in top.items() if k not in kept],
+                              default=None),
+            "kept_least": min(top[k] for k in kept)}
+
+
+# wrong gradients planted into the sharded loss's backward, which the
+# sharded losses' bounds must reject: name -> the factors of the image
+# and the text features' gradients
+DIST_PLANTED = {"text_x2": (1.0, 2.0), "both_x1.3": (1.3, 1.3),
+                "image_x0.5": (0.5, 1.0)}
+
+
+def scaled_grad(x, factor):
+    """``x`` in the forward, bit for bit; ``factor`` x its gradient."""
+    return x.detach() + (x - x.detach()) * factor
+
+
+def in_process_run(cfg, planted=None):
+    """``tools.train.train`` of ``cfg`` on the card without a process
+    group; with ``planted=(image, text)`` the embedding loss's feature
+    gradients are scaled by those factors. Returns ``(losses, params,
+    the last step's gradients, AdamW's first moment, the sum of the
+    steps' learning rates, K1/K2 launches)``."""
+    from msclip_torch.tools.train import train
+    from msclip_torch.train import trainer
+
+    make_loss = trainer.make_embedding_loss
+    if planted:
+        def make_planted(*args, **kw):
+            loss = make_loss(*args, **kw)
+            return lambda fi, ft, scale: loss(scaled_grad(fi, planted[0]),
+                                              scaled_grad(ft, planted[1]),
+                                              scale)
+        trainer.make_embedding_loss = make_planted
+    try:
+        state, stats = train(cfg, device="cuda")
+    finally:
+        trainer.make_embedding_loss = make_loss
+    torch.cuda.synchronize()
+    sched = state.scheduler
+    lr_sum = max(sum(g["initial_lr"] * fn(t) for t in range(DIST_STEPS))
+                 for g, fn in zip(sched.optimizer.param_groups,
+                                  sched.lr_lambdas))
+    out = (stats["losses"],
+           {k: v.detach().cpu() for k, v in state.model.params().items()},
+           {k: g.detach().cpu() for k, g in state.shards.grads().items()},
+           {k: st["exp_avg"].detach().cpu() for k, st in
+            state.shards.full_optimizer_state(state.optimizer).items()},
+           lr_sum, stats["launches"])
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_readings(losses, params, moment, ref):
+    """A sharded loss's run against the reference ``ref``
+    (:func:`in_process_run`): the readings and whether they hold the
+    ``DIST_*`` bounds."""
+    want, ref_params, ref_grad, ref_m, lr_sum, _ = ref
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    params_vs_lr = max((params[k].float() - w.float()).abs().max().item()
+                       for k, w in ref_params.items()
+                       if k in ref_grad) / lr_sum
+    got_parts = qkv_parts({k: params[k] for k in ref_grad})
+    rel = {k: (got_parts[k].float() - w.float()).abs().max().item()
+           / max(w.float().abs().max().item(), 1e-30) for k, w in
+           qkv_parts({k: ref_params[k] for k in ref_grad}).items()}
+    worst = max(rel, key=rel.get)  # the part of the largest params_rel
+    moments = moment_gaps(moment, ref_m, ref_grad)
+    ok = (loss_rel[0] <= DIST_FIRST_RTOL
+          and max(loss_rel[1:]) <= DIST_LATER_RTOL
+          and params_vs_lr <= DIST_PARAM_ENVELOPE
+          and moments["exp_avg_l2"] <= DIST_MOMENT_L2
+          and moments["exp_avg_part"] <= DIST_MOMENT_PART)
+    return {"loss_rel": json.dumps(loss_rel), "params_vs_lr": params_vs_lr,
+            "params_worst": worst, **moments}, ok
+
+
+def run_distributed(tmp, slice_pred):
+    """Phase 18: the train CLI under ``torchrun --nproc_per_node 1`` (NCCL,
+    world 1) at full B/32 width in bf16, batch 256, 3 steps, in five modes
+    (the gathered full-matrix loss, ``TPU.SHARDED_LOSS`` at 64-column
+    chunks, ``+ TPU.RING_LOSS``, ``TPU.ZERO1``, ``TPU.FSDP``), each against
+    the same run without a process group in this process (``tools.train.
+    train``, run twice for the card's run-to-run gap; cuDNN deterministic
+    in all): the losses of the 3 steps, the parameters after them and
+    AdamW's moments (the epoch-end checkpoint), bit for bit in the modes
+    whose collectives are copies; for the sharded losses, which reorder
+    the loss's sums, the ``DIST_*`` bounds (:func:`sharded_readings`),
+    which must reject each of :data:`DIST_PLANTED` (chunked runs in this
+    process). K1 and K2 held to 23 launches a step in every counted run.
+    Then the zero-shot CLI under ``torchrun`` against phase 4's top-1 and
+    every image's predicted class. Every CLI run shares one ``torchrun``
+    process (:func:`dist_worker`). Returns the K1 and K2 launches of the
+    runs, the planted ones left out."""
+    from msclip_torch.train.checkpoint import CheckpointManager
+
+    torch.cuda.empty_cache()  # the torchrun process shares the card
+    cfg = train_config(*DIST_OPTS)
+    per_run = B32_BLOCKS * DIST_STEPS
+    total = [0, 0]
+    refs = []
+    for _ in range(2):
+        refs.append(in_process_run(cfg))
+        launches_held("no-group", refs[-1][-1], per_run, per_run)
+        total = [total[0] + per_run, total[1] + per_run]
+    ref = refs[0]
+    want, ref_params, _, ref_m = ref[:4]
+    again, ref2 = refs[1][:2]
+    noise = {"loss": max(abs(a - b) for a, b in zip(want, again)),
+             "params_rel": largest_rel_diff(ref2, ref_params)}
+    log("dist_reference", steps=DIST_STEPS, batch=DIST_BATCH,
+        losses=json.dumps(want), rerun_losses=json.dumps(again),
+        rerun_loss_gap=noise["loss"], rerun_params_rel=noise["params_rel"])
+    failed = []
+    chunked = train_config(*DIST_OPTS, *DIST_MODES["chunked"][0])
+    for name, factors in DIST_PLANTED.items():
+        losses, params, _, moment = in_process_run(chunked, factors)[:4]
+        readings, ok = sharded_readings(losses, params, moment, ref)
+        log("dist_planted", fault=name, **readings, rejected=not ok)
+        if ok:
+            failed.append(f"planted {name}")
+
+    # TEST.SAVE_PRED keeps logits for the logit metrics only (as the JAX
+    # package's file): under top-1 it holds every image's predicted class
+    ds = os.path.join(tmp, "synthetic.yaml")
+    with open(ds, "w") as f:
+        f.write("DATASET:\n  DATASET: synthetic\n")
+    pred = os.path.join(tmp, "dist_zero_shot.npz")
+    runs, process_s = run_dist_worker(tmp, ds, pred)
+    for mode, (opts, exact) in DIST_MODES.items():
+        out_dir = os.path.join(tmp, "dist", mode)
+        fields, seconds = runs[mode]
+        losses = json.loads(fields["losses"])
+        k1, k2 = map(int, fields["attention_launches"].split(","))
+        launches_held(f"torchrun {mode}", (k1, k2), per_run, per_run)
+        total = [total[0] + k1, total[1] + k2]
+        ck = CheckpointManager(os.path.join(
+            out_dir, "synthetic",
+            os.path.splitext(os.path.basename(B32_CONFIG))[0], "checkpoints"))
+        saved = ck.restore(DIST_STEPS)
+        params = saved["params"]
+        moment = {k: st["exp_avg"] for k, st in saved["optimizer"].items()}
+        params_rel = largest_rel_diff(params, ref_params)
+        bitwise = (losses == want and params_rel == 0.0
+                   and largest_rel_diff(moment, ref_m) == 0.0)
+        readings, sharded_ok = sharded_readings(losses, params, moment, ref)
+        log("dist", mode=mode, world=fields["world"],
+            global_batch=fields["global_batch"], opts=json.dumps(opts),
+            losses=json.dumps(losses), params_rel=params_rel, **readings,
+            bitwise=bitwise, samples_per_s=float(fields["samples_per_s"]),
+            peak_mem_gb=float(fields["peak_mem_gb"]),
+            param_bytes=int(fields["param_bytes"]),
+            optimizer_bytes=int(fields["optimizer_bytes"]),
+            k1_launches=k1, k2_launches=k2, seconds=seconds)
+        shutil.rmtree(out_dir)
+        if len(losses) != DIST_STEPS or not all(map(math.isfinite, losses)):
+            failed.append(mode)
+        elif exact and not bitwise and (noise["loss"] == 0.0
+                                        and noise["params_rel"] == 0.0):
+            failed.append(mode)  # the card repeats itself: a gap is a fault
+        elif exact and not bitwise and not (
+                max(abs(a - b) for a, b in zip(losses, want))
+                <= 4 * noise["loss"]
+                and params_rel <= 4 * noise["params_rel"]):
+            failed.append(mode)
+        elif not exact and not sharded_ok:
+            failed.append(mode)
+
+    fields, seconds = runs["zero_shot"]
+    got, want_zs = np.load(pred), np.load(slice_pred)
+    top1 = float(fields["accuracy"])
+    want_top1 = 100.0 * float((want_zs["pred"] == want_zs["label"]).mean())
+    same = (np.array_equal(got["pred"], want_zs["pred"])
+            and np.array_equal(got["label"], want_zs["label"]))
+    log("dist_zero_shot", world=1, top1=top1, phase4_top1=want_top1,
+        images=len(got["pred"]), same_predictions=same, seconds=seconds)
+    log("dist_process", seconds=round(process_s, 1),
+        start_up=round(process_s - sum(s for _, s in runs.values()), 1))
+    if not (same and len(got["pred"]) == 512
+            and abs(top1 - round(want_top1, 3)) <= 1e-3):
+        failed.append("zero_shot")
+    if failed:
+        raise AssertionError(f"phase 18 failed in {failed}: see the [dist] "
+                             "lines")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 17: serving
 # ---------------------------------------------------------------------------
 
@@ -3367,6 +3743,8 @@ def main():
         return out
 
     device_and_packages()
+    scratch = tempfile.TemporaryDirectory()
+    slice_pred = os.path.join(scratch.name, "slice.npz")
     timed("build", build_kernels)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3375,7 +3753,7 @@ def main():
     bwd_rows = timed("k2", check_attention_bwd)
     quant_rows = timed("k3_k4", check_quant)
     half_rows = timed("k5_k6", check_halfblocks, traced)
-    launches = timed("slice", run_slice)
+    launches = timed("slice", run_slice, slice_pred)
     timed("card_vs_cpu", card_against_cpu)
     train_launches, resident = timed("train", run_train_slice)
     timed("train_card_vs_cpu", train_card_against_cpu)
@@ -3392,6 +3770,9 @@ def main():
         gc_launches = timed("gradcache", run_gradcache, resident)
         resume_launches = timed("resume", run_resume, tmp, roots)
     serve = timed("serve", serve_in_subprocess)
+    dist_launches = timed("distributed", run_distributed, scratch.name,
+                          slice_pred)
+    scratch.cleanup()
     timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
@@ -3403,13 +3784,15 @@ def main():
         {**kernel_line(attn_rows, launches + train_launches[0]
                        + int8_launches[0] + transfer_launches
                        + data_launches[0] + gc_launches[0]
-                       + resume_launches[0] + serve["k1"],
+                       + resume_launches[0] + serve["k1"]
+                       + dist_launches[0],
                        "attention_fwd", "msclip_tpu/ops/attention.py:243",
                        headline(attn_rows, B=256, L=50, dtype="bfloat16"),
                        "B=256 L=50 E=768 H=12 bfloat16"),
          "serving_launches": serve["k1"]},
         kernel_line(bwd_rows, train_launches[1] + data_launches[1]
-                    + gc_launches[1] + resume_launches[1], "attention_bwd",
+                    + gc_launches[1] + resume_launches[1] + dist_launches[1],
+                    "attention_bwd",
                     "msclip_tpu/ops/attention.py:146",
                     headline(bwd_rows, B=256, L=50, dtype="bfloat16"),
                     "B=256 L=50 E=768 H=12 bfloat16"),

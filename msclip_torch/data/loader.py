@@ -243,14 +243,16 @@ class BatchLoader:
 class BatchLoaderPairs(BatchLoader):
     """Training batches of image-text pairs (``tools/train.py:302``):
     ``drop_last``, equal stripes, each batch ``{"image": [B, H, W, 3],
-    "tokens": [B, L]}``. One process loads the whole order until the
-    multi-process driver (ROADMAP M7) gives each process its stripe."""
+    "tokens": [B, L]}``. ``shard=(rank, world)``: this process's stripe of
+    the order (the data rank and size of a multi-process run); every
+    stripe has the same number of batches, as the processes' collectives
+    need."""
 
     def __init__(self, dataset, batch_size, workers=8, shuffle=True, seed=0,
-                 sampler="default"):
+                 sampler="default", shard=(0, 1)):
         super().__init__(dataset, batch_size, workers=workers,
                          shuffle=shuffle, seed=seed, drop_last=True,
-                         sampler=sampler, equal_shards=True)
+                         sampler=sampler, equal_shards=True, shard=shard)
 
     def __iter__(self):
         for batch in super().__iter__():

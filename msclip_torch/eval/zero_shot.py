@@ -3,9 +3,13 @@
 Classifier build (every ``class x template`` prompt tokenized on the host,
 text-encoded in chunks on the device), then the image loop over a
 prefetching loader, then the metric ``TEST.METRIC`` selects: top-1
-accuracy, 11-point mAP, mean-per-class accuracy or ROC-AUC. Single
-process, one device (striping over processes waits for ROADMAP M7); the
-entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+accuracy, 11-point mAP, mean-per-class accuracy or ROC-AUC. Under
+``torchrun`` each process takes its stripe of the dataset (``order[rank::
+world]``, ``msclip_tpu/eval/zero_shot.py:239-244, 310-331``) on its own
+card: top-1 is reduced by sum and count, the other metrics see every
+process's logits and labels (``utils/comm.gather_arrays``), and
+``TEST.SAVE_PRED`` writes a ``.rank<r>`` file a process. The entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from ..models.msclip import (
     cast_params,
 )
 from ..utils import metrics as M
+from ..utils.comm import comm, gather_arrays, init_distributed, reduce_dict
+from .device import resolve_device
 
 # metrics computed over the masked logits of the whole run, on the host
 LOGIT_METRICS = {
@@ -35,16 +41,6 @@ LOGIT_METRICS = {
     "mean-per-class": M.mean_per_class_accuracy,
     "roc_auc": M.roc_auc,
 }
-
-
-def resolve_device(device) -> torch.device:
-    """The entry points' device rule: ``cuda`` unless the caller asks for
-    the CPU, and no silent fall back when there is no card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(CLI: --device cpu) to run on the CPU")
-    return device
 
 
 @torch.inference_mode()
@@ -176,8 +172,11 @@ def load_eval_model(config, spec: MSClipSpec, device, *,
 @torch.inference_mode()
 def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
                   device="cuda"):
-    """Full zero-shot eval; returns ``(metric_value, stats)``."""
+    """Full zero-shot eval; returns ``(metric_value, stats)``, the same on
+    every process of a ``torchrun`` launch (which joins its group here if
+    the caller has not)."""
     device = resolve_device(device)
+    init_distributed(device)
     metric = config.TEST.get("METRIC", "accuracy")
     if metric != "accuracy" and metric not in LOGIT_METRICS:
         # the JAX package reports top-1 under any other name
@@ -208,7 +207,8 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
     logging.info(f"=> classifier built in {classifier_s:.1f}s")
 
     loader = BatchLoader(dataset, batch_size=config.TEST.BATCH_SIZE_PER_GPU,
-                         workers=config.WORKERS)
+                         workers=config.WORKERS,
+                         shard=(comm.rank, comm.world_size))
     pre = dataset_normalizer(dataset)
     save_pred = config.TEST.get("SAVE_PRED", "")
     top1 = M.AverageMeter()
@@ -250,14 +250,22 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
         arrs = {"pred": np.concatenate(preds), "label": np.concatenate(labels)}
         if all_logits:
             arrs["logits"] = np.concatenate(all_logits)
+        if comm.world_size > 1:
+            # a file a stripe: one path on a shared disk would be clobbered
+            root, ext = os.path.splitext(save_pred)
+            save_pred = f"{root}.rank{comm.rank}{ext or '.npz'}"
         np.savez(save_pred, **arrs)
         logging.info(f"=> saved per-image predictions to {save_pred}")
 
     if metric in LOGIT_METRICS:
-        value = LOGIT_METRICS[metric](np.concatenate(all_y),
-                                      np.concatenate(all_logits))
+        value = LOGIT_METRICS[metric](
+            gather_arrays(np.concatenate(all_y)),
+            gather_arrays(np.concatenate(all_logits)))
     else:
-        value = top1.avg
+        sums = reduce_dict({"sum": top1.sum, "count": top1.count},
+                           average=False)
+        value = sums["sum"] / max(sums["count"], 1)
+    n_images = int(reduce_dict({"n": n_images}, average=False)["n"])
     stats = {
         "n_images": n_images,
         "elapsed_s": elapsed,

@@ -35,6 +35,12 @@ import torch.nn.functional as F
 
 from ..ops.attention import fused_attention_qkv
 from ..ops.quant import gelu_quant, ln_quant, quantize_rows_plain
+from ..parallel.collectives import (
+    all_reduce_mean,
+    copy_to_group,
+    group_size,
+    reduce_from_group,
+)
 
 BLOCK_KEYS = (
     "ln_1.weight", "ln_1.bias",
@@ -198,14 +204,36 @@ def block_linear(p, x, weight, bias):
     return linear(x, p[weight], p[bias])
 
 
-def mlp(p, x):
+def _row_split_linear(x, weight, bias, tp):
+    """A row-split linear under tensor parallelism: this process's partial
+    product, summed over the model group ``tp``, then the whole bias."""
+    return reduce_from_group(linear(x, weight), tp) + bias.to(x.dtype)
+
+
+def mlp(p, x, tp=None):
+    """The MLP; with a model group ``tp`` (tensor parallelism) ``p`` holds
+    this process's ``c_fc`` rows and ``c_proj`` columns."""
+    if tp is not None:
+        h = quick_gelu(linear(copy_to_group(x, tp), p["mlp.c_fc.weight"],
+                              p["mlp.c_fc.bias"]))
+        return _row_split_linear(h, p["mlp.c_proj.weight"],
+                                 p["mlp.c_proj.bias"], tp)
     h = quick_gelu(block_linear(p, x, "mlp.c_fc.weight", "mlp.c_fc.bias"))
     return block_linear(p, h, "mlp.c_proj.weight", "mlp.c_proj.bias")
 
 
-def attention(p, x, n_head, mask=None):
+def attention(p, x, n_head, mask=None, tp=None):
     """Multi-head self-attention, batch-first ``[B, L, E]``; the core
-    runs in :func:`msclip_torch.ops.attention.fused_attention_qkv`."""
+    runs in :func:`msclip_torch.ops.attention.fused_attention_qkv`. With a
+    model group ``tp`` (tensor parallelism) ``p`` holds this process's
+    heads (their q, k and v rows of the in-projection, their columns of
+    the out-projection), so the core runs on ``n_head / |tp|`` heads."""
+    if tp is not None:
+        qkv = linear(copy_to_group(x, tp), p["attn.in_proj_weight"],
+                     p["attn.in_proj_bias"])
+        out = fused_attention_qkv(qkv, n_head // group_size(tp), mask)
+        return _row_split_linear(out, p["attn.out_proj.weight"],
+                                 p["attn.out_proj.bias"], tp)
     qkv = block_linear(p, x, "attn.in_proj_weight", "attn.in_proj_bias")
     out = fused_attention_qkv(qkv, n_head, mask)
     return block_linear(p, out, "attn.out_proj.weight", "attn.out_proj.bias")
@@ -233,11 +261,16 @@ def int8_block(p, x, n_head, mask=None, eps=1e-12):
                            x.dtype)
 
 
-def drop_path_keep(x, rate, generator):
+def drop_path_keep(x, rate, generator, rows=None):
     """The per-sample keep mask of :func:`drop_path` for ``x``: one
-    uniform draw per sample from ``generator``, kept below ``1 - rate``."""
-    draw = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
-                      generator=generator)
+    uniform draw per sample from ``generator``, kept below ``1 - rate``.
+    ``rows=(first, total)``: ``x`` holds rows ``first ..`` of a global
+    batch of ``total`` (one process of several); the whole batch's draws
+    are made and this process's rows taken, so the processes together
+    draw what one process draws for the whole batch."""
+    first, total = rows or (0, x.shape[0])
+    draw = torch.rand((total,) + (1,) * (x.ndim - 1), device=x.device,
+                      generator=generator)[first:first + x.shape[0]]
     return draw < 1.0 - rate
 
 
@@ -249,13 +282,14 @@ def drop_path(x, rate, keep):
 
 
 def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
-                      keep=None):
+                      keep=None, tp=None):
     """Pre-LN residual attention block (reference ``:1027-1028``), with
     stochastic depth on both branches in training when a rate and the
     branches' two keep masks ``keep`` (:func:`drop_path_keep`, drawn by the
     caller, so that a rematerialised block's recomputation drops the same
     samples) are given. A quantized block without drop-path at ``L >=
-    int8_min_seq()`` runs :func:`int8_block`."""
+    int8_min_seq()`` runs :func:`int8_block`. ``tp``: the model group of
+    tensor parallelism (:func:`attention`, :func:`mlp`)."""
     dropping = drop_path_rate > 0.0 and keep is not None
     if "attn.in_proj_weight_int8" in p and not dropping \
             and x.shape[1] >= int8_min_seq():
@@ -265,9 +299,9 @@ def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
         return drop_path(t, drop_path_rate, keep[i]) if dropping else t
 
     x = x + dp(attention(p, layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
-                                       eps), n_head, mask), 0)
+                                       eps), n_head, mask, tp), 0)
     return x + dp(mlp(p, layer_norm(x, p["ln_2.weight"], p["ln_2.bias"],
-                                    eps)), 1)
+                                    eps), tp), 1)
 
 
 def conv2d(x, weight, stride=1, padding=0, groups=1):
@@ -285,20 +319,26 @@ BN_MOMENTUM = 0.1  # torch's default, the reference's BatchNorm2d
 
 
 def batch_norm(x, params, prefix, eps=1e-5, training=False,
-               momentum=BN_MOMENTUM):
+               momentum=BN_MOMENTUM, group=None):
     """BatchNorm over NCHW. Eval: running stats folded into an fp32
     scale/offset; returns ``y``. Training: batch statistics over N, H, W;
     returns ``(y, (new_running_mean, new_running_var))``, the new stats
-    (blended at ``momentum``) detached."""
+    (blended at ``momentum``) detached. With a process ``group`` the
+    statistics are the global batch's: ``E[x]`` and ``E[x^2]`` averaged
+    over the group (its processes hold equal batches) through a
+    differentiable all-reduce, and the unbiased variance counts every
+    process's rows (JAX's ``axis_name`` branch)."""
     if training:
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+        moments = torch.stack([xf.mean(dim=(0, 2, 3)),
+                               xf.square().mean(dim=(0, 2, 3))])
+        mean, mean_sq = all_reduce_mean(moments, group).unbind(0)
+        var = mean_sq - mean.square()
         y = (xf - mean[None, :, None, None]) \
             * torch.rsqrt(var + eps)[None, :, None, None]
         y = params[f"{prefix}.weight"].float()[None, :, None, None] * y \
             + params[f"{prefix}.bias"].float()[None, :, None, None]
-        n = x.numel() // x.shape[1]
+        n = x.numel() // x.shape[1] * group_size(group)
         unbiased = var.detach() * (n / max(n - 1, 1))
         new_stats = (
             (1 - momentum) * params[f"{prefix}.running_mean"]

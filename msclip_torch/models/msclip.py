@@ -182,8 +182,8 @@ def _not_ported(what: str, roadmap: str):
 
 def _reject_unported(config, custom: _KeyRecorder) -> None:
     """Raise for every configured feature outside the ported MS-CLIP-S
-    paths (zero-shot eval, the one-card train step), naming the ROADMAP
-    item that ports it."""
+    paths (eval, serving, the multi-process train step), naming the
+    ROADMAP item that ports it."""
     text = config.MODEL.SPEC.TEXT
     if text.get("STYLE", "clip") != "clip" or \
             text.get("TOKENIZER", "clip") != "clip":
@@ -238,13 +238,16 @@ def _reject_unported(config, custom: _KeyRecorder) -> None:
             "TPU.INT8_EVAL and TPU.USE_FUSED_BLOCK are mutually exclusive "
             "(the bf16 half-block megakernel reads full-precision "
             "weights; msclip_tpu/models/quantize.py:71-75)")
-    # training features outside the one-card train step
-    for key, what in (("SHARDED_LOSS", "the sharded InfoNCE loss"),
-                      ("RING_LOSS", "the ring InfoNCE loss"),
-                      ("ZERO1", "ZeRO-1 optimizer sharding"),
-                      ("FSDP", "FSDP parameter sharding")):
-        if config.TPU.get(key, False):
-            _not_ported(f"{what} (TPU.{key})", "M7")
+    if int(config.TPU.get("MESH_MODEL", 1)) > 1:
+        for key, why in (
+                ("INT8_EVAL", "the int8 eval path quantizes each whole GEMM "
+                 "weight a row on one process"),
+                ("USE_FUSED_BLOCK", "the fused half-block kernels (K5, K6) "
+                 "take a whole E=768 block, every head and both "
+                 "projections, in one launch")):
+            if config.TPU.get(key, False):
+                raise ValueError(f"TPU.{key} cannot run with tensor "
+                                 f"parallelism (TPU.MESH_MODEL > 1): {why}")
 
 
 def spec_from_config(config) -> MSClipSpec:
@@ -430,14 +433,20 @@ def _block_fn(spec: MSClipSpec, dropping: bool = False):
 
 
 def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
-                 bn: S.BNState | None = None, generator=None):
+                 bn: S.BNState | None = None, generator=None, rows=None,
+                 tp=None):
     """``[B, H, W, 3]`` preprocessed images -> ``[B, embed_dim]``: stem ->
     tokens -> +CLS/+pos/ln_pre -> trunk blocks with the parallel branch
     fused in at the lateral layers -> CLS pool -> ln_post -> proj.
 
     ``bn``: the BatchNorm context (eval when None). ``generator``: a
     ``torch.Generator`` on the images' device that drives DropPath
-    (``spec.vision_drop_path``) in the trunk blocks; None turns it off."""
+    (``spec.vision_drop_path``) in the trunk blocks; None turns it off.
+    ``rows=(first, total)``: the images are rows ``first ..`` of a global
+    batch of ``total``, whose DropPath masks are drawn whole
+    (``layers.drop_path_keep``). ``tp``: the model group of tensor
+    parallelism, whose process holds its part of each trunk block
+    (``parallel/mesh.split_for_model``)."""
     bn = bn or S.BNState()
     # NCHW, contiguous: the CPU build's oneDNN conv backward corrupts the
     # heap when the stem's input keeps the permuted (channels-last) strides
@@ -472,11 +481,12 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
         keep = None
         if dropping:  # drawn here, in block order, for both branches
             keep = tuple(L.drop_path_keep(tokens, spec.vision_drop_path,
-                                          generator) for _ in range(2))
+                                          generator, rows)
+                         for _ in range(2))
         tokens = block(
             L.block_params(params, f"visual.transformer.resblocks.{idx}"),
             tokens, spec.vision_heads, None,
-            drop_path_rate=spec.vision_drop_path, keep=keep)
+            drop_path_rate=spec.vision_drop_path, keep=keep, tp=tp)
 
     pooled = _pool(tokens, spec)
     pooled = L.layer_norm(pooled, params["visual.ln_post.weight"],
@@ -485,17 +495,18 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
     return L.l2_normalize(feats) if normalize else feats
 
 
-def encode_text(params, spec: MSClipSpec, tokens, *, normalize=True):
+def encode_text(params, spec: MSClipSpec, tokens, *, normalize=True,
+                tp=None):
     """``[B, 77]`` token ids -> ``[B, embed_dim]``: embedding + positional,
     causal blocks (shared ones read the visual trunk), EOT pooling,
-    ln_final, text projection."""
+    ln_final, text projection. ``tp`` as :func:`encode_image`'s."""
     x = params["token_embedding.weight"][tokens.long()].to(spec.dtype)
     x = x + params["positional_embedding"].to(spec.dtype)
     mask = L.build_causal_mask(spec.context_length, device=x.device)
     block = _block_fn(spec)
     for i in range(spec.text_layers):
         x = block(resolve_text_block(params, spec, i), x, spec.text_heads,
-                  mask)
+                  mask, tp=tp)
     if spec.pool_type != "default":
         pooled = x.mean(dim=1)
     else:

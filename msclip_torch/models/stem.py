@@ -47,18 +47,22 @@ class BNState:
     ``training=False``: the running statistics are read. ``training=True``:
     batch statistics are used and the new running statistics, blended at
     ``momentum`` (the SWA BN refresh sweeps it), are recorded in
-    ``updates`` as ``{prefix: (running_mean, running_var)}``."""
+    ``updates`` as ``{prefix: (running_mean, running_var)}``. With a
+    process ``group`` (the data group of a multi-process step) the batch
+    statistics are those of the group's global batch."""
 
     training: bool = False
     updates: dict = field(default_factory=dict)
     momentum: float = BN_MOMENTUM
+    group: object = None  # the data group: global-batch statistics
 
     def __call__(self, x, params, prefix, eps=1e-5):
         if not self.training:
             return batch_norm(x, params, prefix, eps)
         y, self.updates[prefix] = batch_norm(x, params, prefix, eps,
                                              training=True,
-                                             momentum=self.momentum)
+                                             momentum=self.momentum,
+                                             group=self.group)
         return y
 
 

@@ -157,11 +157,12 @@ def _forward(qkv, n_head, mask):
     B, L, three_e = qkv.shape
     lib = _fwd_lib()
     out = torch.empty(B, L, three_e // 3, dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.msclip_attention_fwd(
-        qkv.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), B, L, three_e // 3, n_head, _DTYPE_CODE[qkv.dtype],
-        stream)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.msclip_attention_fwd(
+            qkv.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), B, L, three_e // 3, n_head, _DTYPE_CODE[qkv.dtype],
+            stream)
     cuda_build.check(lib, err, "msclip_attention_fwd")
     fused_attention_qkv.launches += 1
     return out
@@ -178,11 +179,12 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
     B, L, three_e = qkv.shape
     lib = _bwd_lib()
     dqkv = torch.empty_like(qkv)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = lib.msclip_attention_bwd(
-        qkv.data_ptr(), g.data_ptr(),
-        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
-        B, L, three_e // 3, n_head, _DTYPE_CODE[qkv.dtype], stream)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.msclip_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(),
+            None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+            B, L, three_e // 3, n_head, _DTYPE_CODE[qkv.dtype], stream)
     cuda_build.check(lib, err, "msclip_attention_bwd")
     fused_attention_qkv_bwd.launches += 1
     return dqkv

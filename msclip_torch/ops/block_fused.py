@@ -262,12 +262,14 @@ def fused_attention_halfblock(x: torch.Tensor, p, n_head: int,
     plan = attn_plan(B, L, x.dtype, sm_count(x.device))
     ws = torch.empty(plan["slots"] * plan["slot"], dtype=x.dtype,
                      device=x.device)
-    err = lib.msclip_attention_halfblock(
-        x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
-        b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), plan["slot"], plan["slots"], B, L, plan["S"], eps,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = lib.msclip_attention_halfblock(
+            x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
+            b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), plan["slot"], plan["slots"], B, L, plan["S"], eps,
+            _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_attention_halfblock")
     fused_attention_halfblock.launches += 1
     return out
@@ -297,12 +299,13 @@ def fused_mlp_halfblock(x: torch.Tensor, p, eps: float = 1e-12
     rows = x.shape[0] * x.shape[1]
     plan = mlp_plan(rows, x.dtype, sm_count(x.device))
     ws = torch.empty(plan["elems"], dtype=x.dtype, device=x.device)
-    err = lib.msclip_mlp_halfblock(
-        x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
-        b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), plan["slots"], plan["slot_rows"],
-        plan["big"], rows, eps, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = lib.msclip_mlp_halfblock(
+            x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
+            b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), plan["slots"], plan["slot_rows"],
+            plan["big"], rows, eps, _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_mlp_halfblock")
     fused_mlp_halfblock.launches += 1
     return out

@@ -6,6 +6,12 @@ loaded with ``ctypes``. The library's file name carries a hash of its source,
 of the shared headers ``csrc/*.cuh`` and of the flags, so an edited source or
 header is rebuilt and a stale library is never loaded. Nothing is built at import time: machines without ``nvcc`` (the CPU
 test runs) never reach this module's build.
+
+Each library links ``nvcc``'s static CUDA runtime, which launches on the
+calling thread's current device, so every wrapper makes its tensor's
+device current (``torch.cuda.device``) around the launch: a process that
+drives another card than ``cuda:0``, or several cards, launches on the
+right one. One card cannot show it; the ``gpu`` test of two cards does.
 """
 
 from __future__ import annotations

@@ -220,11 +220,14 @@ def attention_halfblock_variant(x: torch.Tensor, p, variant: str,
     out = torch.empty_like(x)
     B, L, _ = x.shape
     G, slot, ws = _workspace(x, tb)
-    err = lib.msclip_attention_halfblock_variant(
-        x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
-        b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), slot, B, L, tb, G, eps, _VARIANT_CODE[variant],
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = lib.msclip_attention_halfblock_variant(
+            x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
+            b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+            out.data_ptr(),
+            ws.data_ptr(), slot, B, L, tb, G, eps, _VARIANT_CODE[variant],
+            _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_attention_halfblock_variant")
     attention_halfblock_variant.launches += 1
     return out
@@ -257,10 +260,12 @@ def core_out_halfblock(x: torch.Tensor, qkv: torch.Tensor, p,
     lib = _lib()
     out = torch.empty_like(x)
     G, slot, ws = _workspace(x, tb, core_out=True)
-    err = lib.msclip_core_out_halfblock(
-        x.data_ptr(), qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), slot, B, L, tb, G, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = lib.msclip_core_out_halfblock(
+            x.data_ptr(), qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), slot, B, L, tb, G,
+            _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_core_out_halfblock")
     core_out_halfblock.launches += 1
     return out

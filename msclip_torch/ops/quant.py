@@ -125,10 +125,12 @@ def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _check_cuda_input(x, weight, bias)
     q, s = _outputs(x)
     lib = _lib()
-    err = lib.msclip_ln_quant(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(),
-        s.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], eps,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = lib.msclip_ln_quant(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(),
+            s.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], eps,
+            _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_ln_quant")
     ln_quant.launches += 1
     return q, s
@@ -147,10 +149,11 @@ def gelu_quant(x: torch.Tensor):
     _check_cuda_input(x)
     q, s = _outputs(x)
     lib = _lib()
-    err = lib.msclip_gelu_quant(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // x.shape[-1],
-        x.shape[-1], _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = lib.msclip_gelu_quant(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), x.numel() // x.shape[-1],
+            x.shape[-1], _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_gelu_quant")
     gelu_quant.launches += 1
     return q, s

@@ -11,7 +11,7 @@ counterpart of ``msclip_tpu/serve``, the JAX package's deployment path).
   ``/v1/embed/image``, ``/v1/embed/text``, ``/v1/classify``, ``/v1/rank``,
   ``/healthz`` and ``/stats`` over a loaded bundle.
 * :mod:`.live`: the same ``ServingModel`` built in process from a model
-  and its parameters, with no bundle (one device; ROADMAP M7 for more).
+  and its parameters, with no bundle, on one device or split over several.
 
 Recipe: ``python -m msclip_torch.tools.export_serving`` then
 ``python -m msclip_torch.tools.serve --bundle <dir>`` (README).

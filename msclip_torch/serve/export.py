@@ -252,6 +252,12 @@ class EagerBucket:
     def __call__(self, chunk: np.ndarray) -> np.ndarray:
         return self._fn(_tensor(chunk).to(self._device)).cpu().numpy()
 
+    def launch(self, chunk: np.ndarray) -> None:
+        self._out = self(chunk)
+
+    def collect(self) -> np.ndarray:
+        return self._out
+
 
 class GraphBucket:
     """One tower at one bucket on a CUDA device: static buffers and a CUDA
@@ -288,9 +294,18 @@ class GraphBucket:
 
     def __call__(self, chunk: np.ndarray) -> np.ndarray:
         """Copy ``chunk`` in, replay, copy the rows out."""
+        self.launch(chunk)
+        return self.collect()
+
+    def launch(self, chunk: np.ndarray) -> None:
+        """Copy ``chunk`` in and queue the replay on the tower's stream."""
         with torch.cuda.stream(self.stream):
             self.input.copy_(_tensor(chunk))
             self.graph.replay()
+
+    def collect(self) -> np.ndarray:
+        """The last replay's rows, once it has run."""
+        with torch.cuda.stream(self.stream):
             out = self.output.cpu().numpy()
         self.replays += 1
         return out
@@ -304,12 +319,35 @@ class GraphBucket:
             return self._fn(x).cpu().numpy()
 
 
+class SplitBucket:
+    """One bucket over several devices: the chunk's rows cut into equal
+    blocks, one a device, every block launched before any is read back,
+    the outputs concatenated in order."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def __call__(self, chunk: np.ndarray) -> np.ndarray:
+        for part, block in zip(self.parts, np.split(chunk, len(self.parts))):
+            part.launch(block)
+        return np.concatenate([part.collect() for part in self.parts])
+
+
 def build_serving_model(spec: MSClipSpec, params: dict, manifest: dict,
                         classifier: Optional[np.ndarray],
                         device: torch.device) -> "ServingModel":
     """The :class:`ServingModel` of ``spec`` over the fp32 folded
     ``params``, cast to the spec's compute dtype on ``device``: a CUDA
     graph per tower and bucket on a card, eager buckets on the CPU."""
+    image_fns, text_fns = device_buckets(spec, params, manifest, device,
+                                         manifest["buckets"])
+    return ServingModel(manifest, image_fns, text_fns, classifier)
+
+
+def device_buckets(spec: MSClipSpec, params: dict, manifest: dict,
+                   device: torch.device, buckets):
+    """``(image_fns, text_fns)``, ``{bucket: runner}`` for each tower on
+    ``device`` (a CUDA graph a bucket on a card, eager on the CPU)."""
     set_fp32_precision(spec)
     model = MSClipModel(spec, cast_params(params, spec.dtype)).to(device)
     mean = torch.tensor(manifest["mean"], dtype=torch.float32, device=device)
@@ -323,7 +361,7 @@ def build_serving_model(spec: MSClipSpec, params: dict, manifest: dict,
     def text_fn(tokens):
         return model.encode_text(tokens).float()
 
-    buckets = sorted(manifest["buckets"])
+    buckets = sorted(buckets)
     if device.type == "cuda":
         streams = {"image": torch.cuda.Stream(device),
                    "text": torch.cuda.Stream(device)}
@@ -336,7 +374,7 @@ def build_serving_model(spec: MSClipSpec, params: dict, manifest: dict,
     else:
         image_fns = {b: EagerBucket(image_fn, device) for b in buckets}
         text_fns = {b: EagerBucket(text_fn, device) for b in buckets}
-    return ServingModel(manifest, image_fns, text_fns, classifier)
+    return image_fns, text_fns
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,15 @@
 Builds the same :class:`~.export.ServingModel` as a bundle gives, directly
 from a model and its parameters, with no bundle on disk: BN folded, the
 parameters cast to the spec's compute dtype, and on a card one CUDA graph
-captured per tower and bucket (``export.build_serving_model``). The
-batcher and HTTP layers are unchanged: ``InferenceServer`` takes either
-model.
+captured per tower and bucket (``export.device_buckets``). The batcher and
+HTTP layers are unchanged: ``InferenceServer`` takes either model.
 
-The JAX function shards each bucket's batch over every local device, its
-buckets rounded up to multiples of the device count. Here one device
-serves, so every bucket is such a multiple already: batch sharding across
-cards is multi-card work (ROADMAP M7), and more than one device raises.
+Over several devices, as the JAX function shards each bucket's batch over
+every local device: one replica of the towers a device (a CUDA graph a
+device, tower and bucket on cards), the buckets rounded up to multiples
+of the device count (JAX's ``:52-55``), and each batch cut into equal
+blocks, one a device, launched on every device before any is read back,
+the outputs concatenated in order (``export.SplitBucket``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import numpy as np
 from .export import (
     DEFAULT_BUCKETS,
     ServingModel,
+    SplitBucket,
     build_serving_model,
+    device_buckets,
     serving_manifest,
     spec_and_params,
 )
@@ -41,23 +44,28 @@ def live_serving_model(
     devices=None,
 ) -> ServingModel:
     """A :class:`ServingModel` over ``model_or_spec`` (an ``MSClipModel``,
-    or an ``MSClipSpec`` with ``params``) on ``devices``: one device,
-    ``cuda`` unless the caller passes another (``["cpu"]``)."""
-    from ..eval.zero_shot import resolve_device
+    or an ``MSClipSpec`` with ``params``) on ``devices``: ``cuda`` (this
+    process's card) unless the caller passes others (``["cpu"]``, or
+    several: ``["cuda:0", "cuda:1"]``, ``["cpu", "cpu"]``)."""
+    from ..eval.device import resolve_device
 
-    devices = list(devices) if devices is not None else ["cuda"]
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"live serving over {len(devices)} devices shards each batch "
-            "across cards, which is not ported to msclip_torch yet "
-            "(ROADMAP M7); serve on one device, or run one server per card")
-    device = resolve_device(devices[0])
+    devices = [resolve_device(d) for d in (devices or ["cuda"])]
+    n = len(devices)
     spec, params = spec_and_params(model_or_spec, params)
-    manifest = {**serving_manifest(spec, buckets or DEFAULT_BUCKETS,
-                                   image_size, mean, std),
-                "live": True, "devices": 1}
+    # every bucket a multiple of the device count, so each splits evenly
+    rounded = sorted({-(-int(b) // n) * n
+                      for b in (buckets or DEFAULT_BUCKETS)})
+    manifest = {**serving_manifest(spec, rounded, image_size, mean, std),
+                "live": True, "devices": n}
     if classnames is not None:
         manifest["classnames"] = list(classnames)
     clf = np.asarray(classifier, np.float32) if classifier is not None \
         else None
-    return build_serving_model(spec, params, manifest, clf, device)
+    if n == 1:
+        return build_serving_model(spec, params, manifest, clf, devices[0])
+    replicas = [device_buckets(spec, params, manifest, d,
+                               [b // n for b in rounded]) for d in devices]
+    image_fns, text_fns = (
+        {b: SplitBucket([r[t][b // n] for r in replicas]) for b in rounded}
+        for t in (0, 1))
+    return ServingModel(manifest, image_fns, text_fns, clf)

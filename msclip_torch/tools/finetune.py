@@ -11,7 +11,11 @@ over ``TRAIN.BEGIN_EPOCH .. END_EPOCH`` with mixup/cutmix (``AUG.MIXUP``,
 ``AUG.MIXCUT``, ``AUG.MIXUP_SWITCH_PROB``) and label smoothing
 (``LOSS.LABEL_SMOOTHING``); then top-1 on the same dataset's eval split
 (the test split stands in for the training set, as in the JAX tool).
-Runs on the CUDA card unless ``--device cpu`` is given.
+Runs on the CUDA card unless ``--device cpu`` is given. Under ``torchrun``
+``FINETUNE.BATCH_SIZE`` is the global batch: each process trains on its
+equal stripe of it (its own mixup draws) and the head's gradients are
+averaged over the processes; each evaluates its stripe, top-1 reduced by
+sum and count, and rank 0 prints the result.
 """
 
 from __future__ import annotations
@@ -22,13 +26,22 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import get_default_config, update_config
 from ..data.loader import BatchLoader
 from ..data.transforms import dataset_normalizer, mixup_cutmix
 from ..eval.zero_shot import load_eval_model, make_dataset, resolve_device
 from ..models.msclip import build_spec
+from ..train.optim import all_reduce_mean_
 from ..utils import metrics as M
+from ..utils.comm import (
+    comm,
+    gather_arrays,
+    init_distributed,
+    reduce_dict,
+    shutdown,
+)
 from ..utils.logging import create_logger
 
 
@@ -37,6 +50,8 @@ def run_finetune(config, device="cuda"):
     (``w [E, n_classes]``, ``b``), the loss of each step and the eval
     logits with their labels."""
     device = resolve_device(device)
+    init_distributed(device)
+    world = comm.world_size
     spec = build_spec(config)
     model = load_eval_model(config, spec, device, fold_bn=False, int8=False)
     n_classes = config.DATASET.get("NUM_CLASSES", 1000)
@@ -55,9 +70,10 @@ def run_finetune(config, device="cuda"):
         with torch.no_grad():  # frozen tower
             return model.encode_image(pre(images), normalize=False).float()
 
-    loader = BatchLoader(train_ds, config.FINETUNE.BATCH_SIZE,
+    loader = BatchLoader(train_ds, config.FINETUNE.BATCH_SIZE // world,
                          workers=config.WORKERS, shuffle=True, drop_last=True,
-                         seed=config.TPU.SEED)
+                         seed=config.TPU.SEED, shard=(comm.rank, world),
+                         equal_shards=True)
     losses = []
     for epoch in range(config.TRAIN.BEGIN_EPOCH, config.TRAIN.END_EPOCH):
         loader.set_epoch(epoch)
@@ -76,6 +92,9 @@ def run_finetune(config, device="cuda"):
             loss = -(soft * logp).sum(-1).mean()
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if world > 1:
+                all_reduce_mean_([head["w"].grad, head["b"].grad],
+                                 dist.group.WORLD)
             opt.step()
             epoch_losses.append(loss.detach())
         epoch_losses = [float(x) for x in epoch_losses]
@@ -86,7 +105,8 @@ def run_finetune(config, device="cuda"):
     top1 = M.AverageMeter()
     all_logits, all_labels = [], []
     for batch in BatchLoader(train_ds, config.TEST.BATCH_SIZE_PER_GPU,
-                             workers=config.WORKERS):
+                             workers=config.WORKERS,
+                             shard=(comm.rank, world)):
         images = torch.from_numpy(batch["image"]).to(device)
         with torch.no_grad():
             logits = (features(images) @ head["w"] + head["b"]).cpu().numpy()
@@ -95,10 +115,12 @@ def run_finetune(config, device="cuda"):
                     int(mask.sum()))
         all_logits.append(logits[mask])
         all_labels.append(np.asarray(batch["label"])[mask])
-    return top1.avg, {
+    sums = reduce_dict({"sum": top1.sum, "count": top1.count},
+                       average=False)
+    return sums["sum"] / max(sums["count"], 1), {
         "head": {k: v.detach().cpu() for k, v in head.items()},
-        "losses": losses, "logits": np.concatenate(all_logits),
-        "labels": np.concatenate(all_labels)}
+        "losses": losses, "logits": gather_arrays(np.concatenate(all_logits)),
+        "labels": gather_arrays(np.concatenate(all_labels))}
 
 
 def parse_args(argv=None):
@@ -117,10 +139,14 @@ def main(argv=None):
     config = get_default_config()
     update_config(config, args.ds)
     update_config(config, args.model, opts=args.opts)
-    resolve_device(args.device)  # no card: raise before writing anything
+    # no card: raise before writing anything
+    init_distributed(resolve_device(args.device))
     create_logger(config, args.model, "finetune")
     top1, _ = run_finetune(config, device=args.device)
-    print(f"RESULT finetune top1={top1:.3f}")
+    main_process = comm.is_main_process()
+    shutdown()
+    if main_process:
+        print(f"RESULT finetune top1={top1:.3f}")
     return top1
 
 

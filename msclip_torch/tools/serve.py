@@ -9,7 +9,12 @@ Bundle mode (a bundle written by ``msclip_torch.tools.export_serving``):
 Live mode (the model built in process from its config):
 
     python -m msclip_torch.tools.serve --model <model.yaml|json> \\
-        [--classify-prompts imagenet] [--buckets 1,4,16,64] [KEY VALUE ...]
+        [--classify-prompts imagenet] [--buckets 1,4,16,64] \\
+        [--device cuda:0,cuda:1] [KEY VALUE ...]
+
+In live mode ``--device`` may list several devices: each batch is split
+across them (``serve/live.py``), the buckets rounded up to multiples of
+their count.
 
 Before it accepts traffic it captures a CUDA graph per tower and bucket
 (``cuda``, the default) and calls every bucket once; then it prints
@@ -26,7 +31,7 @@ import logging
 
 import numpy as np
 
-from ..eval.zero_shot import resolve_device
+from ..eval.device import resolve_device
 
 
 def parse_args(argv=None):
@@ -44,13 +49,15 @@ def parse_args(argv=None):
                    help="dynamic-batching window")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
-                        "versions eagerly)")
+                        "versions eagerly); live mode takes a comma-"
+                        "separated list")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
 
-def load_live(args, device):
-    """A live ServingModel from a model config on ``device``."""
+def load_live(args, devices):
+    """A live ServingModel from a model config on ``devices`` (the
+    classifier is built on the first)."""
     from ..config import get_default_config, update_config
     from ..eval.checkpoint_load import load_model_params
     from ..models.msclip import build_spec
@@ -65,14 +72,14 @@ def load_live(args, device):
     classifier = classnames = None
     if args.classify_prompts:
         classifier, classnames = build_classifier(
-            spec, params, args.classify_prompts, device)
+            spec, params, args.classify_prompts, devices[0])
     buckets = [int(b) for b in args.buckets.split(",") if b] or None
     return live_serving_model(
         spec, params, buckets=buckets,
         image_size=config.TEST.IMAGE_SIZE[0],
         classifier=classifier, classnames=classnames,
         mean=tuple(config.INPUT.MEAN), std=tuple(config.INPUT.STD),
-        devices=[device],
+        devices=devices,
     )
 
 
@@ -80,7 +87,10 @@ def main(argv=None):
     args = parse_args(argv)
     if bool(args.bundle) == bool(args.model):
         raise SystemExit("pass exactly one of --bundle or --model")
-    device = resolve_device(args.device)
+    devices = [resolve_device(d) for d in args.device.split(",")]
+    if args.bundle and len(devices) > 1:
+        raise SystemExit("a bundle serves on one device: run one server a "
+                         "card, or --model for several devices")
     logging.basicConfig(level=logging.INFO)
 
     from ..serve import load_bundle
@@ -88,10 +98,10 @@ def main(argv=None):
 
     if args.bundle:
         logging.info(f"=> loading bundle {args.bundle}")
-        model = load_bundle(args.bundle, device=device)
+        model = load_bundle(args.bundle, device=devices[0])
     else:
         logging.info(f"=> building live model from {args.model}")
-        model = load_live(args, device)
+        model = load_live(args, devices)
     # one call per bucket before traffic (on a card: each graph replayed)
     for b in model.buckets:
         model.encode_image(

@@ -1,26 +1,39 @@
-"""Contrastive training of MS-CLIP on one card, the single-process driver of
-the JAX package's ``tools/train.py``.
+"""Contrastive training of MS-CLIP, the driver of the JAX package's
+``tools/train.py``.
 
     python -m msclip_torch.tools.train --cfg <config.yaml|json> \\
         [--device cuda|cpu] [KEY VALUE ...]
+    torchrun --nproc_per_node N -m msclip_torch.tools.train --cfg ... \\
+        [TPU.SHARDED_LOSS True] [TPU.RING_LOSS True] [TPU.ZERO1 True] ...
 
-Runs on the CUDA card unless ``--device cpu`` is given. Weights start from
+Runs on the CUDA card unless ``--device cpu`` is given. Under ``torchrun``
+(``WORLD_SIZE`` set) every process joins the process group (NCCL on the
+card, gloo with ``--device cpu``, ``utils/comm.init_distributed``) and
+drives its own card, ``cuda:LOCAL_RANK``; the global batch is
+``TRAIN.BATCH_SIZE_PER_GPU x WORLD_SIZE`` (``tools/train.py:68-76``),
+each data rank loads its equal stripe of the epoch's order, and the step
+is the global batch's (``train/trainer.py``). Weights start from
 ``TPU.SEED``; each epoch draws its order with ``DATASET.SAMPLER``; the
 pairs come from tar shards, TSV lists, a caption folder or the synthetic
 set (``data/pairs.py``). Under ``OUTPUT_DIR/<dataset>/<config>/`` the CLI
-writes its log and ``checkpoints/``: a step checkpoint every
-``TRAIN.SAVE_EVERY_STEPS`` steps (but on an epoch's last step) and at each
-epoch's end, the EMA/SWA shadows as ``checkpoints/{ema,swa}``; with
-``TRAIN.AUTO_RESUME`` a rerun resumes from the latest checkpoint and skips
-the batches its epoch already saw. ``TPU.ACCUM_STEPS`` (GradCache),
-``TPU.REMAT``, ``TRAIN.LARC``, ``SWA.*`` (with ``SWA.FROZEN_BN``, else a
-BN refresh of the averaged weights at the end) and
-``TRAIN.DETECT_ANOMALY`` apply as in the JAX driver. Every ``PRINT_FREQ``
-steps the loss and the samples/s are logged; one closing ``RESULT`` line
-gives the steps, the final loss, the samples/s end to end, the peak device
-memory and the loss of every step run. Multi-card training waits for a
-later slice (ROADMAP M7), and so does ``MSCLIP_TRACE`` (M13), which
-raises.
+writes its log (a file per rank) and ``checkpoints/`` (rank 0): a step
+checkpoint every ``TRAIN.SAVE_EVERY_STEPS`` steps (but on an epoch's last
+step) and at each epoch's end, the EMA/SWA shadows as
+``checkpoints/{ema,swa}``; with ``TRAIN.AUTO_RESUME`` a rerun resumes from
+the latest checkpoint, on any number of processes, and skips the batches
+its epoch already saw. ``TPU.ACCUM_STEPS`` (GradCache), ``TPU.REMAT``,
+``TPU.SHARDED_LOSS``/``TPU.LOSS_CHUNK``/``TPU.RING_LOSS`` (the loss),
+``TPU.ZERO1``, ``TPU.FSDP``, ``TRAIN.LARC``, ``SWA.*`` (with
+``SWA.FROZEN_BN``, else a BN refresh of the averaged weights at the end,
+on rank 0) and ``TRAIN.DETECT_ANOMALY`` apply as in the JAX driver. Every
+``PRINT_FREQ`` steps the loss and the samples/s are logged; rank 0 prints
+one closing ``RESULT`` line: the steps, the final loss, the samples/s end
+to end, the peak device memory, the world, the global batch, the bytes
+this process keeps between steps, its K1/K2 launches, each step's ms and
+the loss of every step run.
+``TPU.MESH_MODEL > 1`` splits every transformer block over that many
+processes (tensor parallelism; each model group shares its rows).
+``MSCLIP_TRACE`` waits for ROADMAP M13 and raises.
 """
 
 from __future__ import annotations
@@ -36,16 +49,14 @@ import torch
 from ..config import get_default_config, update_config
 from ..data.loader import BatchLoaderPairs
 from ..data.pairs import make_train_dataset
-from ..eval.zero_shot import resolve_device
+from ..eval.device import resolve_device
 from ..models.msclip import build_spec, init_params
+from ..ops import attention as A
+from ..parallel.mesh import gather_over_model, mesh_from_config
 from ..train.averaging import swa_refresh_bn, swa_should_update, swa_update
-from ..train.checkpoint import (
-    CheckpointManager,
-    auto_resume,
-    optimizer_state_by_name,
-    save_params,
-)
+from ..train.checkpoint import CheckpointManager, auto_resume, save_params
 from ..train.trainer import init_train_state, make_train_step_from_config
+from ..utils.comm import comm, init_distributed, shutdown
 from ..utils.logging import create_logger
 
 
@@ -54,38 +65,54 @@ def _clone(params):
 
 
 def train(config, device="cuda", out_dir=None):
-    """Run ``TRAIN.BEGIN_EPOCH .. END_EPOCH`` of the config on ``device``.
-    With ``out_dir`` the checkpoints go to ``out_dir/checkpoints`` (and a
-    run resumes from them under ``TRAIN.AUTO_RESUME``); without it nothing
-    is written. Returns ``(state, stats)``: the final :class:`TrainState`
-    and ``steps`` (run by this call), ``first_step`` (the global step it
-    started from), ``losses`` (one float per step), ``samples_per_s``
-    (end to end, host clock around the whole loop), ``seconds``,
-    ``step_ms`` (each step's end after the previous one's, the first after
-    the loop's start, so it holds the loader's fill; on the device's clock
-    on CUDA) and ``peak_mem_gb`` (CUDA only, else None)."""
+    """Run ``TRAIN.BEGIN_EPOCH .. END_EPOCH`` of the config on ``device``,
+    in every process of a ``torchrun`` launch (each joins the group here
+    if the caller has not). With ``out_dir`` the checkpoints go to
+    ``out_dir/checkpoints`` (and a run resumes from them under
+    ``TRAIN.AUTO_RESUME``); without it nothing is written. Returns
+    ``(state, stats)``: the final :class:`TrainState` (every tensor
+    whole) and ``steps`` (run by this call), ``first_step`` (the global
+    step it started from), ``losses`` (the global batch's, one float per
+    step), ``samples_per_s`` (global samples end to end, host clock
+    around the whole loop), ``seconds``, ``step_ms`` (each step's end
+    after the previous one's, the first after the loop's start, so it
+    holds the loader's fill; on the device's clock on CUDA),
+    ``peak_mem_gb`` (CUDA only, else None), ``world``, ``global_batch``,
+    ``state_bytes`` (what this process keeps between steps for the
+    trained tensors and the optimizer) and ``launches`` (this process's
+    attention kernel launches, K1 and K2, during the run; 0 on the CPU).
+    ``CUDNN.DETERMINISTIC`` sets ``torch.backends.cudnn.deterministic``
+    for the run."""
     device = resolve_device(device)
     if os.environ.get("MSCLIP_TRACE"):
         raise NotImplementedError(
             "MSCLIP_TRACE: the train loop's profiler trace is not ported "
             "(ROADMAP M13); unset it")
     spec = build_spec(config)
-    step_fn = make_train_step_from_config(config, spec)  # refuses an
-    # eval-only spec before any work
+    init_distributed(device)
+    torch.backends.cudnn.deterministic = bool(config.CUDNN.DETERMINISTIC)
+    launched = (A.fused_attention_qkv.launches,
+                A.fused_attention_qkv_bwd.launches)
+    mesh = mesh_from_config(config)
+    step_fn = make_train_step_from_config(config, spec, mesh=mesh)
+    # (refuses an eval-only spec before any work)
     if config.TRAIN.DETECT_ANOMALY:
         # reference lib/config/default.py:151 (torch autograd anomaly mode)
         torch.autograd.set_detect_anomaly(True)
         logging.info("=> TRAIN.DETECT_ANOMALY: autograd anomaly mode on")
     dataset = make_train_dataset(config)
-    batch = config.TRAIN.BATCH_SIZE_PER_GPU
+    global_batch = config.TRAIN.BATCH_SIZE_PER_GPU * comm.world_size
+    batch = global_batch // mesh.data  # a model group shares its rows
     loader = BatchLoaderPairs(dataset, batch, workers=config.WORKERS,
                               shuffle=config.TRAIN.SHUFFLE,
                               sampler=config.DATASET.SAMPLER,
-                              seed=config.TPU.SEED)
-    steps_per_epoch = max(len(dataset) // batch, 1)
+                              seed=config.TPU.SEED,
+                              shard=(mesh.data_rank, mesh.data))
+    steps_per_epoch = max(len(dataset) // global_batch, 1)
     params = init_params(spec, torch.Generator().manual_seed(config.TPU.SEED))
-    state = init_train_state(config, spec, params, steps_per_epoch, device)
-    names = {id(p): k for k, p in state.model.named_parameters()}
+    state = init_train_state(config, spec, params, steps_per_epoch, device,
+                             mesh)
+    main = comm.is_main_process()
 
     ckpt = (CheckpointManager(os.path.join(out_dir, "checkpoints"))
             if out_dir else None)
@@ -105,7 +132,7 @@ def train(config, device="cuda", out_dir=None):
                 else:  # no shadow saved: anchor it to the restored weights
                     logging.info("=> no EMA shadow in checkpoint; "
                                  "re-anchoring EMA to restored weights")
-                    state.ema = _clone(state.model.params())
+                    state.ema = _clone(state.full_params())
             if "swa" in shadows:
                 swa, swa_n = shadows["swa"], int(extra.get("swa_n", 0))
             resume_skip = step % n_batches
@@ -114,15 +141,21 @@ def train(config, device="cuda", out_dir=None):
                     f"=> resume fast-forward: skipping {resume_skip} "
                     f"already-seen batches of epoch {begin_epoch}")
 
+    def whole(shadow):  # a shadow of this process's tensor-parallel parts
+        return None if shadow is None else gather_over_model(shadow, mesh)
+
     def save(epoch, force=False):
-        ckpt.save(state.step, state.model.params(),
-                  optimizer_state_by_name(state.optimizer, names),
+        ckpt.save(state.step, state.whole_params(),
+                  state.shards.full_optimizer_state(state.optimizer),
                   extra={"epoch": epoch, "swa_n": swa_n},
-                  shadows={"ema": state.ema, "swa": swa}, force=force)
+                  shadows={"ema": whole(state.ema), "swa": whole(swa)},
+                  force=force)
 
     frozen_step_fn = None
     logging.info(f"=> training on {device}: {steps_per_epoch} steps/epoch x "
-                 f"{config.TRAIN.END_EPOCH} epochs, batch {batch}")
+                 f"{config.TRAIN.END_EPOCH} epochs, global batch "
+                 f"{global_batch} ({mesh.data} data x {mesh.model} model "
+                 f"processes, {batch} rows each)")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     save_every = config.TRAIN.SAVE_EVERY_STEPS
@@ -160,7 +193,7 @@ def train(config, device="cuda", out_dir=None):
             metrics = epoch_step_fn(state, images, tokens)
             losses.append(metrics["loss"])
             mark()
-            seen += images.shape[0]
+            seen += global_batch
             if (ckpt is not None and save_every
                     and state.step % save_every == 0
                     and state.step % n_batches != 0):
@@ -175,29 +208,36 @@ def train(config, device="cuda", out_dir=None):
                     f"({seen / (time.time() - t0):.0f} samples/s)")
         if swa_should_update(epoch, config):
             if swa is None:  # the first snapshot counts as one model
-                swa, swa_n = _clone(state.model.params()), 1
+                swa, swa_n = _clone(state.full_params()), 1
             else:
-                swa_n = swa_update(swa, state.model.params(), swa_n)
+                swa_n = swa_update(swa, state.full_params(), swa_n)
         if ckpt is not None:
             # force: an epoch of no batches leaves the step where the last
             # save put it, and the epoch-end save must replace it
             save(epoch + 1, force=True)
-            for name, shadow in (("ema", state.ema), ("swa", swa)):
-                if shadow is not None:
+            for name, shadow in (("ema", whole(state.ema)),
+                                 ("swa", whole(swa))):
+                if shadow is not None and main:
                     save_params(os.path.join(ckpt.directory, name), shadow)
+            comm.synchronize()
         logging.info(f"=> epoch {epoch} done in {time.time() - te:.1f}s")
     losses = [float(x) for x in losses]  # syncs the device
     seconds = time.time() - t0
     step_ms = [a.elapsed_time(b) if device.type == "cuda" else (b - a) * 1e3
                for a, b in zip(marks, marks[1:])]
-    if swa is not None and not config.SWA.FROZEN_BN:
+    swa = whole(swa)
+    if swa is not None and not config.SWA.FROZEN_BN and main:
         # the averaged weights' BN statistics are the last model's: recompute
-        # them over one pass of the training data (torch update_bn)
+        # them over one pass of the training data (torch update_bn; rank 0,
+        # over its stripe, with the whole tensors)
         logging.info("=> SWA: refreshing BN statistics over one epoch")
         swa_refresh_bn(swa, spec, (
             torch.from_numpy(b["image"]).to(device) for b in loader))
         if ckpt is not None:
             save_params(os.path.join(ckpt.directory, "swa"), swa)
+    comm.synchronize()
+    state_bytes = state.shards.stored_bytes(state.optimizer)
+    state.full_params()  # the returned model is whole
     logging.info("=> training complete")
     stats = {
         "steps": len(losses), "first_step": first_step, "losses": losses,
@@ -205,13 +245,18 @@ def train(config, device="cuda", out_dir=None):
         "samples_per_s": seen / seconds if seconds > 0 else 0.0,
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 2 ** 30
                         if device.type == "cuda" else None),
+        "world": comm.world_size, "global_batch": global_batch,
+        "state_bytes": state_bytes,
+        "launches": [A.fused_attention_qkv.launches - launched[0],
+                     A.fused_attention_qkv_bwd.launches - launched[1]],
     }
     return state, stats
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
-        description="Train an MS-CLIP model on one card (PyTorch).")
+        description="Train an MS-CLIP model (PyTorch; one process a card, "
+                    "several under torchrun).")
     parser.add_argument("--cfg", required=True,
                         help="model config (yaml or json)")
     parser.add_argument("--device", default="cuda",
@@ -226,15 +271,27 @@ def main(argv=None):
     args = parse_args(argv)
     config = get_default_config()
     update_config(config, args.cfg, opts=args.opts)
-    resolve_device(args.device)  # no card: raise before writing anything
+    init_distributed(resolve_device(args.device))  # no card: raise
+    # before writing anything
     out_dir = create_logger(config, args.cfg, "train")
     _, stats = train(config, device=args.device, out_dir=out_dir)
     peak = stats["peak_mem_gb"]
+    main_process = comm.is_main_process()
+    shutdown()
+    if not main_process:
+        return stats
+    step_ms = [round(x, 3) for x in stats["step_ms"]]
     print(f"RESULT steps={stats['steps']} "
           f"final_loss={stats['losses'][-1] if stats['losses'] else 'nan'} "
           f"samples_per_s={stats['samples_per_s']:.1f} "
           f"peak_mem_gb={'n/a' if peak is None else f'{peak:.2f}'} "
-          f"first_step={stats['first_step']} "
+          f"first_step={stats['first_step']} world={stats['world']} "
+          f"global_batch={stats['global_batch']} "
+          f"param_bytes={stats['state_bytes']['params']} "
+          f"optimizer_bytes={stats['state_bytes']['optimizer']} "
+          f"attention_launches={stats['launches'][0]},"
+          f"{stats['launches'][1]} "
+          f"step_ms={json.dumps(step_ms, separators=(',', ':'))} "
           f"losses={json.dumps(stats['losses'], separators=(',', ':'))}")
     return stats
 

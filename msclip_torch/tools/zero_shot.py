@@ -6,7 +6,8 @@
 The interface of the JAX package's ``tools/zero_shot.py``: the dataset
 config is merged, then the model config with the overrides; the log goes
 under ``OUTPUT_DIR`` (``utils/logging.create_logger``). Runs on the CUDA
-card unless ``--device cpu`` is given.
+card unless ``--device cpu`` is given; under ``torchrun`` each process
+evaluates its stripe on its own card and rank 0 prints the result.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import pprint
 
 from ..config import get_default_config, update_config
 from ..eval.zero_shot import resolve_device, run_zero_shot
+from ..utils.comm import comm, init_distributed, shutdown
 from ..utils.logging import create_logger
 
 
@@ -38,6 +40,7 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    init_distributed(device)
     config = get_default_config()
     update_config(config, args.ds)
     update_config(config, args.model, opts=args.opts)
@@ -48,9 +51,12 @@ def main(argv=None):
     logging.info(pprint.pformat(vars(args)))
     logging.info(f"=> saving logging info into: {final_output_dir}")
     value, stats = run_zero_shot(config, device=device)
-    print(f"RESULT {config.DATASET.DATASET} "
-          f"{stats['metric']}={value:.3f} "
-          f"images_per_sec={stats['images_per_sec']:.0f}")
+    main_process = comm.is_main_process()
+    shutdown()
+    if main_process:
+        print(f"RESULT {config.DATASET.DATASET} "
+              f"{stats['metric']}={value:.3f} "
+              f"images_per_sec={stats['images_per_sec']:.0f}")
     return value
 
 

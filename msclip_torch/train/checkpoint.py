@@ -12,6 +12,15 @@ checkpoint and never a partial one. ``save_params`` writes a params-only
 directory (``params.pt``; the ``checkpoints/{ema,swa}`` shadows), which
 ``eval/checkpoint_load.py`` reads like a step directory.
 
+Several processes share one checkpoint directory: the caller gathers the
+whole state on every process (``DataShards.full_optimizer_state``, the
+whole parameters), rank 0 writes it in the one-process format, and every
+process waits at a barrier until the directory swap is done; each process
+restores the whole state and cuts its own splits from it
+(:func:`auto_resume`), and under tensor parallelism its part of each
+split tensor. So a ZeRO-1, FSDP or tensor-parallel run resumes in one
+process and the other way round.
+
 A JAX-trained checkpoint reaches the port as a reference ``.pth`` through
 ``msclip_tpu.utils.export_torch_state_dict``.
 """
@@ -25,6 +34,9 @@ import shutil
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import split_for_model
+from ..utils.comm import comm
 
 STATE_FILE = "state.pt"
 EXTRA_FILE = "extra.json"
@@ -102,8 +114,10 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 5):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
-        _clear_leftovers(self.directory)
+        if comm.is_main_process():
+            os.makedirs(self.directory, exist_ok=True)
+            _clear_leftovers(self.directory)
+        comm.synchronize()
 
     def all_steps(self):
         return sorted(int(d) for d in os.listdir(self.directory)
@@ -121,7 +135,15 @@ class CheckpointManager:
         epoch-end save when ``TRAIN.SAVE_EVERY_STEPS`` lands on the
         epoch's last step: its metadata must win, so that a resume starts
         the next epoch); without it, an existing step raises.
-        ``shadows``: ``{"ema": dict or None, "swa": dict or None}``."""
+        ``shadows``: ``{"ema": dict or None, "swa": dict or None}``.
+        Every process calls it with the whole state; rank 0 writes, the
+        others wait for it."""
+        if comm.is_main_process():
+            self._write(step, params, optimizer_state, extra, force,
+                        shadows)
+        comm.synchronize()
+
+    def _write(self, step, params, optimizer_state, extra, force, shadows):
         final = os.path.join(self.directory, str(step))
         if os.path.exists(final) and not force:
             raise FileExistsError(f"checkpoint at step {step} exists: "
@@ -159,7 +181,7 @@ class CheckpointManager:
 def save_params(path: str, params) -> None:
     """A params-only checkpoint (model export; the EMA/SWA shadows), staged
     as ``.tmp-<name>-<pid>`` beside ``path``, a name the manager's cleanup
-    takes."""
+    takes. One process writes: the train loop calls it on rank 0."""
     path = os.path.abspath(path)
     tmp = os.path.join(os.path.dirname(path),
                        f".tmp-{os.path.basename(path)}-{os.getpid()}")
@@ -189,17 +211,23 @@ def auto_resume(manager: CheckpointManager, state):
     tensors, the optimizer's moments and step counts by parameter name,
     the schedule and the step count) if there is one. Returns ``(step,
     extra)``, ``(0, {})`` without a checkpoint; the restored shadows, on
-    the model's device, come back under ``extra["shadows"]``."""
+    the model's device, come back under ``extra["shadows"]``. Every
+    process of a run calls it and reads the same whole checkpoint; the
+    splits of ``state.shards`` are cut from it, whatever split the run
+    that wrote it had."""
     step = manager.latest_step()
     if step is None:
         return 0, {}
     ck = manager.restore(step)
-    params = state.model.params()
+    params = state.full_params()
     with torch.no_grad():
-        for k, v in ck["params"].items():
+        for k, v in split_for_model(ck["params"], state.mesh).items():
             params[k].copy_(v)
-    load_optimizer_state(state.optimizer, ck["optimizer"],
-                         dict(state.model.named_parameters()))
+    state.shards.resplit()
+    load_optimizer_state(state.optimizer,
+                         state.shards.split_optimizer_state(ck["optimizer"]),
+                         state.shards.opt_params())
+    state.shards.release()
     restore_schedule(state.scheduler, step)
     state.step = step
     logging.info(f"=> auto-resumed from step {step}")
@@ -207,6 +235,7 @@ def auto_resume(manager: CheckpointManager, state):
     device = params["logit_scale"].device
     if ck["shadows"]:
         extra["shadows"] = {
-            name: {k: v.to(device) for k, v in tree.items()}
+            name: {k: v.to(device) for k, v in
+                   split_for_model(tree, state.mesh).items()}
             for name, tree in ck["shadows"].items()}
     return step, extra

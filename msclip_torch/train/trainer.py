@@ -1,27 +1,47 @@
-"""The one-card contrastive train step, from ``msclip_tpu/train/trainer.py``.
+"""The contrastive train step, from ``msclip_tpu/train/trainer.py``.
 
 Forward through both towers with BatchNorm in training mode (or in eval
-mode, ``SWA.FROZEN_BN``), symmetric InfoNCE over the batch, backward (the
-attention core's backward is kernel K2 on the card), the global gradient
-norm, optional clipping, the AdamW step (with LARC on its update,
+mode, ``SWA.FROZEN_BN``), symmetric InfoNCE over the global batch,
+backward (the attention core's backward is kernel K2 on the card), the
+gradients averaged over the data group, the global gradient norm,
+optional clipping, the AdamW step (with LARC on its update,
 ``TRAIN.LARC``) and the schedule step; then the recorded BN running
 statistics are written back, ``logit_scale`` is clamped at ln(100), and the
 EMA shadow is updated when ``TRAIN.EMA_DECAY > 0``. Parameters stay fp32
 and are cast to the compute dtype at use.
 
+Several processes (``parallel/mesh.py``; one a device, started by
+``torchrun``) compute what one process computes on the concatenated
+batch, as the JAX step does under ``jit`` on a data-sharded mesh: the
+BatchNorm statistics are the global batch's (``layers.batch_norm``
+all-reduces them over the data group), the loss is the global one (the
+gathered ``[B, B]`` matrix, or with ``TPU.SHARDED_LOSS`` the chunked or,
+with ``TPU.RING_LOSS``, the ring loss of ``parallel/infonce.py``), and
+the parameter gradients are averaged over the data group by explicit
+collectives over the parameter dict (``optim.DataShards``: one flat
+all-reduce a bucket; reduce-scatter and all-gather under ``TPU.ZERO1``
+and ``TPU.FSDP``). ``DistributedDataParallel``'s hooks are not used: the
+step runs GradCache's two passes and REMAT's recomputation by hand, and
+every collective is in sight here. With ``TPU.MESH_MODEL > 1`` each
+process of a model group holds its part of every transformer block
+(Megatron's column and row splits, ``parallel/mesh.split_for_model``) and
+the blocks sum their partial outputs over the group
+(``layers.attention``, ``layers.mlp``).
+
 ``TPU.ACCUM_STEPS > 1`` takes the GradCache two-pass gradient
 (:func:`gradcache_backward`). DropPath draws from a generator derived from
-``(TPU.SEED, step, microbatch)`` (:func:`step_generator`), so GradCache's
-second pass and a rematerialised block redraw the first pass's masks, and
-a resumed run draws what an uninterrupted one would.
-
-The sharded/ring losses and the multi-card meshes wait for a later slice
-(ROADMAP M7). A spec with ``TPU.USE_FUSED_BLOCK`` is refused: the fused
-half-block kernels are inference-only and have no backward.
+``(TPU.SEED, step, microbatch)`` (:func:`step_generator`), the global
+batch's masks on every process, each process taking its rows; so
+GradCache's second pass and a rematerialised block redraw the first
+pass's masks, a resumed run draws what an uninterrupted one would, and
+several processes draw what one process draws. A spec with
+``TPU.USE_FUSED_BLOCK`` is refused: the fused half-block kernels are
+inference-only and have no backward.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,10 +49,23 @@ import torch
 
 from ..models import msclip as MM
 from ..models.stem import BNState
-from ..parallel.infonce import infonce_loss
+from ..parallel.collectives import group_rank, group_size
+from ..parallel.infonce import (
+    chunked_sharded_infonce_loss,
+    gathered_infonce_loss,
+    ring_infonce_loss,
+)
+from ..parallel.mesh import (
+    Mesh,
+    fsdp_dims,
+    gather_over_model,
+    param_dim,
+    split_for_model,
+    zero1_dims,
+)
 from .averaging import ema_update
-from .optim import build_optimizer, clip_by_global_norm_, global_norm, \
-    larc_step_
+from .optim import DataShards, build_optimizer, clip_by_global_norm_, \
+    global_norm, larc_step_
 
 # CLIP clamps the temperature at ln(100) to keep training stable
 MAX_LOGIT_SCALE = 4.6052
@@ -49,66 +82,99 @@ def step_generator(seed: int, step: int, microbatch: int, device):
     return g
 
 
-def make_encode_fn(spec: MM.MSClipSpec, freeze_bn: bool = False):
-    """``encode(params, images, tokens, generator) -> (fi, ft,
-    bn_updates)``. BatchNorm runs in training mode, or with ``freeze_bn``
-    (``SWA.FROZEN_BN``) in eval mode on the running statistics, recording
-    nothing. ``generator`` drives DropPath in the image tower (when
-    ``spec.vision_drop_path > 0``). Raises ValueError for a spec with
-    ``use_fused_block``: K5 has no backward (the JAX package's
-    ``fused_attention_halfblock`` has no VJP either)."""
+def make_encode_fn(spec: MM.MSClipSpec, freeze_bn: bool = False,
+                   group=None, tp=None):
+    """``encode(params, images, tokens, generator, rows) -> (fi, ft,
+    bn_updates)``, with the blocks split over the model group ``tp``
+    under tensor parallelism. BatchNorm runs in training mode, its
+    statistics over the data ``group``'s global batch, or with
+    ``freeze_bn`` (``SWA.FROZEN_BN``) in eval mode on the running
+    statistics, recording nothing. ``generator`` drives DropPath in the
+    image tower (when ``spec.vision_drop_path > 0``), ``rows=(first,
+    total)`` places the images in the global batch whose masks it draws. Raises ValueError
+    for a spec with ``use_fused_block``: K5 has no backward (the JAX
+    package's ``fused_attention_halfblock`` has no VJP either)."""
     if spec.use_fused_block:
         raise ValueError(
             "TPU.USE_FUSED_BLOCK is for eval only: the fused half-block "
             "kernels (K5, K6) have no backward, so the train step cannot "
             "run with it")
 
-    def encode(params, images, tokens, generator=None):
-        bn = BNState(training=not freeze_bn)
+    def encode(params, images, tokens, generator=None, rows=None):
+        bn = BNState(training=not freeze_bn, group=group)
         fi = MM.encode_image(
             params, spec, images, bn=bn,
-            generator=generator if spec.vision_drop_path > 0.0 else None)
-        ft = MM.encode_text(params, spec, tokens)
+            generator=generator if spec.vision_drop_path > 0.0 else None,
+            rows=rows, tp=tp)
+        ft = MM.encode_text(params, spec, tokens, tp=tp)
         return fi, ft, bn.updates
 
     return encode
 
 
-def make_loss_fn(spec: MM.MSClipSpec, label_smoothing: float = 0.0,
-                 freeze_bn: bool = False):
-    """``loss_fn(params, images, tokens, generator) -> (loss,
-    bn_updates)``."""
-    encode = make_encode_fn(spec, freeze_bn)
+def make_embedding_loss(group=None, sharded_loss: bool = False,
+                        loss_chunk: int = 4096, label_smoothing: float = 0.0,
+                        ring_loss: bool = False):
+    """``emb_loss(fi, ft, logit_scale) -> loss`` over the data ``group``'s
+    global batch (``msclip_tpu/train/trainer.py:104-134``): the gathered
+    full matrix; with ``sharded_loss`` (``TPU.SHARDED_LOSS``) the chunked
+    loss at ``loss_chunk`` columns, or with ``ring_loss``
+    (``TPU.RING_LOSS``) the ring loss. The boundary GradCache caches at."""
+    if not sharded_loss:
+        return functools.partial(gathered_infonce_loss, group=group,
+                                 label_smoothing=label_smoothing)
+    if ring_loss:
+        return functools.partial(ring_infonce_loss, group=group,
+                                 label_smoothing=label_smoothing)
+    return functools.partial(chunked_sharded_infonce_loss, group=group,
+                             chunk=loss_chunk,
+                             label_smoothing=label_smoothing)
 
-    def loss_fn(params, images, tokens, generator=None):
-        fi, ft, bn_updates = encode(params, images, tokens, generator)
-        return infonce_loss(fi, ft, params["logit_scale"],
-                            label_smoothing), bn_updates
+
+def make_loss_fn(spec: MM.MSClipSpec, label_smoothing: float = 0.0,
+                 freeze_bn: bool = False, group=None, **loss_kw):
+    """``loss_fn(params, images, tokens, generator, rows) -> (loss,
+    bn_updates)``; ``loss_kw`` picks the loss
+    (:func:`make_embedding_loss`)."""
+    encode = make_encode_fn(spec, freeze_bn, group)
+    emb_loss = make_embedding_loss(group, label_smoothing=label_smoothing,
+                                   **loss_kw)
+
+    def loss_fn(params, images, tokens, generator=None, rows=None):
+        fi, ft, bn_updates = encode(params, images, tokens, generator, rows)
+        return emb_loss(fi, ft, params["logit_scale"]), bn_updates
 
     return loss_fn
 
 
 def gradcache_backward(encode, params, images, tokens, accum_steps: int,
-                       label_smoothing: float = 0.0, generator_of=None):
+                       label_smoothing: float = 0.0, generator_of=None,
+                       emb_loss=None, rows_of=None):
     """GradCache (Gao et al. 2021, arXiv 2101.06983), the JAX package's
-    ``_gradcache_value_and_grad`` on one card: InfoNCE couples the whole
-    batch, so the gradient is taken in two passes over ``accum_steps``
-    contiguous microbatches.
+    ``_gradcache_value_and_grad``: InfoNCE couples the whole batch, so the
+    gradient is taken in two passes over ``accum_steps`` microbatches.
 
     * pass A, without autograd: each microbatch's embeddings (the peak
       holds one microbatch's activations);
-    * the loss over the cached ``[B, E]`` embeddings, and its gradients
-      with respect to them and to ``logit_scale``;
+    * the loss (``emb_loss``, by default the one-process InfoNCE) over the
+      cached embeddings, and its gradients with respect to them and to
+      ``logit_scale``;
     * pass B: each microbatch encoded again with autograd and its cached
       embedding gradient pulled back, the parameter gradients summed into
       ``.grad``.
 
-    ``generator_of(i)`` gives microbatch ``i``'s DropPath generator, the
-    same in both passes, so pass B redraws pass A's masks. With training
-    BatchNorm each microbatch normalizes with its own statistics and the
-    returned running statistics are the mean of the microbatches'
-    recorded ones (one momentum update from the mean statistics); pass B
-    records nothing. Returns ``(loss, bn_updates)``."""
+    Microbatch ``i`` is the ``i``-th contiguous block of this process's
+    rows; over several processes it is every process's ``i``-th block
+    (JAX's interleaved ``to_micro`` on a data-sharded batch), whose
+    BatchNorm statistics ``encode`` takes over the group, and the cached
+    embeddings keep the global batch's order for the loss.
+    ``generator_of(i)`` gives microbatch ``i``'s DropPath generator and
+    ``rows_of(i)`` its rows in the global microbatch, the same in both
+    passes, so pass B redraws pass A's masks. With training BatchNorm
+    each microbatch normalizes with its own statistics and the returned
+    running statistics are the mean of the microbatches' recorded ones
+    (one momentum update from the mean statistics); pass B records
+    nothing. Returns ``(loss, bn_updates)``."""
     a = accum_steps
     B = images.shape[0]
     if B % a:
@@ -116,8 +182,16 @@ def gradcache_backward(encode, params, images, tokens, accum_steps: int,
     im = images.reshape(a, B // a, *images.shape[1:])
     tk = tokens.reshape(a, B // a, *tokens.shape[1:])
     gen = generator_of or (lambda i: None)
+    emb_loss = emb_loss or functools.partial(
+        gathered_infonce_loss, label_smoothing=label_smoothing)
+
+    def enc(i):
+        if rows_of is None:
+            return encode(params, im[i], tk[i], gen(i))
+        return encode(params, im[i], tk[i], gen(i), rows_of(i))
+
     with torch.no_grad():
-        outs = [encode(params, im[i], tk[i], gen(i)) for i in range(a)]
+        outs = [enc(i) for i in range(a)]
     fi = torch.cat([o[0] for o in outs]).requires_grad_()
     ft = torch.cat([o[1] for o in outs]).requires_grad_()
     bn_updates = {
@@ -126,11 +200,11 @@ def gradcache_backward(encode, params, images, tokens, accum_steps: int,
         for k in outs[0][2]}
     del outs
     scale = params["logit_scale"].detach().requires_grad_()
-    loss = infonce_loss(fi, ft, scale, label_smoothing)
+    loss = emb_loss(fi, ft, scale)
     d_fi, d_ft, d_scale = torch.autograd.grad(loss, (fi, ft, scale))
     d_fi, d_ft = d_fi.reshape(a, B // a, -1), d_ft.reshape(a, B // a, -1)
     for i in range(a):
-        fi_i, ft_i, _ = encode(params, im[i], tk[i], gen(i))
+        fi_i, ft_i, _ = enc(i)
         torch.autograd.backward((fi_i, ft_i), (d_fi[i], d_ft[i]))
     ls = params["logit_scale"]
     ls.grad = d_scale if ls.grad is None else ls.grad + d_scale
@@ -140,8 +214,10 @@ def gradcache_backward(encode, params, images, tokens, accum_steps: int,
 @dataclass
 class TrainState:
     """What a step changes: the model's parameters and buffers, the
-    optimizer and its schedule, the step count, and the EMA shadow (a dict
-    of every tensor of ``model.params()``, or None) with its decay."""
+    optimizer and its schedule, the step count, the EMA shadow (a dict of
+    every tensor of ``model.params()``, or None) with its decay, and how
+    the trained tensors meet the data group (:class:`.optim.DataShards`;
+    its ``opt_params()`` are what the optimizer holds)."""
 
     model: MM.MSClipModel
     optimizer: torch.optim.Optimizer
@@ -149,21 +225,62 @@ class TrainState:
     step: int = 0
     ema: dict | None = None
     ema_decay: float = 0.0
+    shards: DataShards | None = None
+    mesh: Mesh = Mesh()
+
+    def full_params(self):
+        """``model.params()`` with every tensor whole on this process (FSDP
+        drops the split ones between steps; this gathers them, a
+        collective); under tensor parallelism, this process's parts."""
+        self.shards.materialize()
+        return self.model.params()
+
+    def whole_params(self):
+        """Every tensor of the model whole, the tensor-parallel ones
+        gathered over the model group (a collective): what a checkpoint
+        holds."""
+        return gather_over_model(self.full_params(), self.mesh)
+
+
+def shard_dims(config, params, mesh: Mesh):
+    """``{name: dim or None}`` of the trained tensors (``params``: whole,
+    before any tensor-parallel cut) that ``TPU.FSDP`` (``fsdp_dims``) or
+    ``TPU.ZERO1`` (``zero1_dims``) split over the data group; empty
+    without either."""
+    if config.TPU.get("FSDP", False):
+        return fsdp_dims(params, mesh.data, mesh.model)
+    if config.TPU.get("ZERO1", False):
+        return zero1_dims(params, mesh.data, mesh.model)
+    return {}
 
 
 def init_train_state(config, spec: MM.MSClipSpec, params, steps_per_epoch,
-                     device) -> TrainState:
-    """A trainable model of ``params`` (reference layout, fp32) on
-    ``device``, its optimizer and schedule from ``config``, and the EMA
-    shadow when ``TRAIN.EMA_DECAY > 0``."""
-    model = MM.MSClipModel(spec, params, trainable=True).to(device)
-    optimizer, scheduler = build_optimizer(config, model.params(), spec,
-                                           steps_per_epoch)
+                     device, mesh: Mesh | None = None) -> TrainState:
+    """A trainable model of ``params`` (reference layout, fp32, the same
+    on every process) on ``device``, its optimizer and schedule from
+    ``config``, and the EMA shadow when ``TRAIN.EMA_DECAY > 0``. On a
+    ``mesh`` with ``model > 1`` the model holds this process's part of
+    each tensor-parallel tensor; with ``TPU.ZERO1`` or ``TPU.FSDP`` the
+    optimizer holds this process's splits (:func:`shard_dims`)."""
+    mesh = mesh or Mesh()
+    model = MM.MSClipModel(spec, split_for_model(params, mesh),
+                           trainable=True).to(device)
+    named = dict(model.named_parameters())
+    tp_keys = [k for k in named if mesh.model > 1
+               and param_dim(k, tuple(params[k].shape)) is not None]
+    shards = DataShards(named, shard_dims(config, {k: params[k]
+                                                   for k in named}, mesh),
+                        mesh.data_group, bool(config.TPU.get("FSDP", False)),
+                        mesh.model_group, tp_keys)
+    optimizer, scheduler = build_optimizer(
+        config, {**dict(model.named_buffers()), **shards.opt_params()},
+        spec, steps_per_epoch)
     ema = None
     if config.TRAIN.EMA_DECAY > 0:
         ema = {k: v.detach().clone() for k, v in model.params().items()}
+    shards.release()
     return TrainState(model, optimizer, scheduler, 0, ema,
-                      config.TRAIN.EMA_DECAY)
+                      config.TRAIN.EMA_DECAY, shards, mesh)
 
 
 @torch.no_grad()
@@ -178,56 +295,78 @@ def apply_bn_updates(params, updates) -> None:
 def make_train_step(spec: MM.MSClipSpec, clip_grad_norm: float = 0.0,
                     label_smoothing: float = 0.0, *, accum_steps: int = 1,
                     freeze_bn: bool = False, larc: bool = False,
-                    seed: int = 0):
+                    seed: int = 0, mesh: Mesh | None = None,
+                    sharded_loss: bool = False, loss_chunk: int = 4096,
+                    ring_loss: bool = False):
     """``step(state, images, tokens) -> metrics``: one train step on
-    ``state`` in place (``make_step_core``). ``accum_steps > 1`` takes
-    :func:`gradcache_backward`; ``freeze_bn`` runs BatchNorm in eval mode;
-    ``larc`` scales AdamW's update (:func:`.optim.larc_step_`); ``seed``
-    (``TPU.SEED``) and the step count seed DropPath. ``metrics`` holds the
-    loss, the global norm of the gradients before clipping and the
-    clamped ``logit_scale``, as 0-d tensors on the step's device (reading
-    them syncs the device)."""
-    encode = make_encode_fn(spec, freeze_bn)
+    ``state`` in place (``make_step_core``). ``images``/``tokens`` are
+    this process's rows of the global batch (all of it for one process);
+    ``mesh`` gives the data group, ``sharded_loss``/``loss_chunk``/
+    ``ring_loss`` the loss (:func:`make_embedding_loss`); with
+    ``mesh.model > 1`` the blocks run split over the model group (the
+    state from :func:`init_train_state` on the same mesh).
+    ``accum_steps > 1`` takes :func:`gradcache_backward`; ``freeze_bn``
+    runs BatchNorm in eval mode; ``larc`` scales AdamW's update
+    (:func:`.optim.larc_step_`); ``seed`` (``TPU.SEED``) and the step
+    count seed DropPath. ``metrics`` holds the global batch's loss, the
+    global norm of the averaged gradients before clipping and the clamped
+    ``logit_scale``, as 0-d tensors on the step's device (reading them
+    syncs the device)."""
+    mesh = mesh or Mesh()
+    group = mesh.data_group
+    encode = make_encode_fn(spec, freeze_bn, group,
+                            mesh.model_group if mesh.model > 1 else None)
+    emb_loss = make_embedding_loss(group, sharded_loss, loss_chunk,
+                                   label_smoothing, ring_loss)
     dropping = spec.vision_drop_path > 0.0
+    n, rank = group_size(group), group_rank(group)
 
     def step(state: TrainState, images, tokens):
-        model, optimizer = state.model, state.optimizer
+        model, optimizer, shards = state.model, state.optimizer, state.shards
+        shards.materialize()
         params = model.params()
         optimizer.zero_grad(set_to_none=True)
+        for p in model.parameters():
+            p.grad = None
+        micro = images.shape[0] // accum_steps
 
         def generator_of(i):
             return (step_generator(seed, state.step, i, images.device)
                     if dropping else None)
 
+        def rows_of(i):  # microbatch i's rows of the global microbatch
+            return rank * micro, n * micro
+
         if accum_steps > 1:
             loss, bn_updates = gradcache_backward(
                 encode, params, images, tokens, accum_steps,
-                label_smoothing, generator_of)
+                generator_of=generator_of, emb_loss=emb_loss,
+                rows_of=rows_of)
         else:
             fi, ft, bn_updates = encode(params, images, tokens,
-                                        generator_of(0))
-            loss = infonce_loss(fi, ft, params["logit_scale"],
-                                label_smoothing)
+                                        generator_of(0), rows_of(0))
+            loss = emb_loss(fi, ft, params["logit_scale"])
             loss.backward()
             loss = loss.detach()
-        trained = list(model.parameters())
-        for p in trained:  # optax updates (and decays) unused tensors too
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in trained]
-        grad_norm = global_norm(grads)
+        shards.reduce_grads()
+        grads = list(shards.grads().values())
+        grad_norm = global_norm(grads, shards.reduce_norms)
         if clip_grad_norm > 0:
             clip_by_global_norm_(grads, clip_grad_norm, grad_norm)
         if larc:
-            larc_step_(optimizer)
+            names = shards.opt_names(optimizer)
+            larc_step_(optimizer, reduce_norms=lambda v: shards.reduce_norms(
+                v, names))
         else:
             optimizer.step()
         state.scheduler.step()
+        shards.updated(keep_whole=state.ema is not None)
         with torch.no_grad():
             apply_bn_updates(params, bn_updates)
             params["logit_scale"].clamp_(max=MAX_LOGIT_SCALE)
             if state.ema is not None:
                 ema_update(state.ema, params, state.ema_decay)
+        shards.release()
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm,
                 "logit_scale": params["logit_scale"].detach().clone()}
@@ -236,12 +375,17 @@ def make_train_step(spec: MM.MSClipSpec, clip_grad_norm: float = 0.0,
 
 
 def make_train_step_from_config(config, spec: MM.MSClipSpec,
-                                freeze_bn: bool = False):
+                                freeze_bn: bool = False,
+                                mesh: Mesh | None = None):
     """:func:`make_train_step` with the config's clipping, label
-    smoothing, ``TPU.ACCUM_STEPS``, ``TRAIN.LARC`` and ``TPU.SEED``."""
+    smoothing, ``TPU.ACCUM_STEPS``, ``TRAIN.LARC``, ``TPU.SEED`` and
+    loss (``TPU.SHARDED_LOSS``, ``TPU.LOSS_CHUNK``, ``TPU.RING_LOSS``)."""
     return make_train_step(
         spec, clip_grad_norm=config.TRAIN.CLIP_GRAD_NORM,
         label_smoothing=config.LOSS.LABEL_SMOOTHING,
         accum_steps=int(config.TPU.get("ACCUM_STEPS", 1)),
         freeze_bn=freeze_bn, larc=bool(config.TRAIN.get("LARC", False)),
-        seed=int(config.TPU.SEED))
+        seed=int(config.TPU.SEED), mesh=mesh,
+        sharded_loss=bool(config.TPU.get("SHARDED_LOSS", False)),
+        loss_chunk=int(config.TPU.get("LOSS_CHUNK", 4096)),
+        ring_loss=bool(config.TPU.get("RING_LOSS", False)))

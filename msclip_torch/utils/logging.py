@@ -2,10 +2,10 @@
 
 The reference's layout (``lib/utils/utils.py:21-58``):
 ``{phase}_{timestamp}_rank{rank}.txt`` under
-``OUTPUT_DIR/<dataset>/<config name>``, each line tagged ``Rank[r/w]``.
-The port runs one process (multi-process eval waits for ROADMAP M7), so
-the rank is 0 of 1; the console copy goes to stderr, leaving stdout to
-the CLIs' ``RESULT`` lines.
+``OUTPUT_DIR/<dataset>/<config name>``, a file per process, each line
+tagged ``Rank[r/w]`` from ``utils/comm.py`` (0 of 1 without a process
+group). Rank 0 also copies its lines to the console, on stderr, leaving
+stdout to the CLIs' ``RESULT`` lines.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import os
 import sys
 import time
 from pathlib import Path
+
+from .comm import comm
 
 
 def setup_logger(final_output_dir, rank, phase, world_size=1):
@@ -38,5 +40,5 @@ def create_logger(config, cfg_name, phase="train"):
     cfg_name = os.path.splitext(os.path.basename(cfg_name))[0]
     final_output_dir = root_output_dir / dataset / cfg_name
     final_output_dir.mkdir(parents=True, exist_ok=True)
-    setup_logger(final_output_dir, 0, phase)
+    setup_logger(final_output_dir, comm.rank, phase, comm.world_size)
     return str(final_output_dir)

@@ -878,3 +878,46 @@ def test_serving_graph_tracks_changing_inputs(b32_served):
         assert prev is None or not np.array_equal(got, prev)
         prev = got
     assert r.replays == before + 100
+
+
+def test_world_one_nccl_steps_equal_the_plain_step(cuda):
+    """``python -m msclip_torch.tools.dryrun --nproc 1 --device cuda``: one
+    process under ``torchrun`` with NCCL, where every collective is a copy,
+    against the step without a process group (``dp``), and the ring,
+    GradCache, ZeRO-1 and FSDP steps against theirs, at the tiny width
+    with K1 and K2 in every block (fp32, TF32 off)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "msclip_torch.tools.dryrun",
+                        "--nproc", "1", "--device", "cuda"], cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "DRYRUN ok world=1 device=cuda" in r.stdout
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_launch_on_the_tensors_device(cuda, causal):
+    """K1 and K2 on ``cuda:1`` while ``cuda:0`` is current: each wrapper
+    makes its tensor's device current around the launch (the libraries'
+    static CUDA runtime launches on the current device). Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qkv = torch.randn(16, 77, 3 * 768, device=dev, generator=gen)
+    g = torch.randn(16, 77, 768, device=dev, generator=gen)
+    mask = build_causal_mask(77, device=dev) if causal else None
+    with torch.cuda.device(0):
+        out = A.fused_attention_qkv(qkv, 12, mask)
+        dqkv = A.fused_attention_qkv_bwd(qkv, g, 12, mask)
+    torch.cuda.synchronize(dev)
+    assert out.device == dev and dqkv.device == dev
+    torch.testing.assert_close(out, A.attention_qkv_plain(qkv, 12, mask),
+                               atol=TOL[torch.float32], rtol=0)
+    torch.testing.assert_close(dqkv, A.attention_qkv_bwd_plain(qkv, g, 12,
+                                                                mask),
+                               atol=BWD_TOL[torch.float32][0],
+                               rtol=BWD_TOL[torch.float32][1])

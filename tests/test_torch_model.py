@@ -200,10 +200,6 @@ def test_released_configs_build_with_the_reference_key_set(name):
     ("CUSTOM.EARLY_CONV_RES", False, "M10"),
     ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False, "M10"),
     ("MODEL.SPEC.POOL_TYPE", "linear", "M10"),
-    ("TPU.SHARDED_LOSS", True, "M7"),
-    ("TPU.RING_LOSS", True, "M7"),
-    ("TPU.ZERO1", True, "M7"),
-    ("TPU.FSDP", True, "M7"),
     ("CUSTOM.GUMBEL_SELECT", True, "M10"),
 ])
 def test_unported_features_are_rejected(key, value, item):
@@ -217,6 +213,33 @@ def test_unported_features_are_rejected(key, value, item):
     node[leaf] = value
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         TM.spec_from_config(cfg)
+
+
+@pytest.mark.parametrize("key", ["TPU.INT8_EVAL", "TPU.USE_FUSED_BLOCK"])
+def test_tensor_parallelism_refuses_whole_block_kernels(key):
+    """``TPU.MESH_MODEL > 1`` splits every block's heads over processes;
+    int8 eval and the fused half-blocks need whole blocks, so either
+    raises, naming the reason."""
+    cfg = get_default_config()
+    update_config(cfg, os.path.join(REPO, "experiments", "model",
+                                    "b32-yfcc-msclips.yaml"),
+                  opts=["TPU.MESH_MODEL", "2", key, "True"])
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        TM.spec_from_config(cfg)
+
+
+@pytest.mark.parametrize("key", ["TPU.SHARDED_LOSS", "TPU.RING_LOSS",
+                                 "TPU.ZERO1", "TPU.FSDP", "TPU.MESH_MODEL"])
+def test_multi_process_training_features_build_a_spec(key):
+    """The multi-process train step's options are ported: a config with
+    one of them on builds the same spec as without it."""
+    path = os.path.join(REPO, "experiments", "model", "b32-yfcc-msclips.yaml")
+    cfg = get_default_config()
+    update_config(cfg, path, opts=[key, "2" if key == "TPU.MESH_MODEL"
+                                   else "True"])
+    plain = get_default_config()
+    update_config(plain, path)
+    assert TM.spec_from_config(cfg) == TM.spec_from_config(plain)
 
 
 @pytest.mark.parametrize("how", ["attribute", "override", "unset"])

@@ -502,9 +502,35 @@ def test_live_serving_http(tiny, served):
 
 
 def test_live_serving_over_two_devices_names_m7(tiny):
+    """Over two devices (ROADMAP M7, now ported) the buckets round up to
+    multiples of the device count, as the JAX function's over two of its
+    devices, and the manifest records both devices."""
+    from msclip_tpu.serve.live import live_serving_model as jax_live
+
+    jm, jp, spec, tp = tiny
+    live = live_serving_model(spec, tp, buckets=(1, 3, 4), image_size=SIZE,
+                              devices=["cpu", "cpu"])
+    theirs = jax_live(jm, jp, buckets=(1, 3, 4), image_size=SIZE,
+                      devices=jax.devices()[:2])
+    assert live.buckets == theirs.buckets == [2, 4]
+    assert live.manifest["devices"] == 2
+
+
+def test_live_serving_splits_each_batch_over_the_devices(tiny):
+    """Each bucket's rows split into one block a device, the outputs
+    concatenated in order: 5 images and 7 prompts through two CPU
+    replicas equal one device's rows (fp32, atol 1e-6: the blocks' GEMMs
+    sum over other batch sizes)."""
     _, _, spec, tp = tiny
-    with pytest.raises(NotImplementedError, match="M7"):
-        live_serving_model(spec, tp, devices=["cpu", "cpu"])
+    two = live_serving_model(spec, tp, buckets=(4,), image_size=SIZE,
+                             devices=["cpu", "cpu"])
+    one = live_serving_model(spec, tp, buckets=(4,), image_size=SIZE,
+                             devices=["cpu"])
+    images, tokens = _images(5, 11), _tokens(7, 12)
+    np.testing.assert_allclose(two.encode_image(images),
+                               one.encode_image(images), atol=1e-6)
+    np.testing.assert_allclose(two.encode_text(tokens),
+                               one.encode_text(tokens), atol=1e-6)
 
 
 def test_live_serving_defaults_to_the_card(tiny, monkeypatch):
