@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (msclip_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --zoo-faults   # phase 19's check on planted faults
 
 Phases, each printed on its own line and each fatal on failure:
 
@@ -93,9 +94,9 @@ Phases, each printed on its own line and each fatal on failure:
    K2 to 23a launches a step under ``ACCUM_STEPS a``, 46 and 23 under
    REMAT;
 16. resume: the train CLI as a subprocess at full width in bf16 (batch
-   32, 2 epochs of 8 steps, ``SAVE_EVERY_STEPS 3``, EMA, SWA), SIGKILLed
-   once its step-6 checkpoint exists and rerun: it resumes at step 6,
-   fast-forwards and finishes at step 16, its losses within 4x of the gap
+   32, 2 epochs of 5 steps, ``SAVE_EVERY_STEPS 3``, EMA, SWA), SIGKILLed
+   once its step-3 checkpoint exists and rerun: it resumes at step 3,
+   fast-forwards and finishes at step 10, its losses within 4x of the gap
    between two uninterrupted runs; the EMA and SWA shadows through
    ``checkpoint_load`` into ``run_zero_shot``, the EMA one exported by
    ``export_torch_checkpoint --ckpt`` and read back to the same features
@@ -129,7 +130,25 @@ Phases, each printed on its own line and each fatal on failure:
    ``attention_launches``), samples/s, peak memory and bytes kept; then
    the zero-shot CLI under ``torchrun`` against phase 4's top-1 and every
    image's predicted class. The six CLI runs share one ``torchrun``
-   process (``dist_worker``).
+   process (``dist_worker``);
+19. zoo (``run_zoo``): plain CLIP ViT-B/32 (``experiments/model/b32.yaml``,
+   its text tower 512 wide with 8 heads) and OpenAI's RN50 geometry over
+   it (``msclip_torch/config/rn50.json``): zero-shot on 512 synthetic
+   images, 100 classes x 80 templates, batch 256, bf16, K1 held to 12 a
+   batch in each tower (RN50: the text tower only); fp32 features of 8
+   images and 8 prompts, the card against the CPU within ``ZOO_ATOL``
+   (``--zoo-faults`` shows it catching planted card-side faults); 3 bf16
+   train steps of b32.yaml at batch 256, K1 and K2 held to 24 a step;
+   then each [off] family over
+   b32-yfcc-msclips.json at full width, cut to 6 layers (adapters,
+   LoRA+MoE, CvT outside and inside, ConViT, Container, Gumbel, the
+   Perceiver latents, the three bottom-to-top paths, windowed fusion, the
+   four ``PRALLEL_T2B_*``/pooling variants, the plain and
+   outside-the-trunk stems, conv1d pooling): one fp32 forward, the card
+   against the CPU, K1 held to the blocks no plug-in sits inside; and one
+   bf16 train step of the Gumbel family (the logits must move). Phases 2-3
+   also hold and time K1 and K2 at E = 512, H = 8 (``ZOO_ATTN_SHAPES``,
+   ``ZOO_BWD_SHAPES``).
 
 Phase 1 also logs whether ``g++`` finds ``<jpeglib.h>`` and links
 ``-ljpeg``, and the CUDA toolkit's ``<nvjpeg.h>`` and ``-lnvjpeg``
@@ -724,6 +743,12 @@ ATTN_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16 (the int8
 # (B, L) where K1 is also held under a random additive mask: finite values
 # N(0, 1) and a random -inf pattern that leaves a finite score in each row
 FWD_FAULT_SHAPE = (64, 77)
+# (B, L, causal) at b32.yaml's and RN50's text width (E = 512, H = 8, the
+# zoo phase's text tower: the classifier's chunks and the train batch), and
+# a 512-wide tower at L = 50 unmasked; checked and timed as ATTN_SHAPES
+ZOO_E, ZOO_H = 512, 8
+ZOO_ATTN_SHAPES = [(1024, 77, True), (256, 77, True), (256, 50, False)]
+ZOO_BWD_SHAPES = [(256, 77, True), (256, 50, False)]
 # phase 17's batch buckets: K1 in every block of a bundle's towers, K5 in
 # every block of a fused bundle's
 SERVE_BUCKETS = (1, 4, 16, 64)
@@ -793,14 +818,17 @@ def fwd_check(qkv, n_head, mask, dtype):
 
 def check_attention(E=768, H=12):
     """K1 against its plain version (:func:`fwd_check`) at each shape of
-    ``ATTN_SHAPES``, timed in turns with SDPA and beside the plain version,
-    then held, untimed, under a random mask at ``FWD_FAULT_SHAPE`` and at
-    the served shapes ``SERVE_ATTN_SHAPES``."""
+    ``ATTN_SHAPES`` and, at E = 512 and 8 heads, ``ZOO_ATTN_SHAPES``,
+    timed in turns with SDPA and beside the plain version, then held,
+    untimed, under a random mask at ``FWD_FAULT_SHAPE`` and at the served
+    shapes ``SERVE_ATTN_SHAPES``."""
     from msclip_torch.models.layers import build_causal_mask
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for B, L, causal in ATTN_SHAPES:
+    shapes = [(*x, E, H) for x in ATTN_SHAPES] + [
+        (*x, ZOO_E, ZOO_H) for x in ZOO_ATTN_SHAPES]
+    for B, L, causal, E, H in shapes:
         mask = build_causal_mask(L, device="cuda") if causal else None
         for dtype in (torch.float32, torch.bfloat16):
             item = torch.finfo(dtype).bits // 8
@@ -810,7 +838,7 @@ def check_attention(E=768, H=12):
             heads = [t.view(B, L, 3, H, E // H).permute(2, 0, 3, 1, 4)
                      for t in qkv]
             row = {
-                "B": B, "L": L, "causal": causal,
+                "B": B, "L": L, "causal": causal, "E": E, "H": H,
                 "dtype": str(dtype).replace("torch.", ""),
                 **fwd_check(qkv[0], H, mask, dtype),
                 **in_turns(
@@ -827,6 +855,7 @@ def check_attention(E=768, H=12):
                 bound_us=row["bound_ms"] * 1e3)
             rows.append(row)
             del qkv, heads
+    E, H = shapes[0][3:]  # the random mask and the served shapes: E = 768
     B, L = FWD_FAULT_SHAPE
     off = torch.rand(L, L, device="cuda", generator=gen) < 0.3
     off[torch.arange(L, device="cuda"),
@@ -915,7 +944,8 @@ def check_attention_bwd(E=768, H=12):
     F = torch.nn.functional
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for B, L, causal in BWD_SHAPES:
+    for B, L, causal, E, H in [(*x, E, H) for x in BWD_SHAPES] + [
+            (*x, ZOO_E, ZOO_H) for x in ZOO_BWD_SHAPES]:
         mask = build_causal_mask(L, device="cuda") if causal else None
         for dtype in (torch.float32, torch.bfloat16):
             item = torch.finfo(dtype).bits // 8
@@ -964,7 +994,7 @@ def check_attention_bwd(E=768, H=12):
                 sdpa.append((out, (q, k, v),
                              gi.view(B, L, H, E // H).transpose(1, 2)))
             row = {
-                "B": B, "L": L, "causal": causal,
+                "B": B, "L": L, "causal": causal, "E": E, "H": H,
                 "dtype": str(dtype).replace("torch.", ""),
                 "max_abs_err": err, "tolerance": tol,
                 "limit_reading": reading, "mean_reading": mean_reading,
@@ -2678,20 +2708,22 @@ def run_gradcache(resident):
     return total
 
 
-RESUME_OPTS = ("TRAIN.BATCH_SIZE_PER_GPU", 32, "DATASET.NUM_SAMPLES", 256,
+RESUME_OPTS = ("TRAIN.BATCH_SIZE_PER_GPU", 32, "DATASET.NUM_SAMPLES", 160,
                "TRAIN.END_EPOCH", 2, "TRAIN.SAVE_EVERY_STEPS", 3,
                "TRAIN.EMA_DECAY", 0.999, "SWA.ENABLED", True,
                "SWA.BEGIN_EPOCH", 1, "TPU.COMPUTE_DTYPE", "bfloat16",
                "TPU.SEED", 0, "PRINT_FREQ", 1)
-RESUME_STEPS, RESUME_AT = 16, 6
+# 2 epochs of 5 steps, killed mid-epoch (2 epochs of 8 and step 6 before
+# the zoo phase took the time)
+RESUME_STEPS, RESUME_AT = 10, 3
 
 
 def run_resume(tmp, transfer_roots):
     """Phase 16: the train CLI at full width in bf16 (batch 32, synthetic,
-    8 steps an epoch, 2 epochs, ``SAVE_EVERY_STEPS 3``, EMA 0.999, SWA
-    from epoch 1) as a subprocess, SIGKILLed once its step-6 checkpoint
-    exists and rerun: it must resume at step 6, fast-forward 6 batches,
-    finish at step 16, and its losses from step 7 on lie within 4x of the
+    5 steps an epoch, 2 epochs, ``SAVE_EVERY_STEPS 3``, EMA 0.999, SWA
+    from epoch 1) as a subprocess, SIGKILLed once its step-3 checkpoint
+    exists and rerun: it must resume at step 3, fast-forward 3 batches,
+    finish at step 10, and its losses from step 4 on lie within 4x of the
     largest gap between two uninterrupted runs (in this process,
     ``tools.train.train``; K1, K2 held). Then the EMA and SWA shadows
     through ``checkpoint_load`` into ``run_zero_shot`` (K1 held as in
@@ -2714,7 +2746,8 @@ def run_resume(tmp, transfer_roots):
         torch.cuda.synchronize()
         # the SWA BN refresh runs the image tower over one epoch
         got = launches_held("uninterrupted", attention_launches(),
-                            B32_BLOCKS * RESUME_STEPS + 11 * 8,
+                            B32_BLOCKS * RESUME_STEPS
+                            + 11 * RESUME_STEPS // 2,
                             B32_BLOCKS * RESUME_STEPS)
         total = [total[0] + got[0], total[1] + got[1]]
         full.append(stats["losses"])
@@ -3700,6 +3733,292 @@ def serve_in_subprocess():
     return json.loads(done[-1][len("SERVE "):])
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the model zoo (plain CLIP ViT-B/32, RN50, the [off] families)
+# ---------------------------------------------------------------------------
+
+B32_YAML = os.path.join(REPO, "experiments", "model", "b32.yaml")
+# OpenAI CLIP's RN50 geometry over b32.yaml (clip/model.py build_model)
+RN50_JSON = os.path.join(REPO, "msclip_torch", "config", "rn50.json")
+ZOO_MODELS = (("b32", B32_YAML), ("rn50", RN50_JSON))
+# fp32 features, card against CPU: 55x the largest sound reading on the
+# H100 (1.83e-7, the Perceiver family); a feature is ~0.03-0.04
+ZOO_ATOL = 1e-5
+ZOO_TRAIN_STEPS = 3
+# the families over b32-yfcc-msclips.json at full width, cut to 6 layers
+# with the lateral adapters at layers 1-5 (every branch stage runs)
+ZOO_DEPTH = ("MODEL.SPEC.VISION.LAYERS", 6, "MODEL.SPEC.TEXT.LAYERS", 6,
+             "CUSTOM.PARALLEL_LATERAL_LAYER", [1, 2, 3, 4, 5])
+ZOO_FAMILIES = {
+    "adapter": ("CUSTOM.ADAPTER_FLAG", True, "CUSTOM.ADAPTER_ATTN_DIM", 64),
+    "lora_moe": ("CUSTOM.LORA_ATTN_DIM", 16, "CUSTOM.LORA_ATTN_ALPHA", 32,
+                 "CUSTOM.LORA_WHERE_ADD", "v2", "CUSTOM.LORA_MOE", 1,
+                 "CUSTOM.LORA_MOE_ACT", "sigmoid", "CUSTOM.LORA_MOE_GROUP", 2),
+    "cvt": ("CUSTOM.CVT_IN_V", True, "CUSTOM.CVT_V_RES", True,
+            "CUSTOM.TWO_DWC_IN_CVT", True),
+    "cvt_inside": ("CUSTOM.CVT_IN_V", True, "CUSTOM.CVT_INSIDE", True,
+                   "CUSTOM.CVT_INSIDE_Q", True, "CUSTOM.CVT_INSIDE_K", True,
+                   "CUSTOM.CVT_INSIDE_V", True),
+    "convit": ("CUSTOM.CONVIT_IN_V", True),
+    "container": ("CUSTOM.CONTAINER_IN_V", True),
+    "gumbel": ("CUSTOM.GUMBEL_SELECT", True),
+    "perceiver": ("CUSTOM.PERCEIVER_IN_V", True, "CUSTOM.PERCEIVER_IN_T", True,
+                  "CUSTOM.PERCEIVER_LAYER", [2, 4],
+                  "CUSTOM.PERCEIVER_N_LATENT", 16),
+    "b2t_deconv": ("CUSTOM.PARALLEL_B2T", True),
+    "b2t_bilinear": ("CUSTOM.PARALLEL_B2T", True,
+                     "CUSTOM.PARALLEL_B2T_BILINEAR", True),
+    # heads of 64: stage 0's 48 channels would hold none
+    "b2t_crossattn": ("CUSTOM.PARALLEL_B2T", True,
+                      "CUSTOM.PARALLEL_B2T_CROSSATTN", True,
+                      "CUSTOM.PARALLEL_B2T_LAYER",
+                      [False, True, True, True, True]),
+    "window_t2b": ("CUSTOM.PARALLEL_T2B_WINDOWATTN", True),
+    "t2b_bn_relu": ("CUSTOM.PRALLEL_T2B_ADD_BN_RELU", True),
+    "t2b_bn_ln_relu": ("CUSTOM.PRALLEL_T2B_ADD_BN_LN_RELU", True),
+    "t2b_noln_add": ("CUSTOM.PRALLEL_T2B_NOLN_ADD", True),
+    # the pools halve stages 0-1's maps: their t2b convs stride half as far
+    "t2b_pool": ("CUSTOM.PARALLEL_T2B_POOL_SIZE", [2, 2, 0, 0, 0],
+                 "CUSTOM.PRALLEL_T2B_KERNELS", [8, 4, 4, 2, 1],
+                 "CUSTOM.PRALLEL_T2B_STRIDES", [8, 4, 4, 2, 1]),
+    "plain_stem": ("CUSTOM.EARLY_CONV_RES", False),
+    "stem_outside": ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False),
+    "conv_pool": ("MODEL.SPEC.POOL_TYPE", "linear"),
+}
+
+
+def zoo_config(base, *opts):
+    from msclip_torch.config import get_default_config, update_config
+
+    cfg = get_default_config()
+    update_config(cfg, base, opts=["MODEL.PRETRAINED_MODEL", "", "TPU.SEED",
+                                   0, *opts])
+    return cfg
+
+
+def zoo_k1_blocks(spec):
+    """``(image, text)``: the K1 launches of one forward of each tower,
+    by the port's rule: a transformer block launches K1 unless a plug-in
+    sits inside its attention (CvT inside, ConViT, Container, LoRA); a
+    Gumbel block launches it in the branch it takes (both under
+    ``GUMBEL_ADDTWO``); the ResNet tower, the Perceiver blocks and the
+    cross attentions launch none."""
+    ext = spec.ext
+
+    def k1(modality, i):
+        if ext.gumbel_select:
+            return 2 if ext.gumbel_addtwo else 1
+        inside = any(ext.layer_has(f, modality, i)
+                     for f in ("convit", "container", "lora")) or (
+            ext.cvt_inside and ext.layer_has("cvt", modality, i))
+        return 0 if inside else 1
+
+    image = 0 if spec.vision_resnet_layers else sum(
+        k1("visual", i) for i in range(spec.first_block,
+                                       spec.effective_vision_layers))
+    return image, sum(k1("text", i) for i in range(spec.text_layers))
+
+
+def zoo_inputs(n, size, seed=0):
+    from msclip_torch.data import ClipTokenizer, get_classnames, get_templates
+    from msclip_torch.data.datasets import SyntheticImageDataset
+
+    ds = SyntheticImageDataset(n=n, size=size, seed=seed)
+    images = torch.from_numpy(np.stack([ds[i][0] for i in range(n)]))
+    names, templates = get_classnames("imagenet"), get_templates("imagenet")
+    texts = [templates[i % len(templates)].format(names[i]) for i in range(n)]
+    return images, torch.from_numpy(ClipTokenizer()(texts))
+
+
+def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True):
+    """fp32 features of ``n`` images and ``n`` prompts through the
+    model's entry points, the card with its kernels against the CPU with
+    the plain versions, same weights, within ``atol``. The card's K1
+    launches are held to :func:`zoo_k1_blocks`. Returns them."""
+    from msclip_torch.models.msclip import MSClipModel, build_spec, init_params
+
+    spec = build_spec(cfg)  # fp32: also turns TF32 off
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    images, tokens = zoo_inputs(n, spec.image_resolution)
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        model = MSClipModel(spec, params).to(dev)
+        reset_launches()
+        with torch.inference_mode():
+            feats[dev] = (model.encode_image(images.to(dev)).cpu(),
+                          model.encode_text(tokens.to(dev)).cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            k1 = A.fused_attention_qkv.launches
+    errs = [(a - b).abs().max().item()
+            for a, b in zip(feats["cuda"], feats["cpu"])]
+    expected = sum(zoo_k1_blocks(spec))
+    log("zoo_card_vs_cpu", family=name, dtype="float32", n=n,
+        image_err=errs[0], text_err=errs[1], atol=atol, k1_launches=k1,
+        expected=expected, counted=count)
+    if not all(math.isfinite(e) and e <= atol for e in errs):
+        raise AssertionError(f"zoo {name}: card and CPU features differ: "
+                             f"{errs} > {atol}")
+    if k1 != expected:
+        raise AssertionError(f"zoo {name}: K1 launched {k1} times, "
+                             f"expected {expected}")
+    return k1 if count else 0
+
+
+def run_zoo(batch=256):
+    """Phase 19, the model zoo. b32.yaml (plain CLIP ViT-B/32: patchify,
+    12 blocks at 768, its own 512-wide 8-head text tower) and the RN50
+    geometry over it: zero-shot on 512 synthetic images, 100 classes x 80
+    templates, batch 256, bf16, K1 held to the towers' blocks; the card
+    against the CPU in fp32 on one batch; 3 train steps of b32.yaml at
+    batch 256, bf16, K1 and K2 held to 24 a step. Then each [off] family
+    over b32-yfcc-msclips.json at full width (6 layers): one fp32 forward
+    of 8 images and 8 prompts, the card against the CPU; and one bf16
+    train step of the Gumbel family. Returns the K1 and K2 launches."""
+    from msclip_torch.eval.zero_shot import run_zero_shot
+    from msclip_torch.models.msclip import build_spec, init_params
+    from msclip_torch.tools.train import train
+    from msclip_torch.train.trainer import (init_train_state,
+                                            make_train_step_from_config)
+
+    total = [0, 0]
+    for name, base in ZOO_MODELS:
+        cfg = zoo_config(base, "DATASET.DATASET", "synthetic",
+                         "DATASET.NUM_SAMPLES", 512, "TEST.BATCH_SIZE_PER_GPU",
+                         batch, "TEST.SUBSET_CLASSES", 100,
+                         "TPU.COMPUTE_DTYPE", "bfloat16")
+        image, text = zoo_k1_blocks(build_spec(cfg))
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        value, stats = run_zero_shot(cfg, device="cuda")
+        torch.cuda.synchronize()
+        k1 = A.fused_attention_qkv.launches
+        expected = image * stats["n_image_batches"] \
+            + text * stats["n_text_chunks"]
+        log("zoo_zero_shot", model=name, dtype="bfloat16", top1=value,
+            n_images=stats["n_images"], images_per_s=stats["images_per_sec"],
+            classifier_s=stats["classifier_s"],
+            image_batches=stats["n_image_batches"],
+            text_chunks=stats["n_text_chunks"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            k1_launches=k1, expected=expected)
+        if stats["n_images"] != 512 or not 0.0 <= value <= 100.0:
+            raise AssertionError(f"zoo {name} zero-shot: {value}, {stats}")
+        if k1 != expected or (name == "b32" and k1 == 0):
+            raise AssertionError(f"zoo {name} zero-shot: K1 launched {k1} "
+                                 f"times, expected {expected}")
+        total[0] += k1
+    for name, base in ZOO_MODELS:
+        zoo_card_against_cpu(name, zoo_config(
+            base, "TPU.COMPUTE_DTYPE", "float32"), count=False)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = zoo_config(B32_YAML, "DATASET.DATASET", "synthetic",
+                     "TRAIN.BATCH_SIZE_PER_GPU", batch, "DATASET.NUM_SAMPLES",
+                     ZOO_TRAIN_STEPS * batch, "TRAIN.END_EPOCH", 1,
+                     "TPU.COMPUTE_DTYPE", "bfloat16")
+    per_step = sum(zoo_k1_blocks(build_spec(cfg)))
+    reset_launches()
+    A.fused_attention_qkv_bwd.launches = 0
+    _, stats = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    got = launches_held("zoo_train", attention_launches(),
+                        per_step * ZOO_TRAIN_STEPS, per_step * ZOO_TRAIN_STEPS)
+    log("zoo_train", model="b32", dtype="bfloat16", batch=batch,
+        steps=stats["steps"], losses=json.dumps(stats["losses"]),
+        samples_per_s=stats["samples_per_s"], seconds=stats["seconds"],
+        peak_mem_gb=stats["peak_mem_gb"], k1_launches=got[0],
+        k2_launches=got[1])
+    if stats["steps"] != ZOO_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in stats["losses"]):
+        raise AssertionError(f"zoo train: {stats['steps']} steps, losses "
+                             f"{stats['losses']}")
+    total = [total[0] + got[0], total[1] + got[1]]
+
+    for name, opts in ZOO_FAMILIES.items():
+        total[0] += zoo_card_against_cpu(name, zoo_config(
+            B32_CONFIG, "TPU.COMPUTE_DTYPE", "float32", *ZOO_DEPTH, *opts))
+
+    cfg = zoo_config(B32_CONFIG, "TPU.COMPUTE_DTYPE", "bfloat16",
+                     "CUSTOM.GUMBEL_LR", 1e-2, *ZOO_DEPTH,
+                     *ZOO_FAMILIES["gumbel"])
+    spec = build_spec(cfg)
+    params = init_params(spec, torch.Generator().manual_seed(0))
+    before = params["gumbel_logit"].clone()
+    state = init_train_state(cfg, spec, params, 1, "cuda")
+    step = make_train_step_from_config(cfg, spec)
+    images, tokens = zoo_inputs(64, spec.image_resolution, seed=1)
+    reset_launches()
+    A.fused_attention_qkv_bwd.launches = 0
+    metrics = step(state, images.cuda(), tokens.cuda())
+    torch.cuda.synchronize()
+    per_step = sum(zoo_k1_blocks(spec))
+    got = launches_held("zoo_gumbel_step", attention_launches(), per_step,
+                        per_step)
+    moved = (state.model.params()["gumbel_logit"].detach().cpu()
+             - before).abs().max().item()
+    log("zoo_gumbel_step", dtype="bfloat16", batch=64,
+        loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
+        gumbel_logit_moved=moved, k1_launches=got[0], k2_launches=got[1])
+    if not (math.isfinite(metrics["loss"].item()) and moved > 0):
+        raise AssertionError(f"zoo gumbel step: loss {metrics['loss']}, "
+                             f"logits moved {moved}")
+    return [total[0] + got[0], total[1] + got[1]]
+
+
+def zoo_planted_faults():
+    """``python3 chip_smoke.py --zoo-faults``: faults planted on the card's
+    side only, each of which phase 19's card-against-CPU check
+    (:func:`zoo_card_against_cpu` at ``ZOO_ATOL``) must catch: the
+    bottom-to-top deconv's output map moved one column (what a wrong
+    stride or offset gives), and one row of K1's output (sample 0, token
+    0, every launch) scaled by 1 + 1e-2 and by 1 + 1e-3. Logs each
+    reading; fails if a fault passes the check."""
+    import msclip_torch.models.layers as L
+    import msclip_torch.models.stem as S
+
+    def moved_deconv(x, *args, **kw):
+        out = real["deconv"](x, *args, **kw)
+        return out.roll(1, dims=-1) if x.is_cuda else out
+
+    def k1_row(scale):
+        def k1(qkv, *args, **kw):
+            out = real["k1"](qkv, *args, **kw)
+            if qkv.is_cuda:
+                out = out.clone()
+                out[0, 0] *= scale
+            return out
+        return k1
+
+    real = {"deconv": S.conv_transpose2d, "k1": L.fused_attention_qkv}
+    b2t = zoo_config(B32_CONFIG, "TPU.COMPUTE_DTYPE", "float32", *ZOO_DEPTH,
+                     *ZOO_FAMILIES["b2t_deconv"])
+    b32 = zoo_config(B32_YAML, "TPU.COMPUTE_DTYPE", "float32")
+    missed = []
+    for fault, name, cfg, module, attr, fn in (
+            ("deconv_moved_one_column", "b2t_deconv", b2t, S,
+             "conv_transpose2d", moved_deconv),
+            ("k1_row_times_1.01", "b32", b32, L, "fused_attention_qkv",
+             k1_row(1.01)),
+            ("k1_row_times_1.001", "b32", b32, L, "fused_attention_qkv",
+             k1_row(1.001))):
+        kept = getattr(module, attr)
+        setattr(module, attr, fn)
+        try:
+            zoo_card_against_cpu(name, cfg, count=False)
+            caught = False
+        except AssertionError as e:
+            caught = "features differ" in str(e)
+        finally:
+            setattr(module, attr, kept)
+        log("zoo_planted_fault", fault=fault, family=name, atol=ZOO_ATOL,
+            caught=caught)
+        if not caught:
+            missed.append(fault)
+    if missed:
+        raise AssertionError(f"planted faults passed the zoo check: {missed}")
+
+
 def headline(rows, **match):
     return next(r for r in rows if "ms" in r
                 and all(r[k] == v for k, v in match.items()))
@@ -3773,6 +4092,7 @@ def main():
     dist_launches = timed("distributed", run_distributed, scratch.name,
                           slice_pred)
     scratch.cleanup()
+    zoo_launches = timed("zoo", run_zoo)
     timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
@@ -3785,16 +4105,19 @@ def main():
                        + int8_launches[0] + transfer_launches
                        + data_launches[0] + gc_launches[0]
                        + resume_launches[0] + serve["k1"]
-                       + dist_launches[0],
+                       + dist_launches[0] + zoo_launches[0],
                        "attention_fwd", "msclip_tpu/ops/attention.py:243",
-                       headline(attn_rows, B=256, L=50, dtype="bfloat16"),
+                       headline(attn_rows, B=256, L=50, E=768,
+                                dtype="bfloat16"),
                        "B=256 L=50 E=768 H=12 bfloat16"),
          "serving_launches": serve["k1"]},
         kernel_line(bwd_rows, train_launches[1] + data_launches[1]
-                    + gc_launches[1] + resume_launches[1] + dist_launches[1],
+                    + gc_launches[1] + resume_launches[1] + dist_launches[1]
+                    + zoo_launches[1],
                     "attention_bwd",
                     "msclip_tpu/ops/attention.py:146",
-                    headline(bwd_rows, B=256, L=50, dtype="bfloat16"),
+                    headline(bwd_rows, B=256, L=50, E=768,
+                             dtype="bfloat16"),
                     "B=256 L=50 E=768 H=12 bfloat16"),
         kernel_line(quant_rows["ln_quant"], int8_launches[1], "ln_quant",
                     "msclip_tpu/ops/quant.py:109",
@@ -3835,4 +4158,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--zoo-faults"]:
+        device_and_packages()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        zoo_planted_faults()
+    else:
+        main()

@@ -167,6 +167,12 @@ def _parse_literal(value: Any) -> Any:
         return value
 
 
+# a vision tower's depth: an int (the ViT's blocks) or a list of four
+# (the ModifiedResNet's stages, which the reference selects by the list,
+# clip_openai_pe_res_v1.py:2748-2756)
+_LAYER_COUNTS = ("VISION.LAYERS",)
+
+
 def _coerce(value: Any, old: Any, key: str) -> Any:
     """Coerce ``value`` to be type-compatible with the existing ``old``."""
     if old is None or value is None:
@@ -189,6 +195,9 @@ def _coerce(value: Any, old: Any, key: str) -> Any:
         return int(value)
     if isinstance(old, (list, tuple)) and isinstance(value, (list, tuple)):
         return type(old)(value)
+    if key.endswith(_LAYER_COUNTS) and isinstance(old, (int, list, tuple)) \
+            and isinstance(value, (int, list, tuple)):
+        return list(value) if isinstance(value, tuple) else value
     if type(old) is not type(value) and not (
         isinstance(old, (int, float)) and isinstance(value, (int, float))
     ):

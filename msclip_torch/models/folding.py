@@ -3,7 +3,8 @@
 At inference BN is an affine map, so every conv+BN pair folds into a conv
 with a bias, and each ``ResBasicBlock_v0`` stem stage (conv3x3+BN plus a
 1x1 downsample+BN, reference ``:1898-1936``) collapses into one conv3x3
-with the 1x1 weights added to the centre tap, ``[:, :, 1, 1]`` in OIHW.
+with the 1x1 weights added to the centre tap, ``[:, :, 1, 1]`` in OIHW;
+the plain 6-conv stem folds conv by conv.
 
 The folded state keeps reference key names: a folded conv gains a
 ``.bias`` key and its BN keys are dropped, which is how the apply
@@ -38,22 +39,36 @@ def _set_folded(out, conv_prefix, bn_prefix, w, b):
 
 def fold_params_for_eval(params, spec):
     """Inference copy of ``params`` with every conv+BN of the stem,
-    parallel branch and lateral adapters folded."""
+    parallel branch and lateral adapters folded, where the JAX package's
+    ``fold_params_for_eval`` folds: nothing for the ModifiedResNet or
+    patchify towers, nor for the adapter variants with a BN or LN after
+    the pointwise conv or the bottom-to-top path; the window adapters keep
+    their BatchNorms."""
+    if spec.vision_resnet_layers or not spec.early_conv:
+        return params
+    if spec.t2b_bn_relu or spec.t2b_bn_ln_relu or spec.parallel_b2t:
+        return params
     out = dict(params)
     stem = spec.stem_prefix
-    w, b = fold_conv_bn(params, f"{stem}.conv1.weight", f"{stem}.bn1")
-    _set_folded(out, f"{stem}.conv1", f"{stem}.bn1", w, b)
-    for i in range(len(spec.early_conv_strides)):
-        sp = f"{stem}.resnet_stage.conv_{i}"
-        w3, b3 = fold_conv_bn(params, f"{sp}.conv1.weight", f"{sp}.bn1")
-        w1, b1 = fold_conv_bn(params, f"{sp}.downsample.0.weight",
-                              f"{sp}.downsample.1")
-        w3 = w3.clone()
-        w3[:, :, 1, 1] += w1[:, :, 0, 0]
-        _set_folded(out, f"{sp}.conv1", f"{sp}.bn1", w3, b3 + b1)
-        del out[f"{sp}.downsample.0.weight"]
-        for s in BN_SUFFIXES:
-            del out[f"{sp}.downsample.1.{s}"]
+    if not spec.early_conv_res:  # the plain 6-conv stem
+        for i in range(1, 6):
+            w, b = fold_conv_bn(params, f"{stem}.conv_{i}.weight",
+                                f"{stem}.bn_{i}")
+            _set_folded(out, f"{stem}.conv_{i}", f"{stem}.bn_{i}", w, b)
+    else:
+        w, b = fold_conv_bn(params, f"{stem}.conv1.weight", f"{stem}.bn1")
+        _set_folded(out, f"{stem}.conv1", f"{stem}.bn1", w, b)
+        for i in range(len(spec.early_conv_strides)):
+            sp = f"{stem}.resnet_stage.conv_{i}"
+            w3, b3 = fold_conv_bn(params, f"{sp}.conv1.weight", f"{sp}.bn1")
+            w1, b1 = fold_conv_bn(params, f"{sp}.downsample.0.weight",
+                                  f"{sp}.downsample.1")
+            w3 = w3.clone()
+            w3[:, :, 1, 1] += w1[:, :, 0, 0]
+            _set_folded(out, f"{sp}.conv1", f"{sp}.bn1", w3, b3 + b1)
+            del out[f"{sp}.downsample.0.weight"]
+            for s in BN_SUFFIXES:
+                del out[f"{sp}.downsample.1.{s}"]
     if not spec.parallel:
         return out
     for i in range(spec.parallel_n_layers):
@@ -71,6 +86,8 @@ def fold_params_for_eval(params, spec):
                 w, b = fold_conv_bn(params, f"{ct}.{conv}.weight",
                                     f"{ct}.{bn}", CONV_RES_BN_EPS)
                 _set_folded(out, f"{ct}.{conv}", f"{ct}.{bn}", w, b)
+    if spec.t2b_windowattn:
+        return out
     for i in range(len(spec.lateral_layers)):
         at = f"visual.transformer.parallel_lateral_adapter.{i}"
         for name in ("top2bottom_dw_conv", "bottom_dw_conv"):

@@ -239,6 +239,36 @@ def attention(p, x, n_head, mask=None, tp=None):
     return block_linear(p, out, "attn.out_proj.weight", "attn.out_proj.bias")
 
 
+def softmax_attention(q, k, v, n_head, mask=None, bias=None, scale=None,
+                      blend=None):
+    """Multi-head attention of projected ``q [B, Lq, H*D]`` over ``k``,
+    ``v [B, Lk, H*D']`` in plain torch, as the JAX package's einsum
+    attentions (ModifiedResNet's pool, the cross attentions, the extension
+    zoo): the query scaled by ``scale`` (``D ** -0.5`` when None; 1 for a
+    query scaled already) in its dtype, fp32 scores plus the additive
+    ``bias`` ``[H, Lq, Lk]`` and ``mask``, fp32 softmax, ``blend`` (a
+    function of the fp32 weights ``[B, H, Lq, Lk]``) applied, weights cast
+    to ``v``'s dtype. Returns ``[B, Lq, H*D']``."""
+    B, Lq, _ = q.shape
+    qh = q.reshape(B, Lq, n_head, -1).transpose(1, 2)
+    kh = k.reshape(B, k.shape[1], n_head, -1).transpose(1, 2)
+    vh = v.reshape(B, v.shape[1], n_head, -1).transpose(1, 2)
+    if scale is None:
+        scale = qh.shape[-1] ** -0.5
+    if scale != 1:
+        qh = qh * torch.tensor(scale, dtype=q.dtype)
+    scores = qh.float() @ kh.float().transpose(-1, -2)
+    if bias is not None:
+        scores = scores + bias.float()
+    if mask is not None:
+        scores = scores + mask.float()
+    weights = scores.softmax(dim=-1)
+    if blend is not None:
+        weights = blend(weights)
+    out = weights.to(v.dtype) @ vh
+    return out.transpose(1, 2).reshape(B, Lq, -1)
+
+
 def int8_block(p, x, n_head, mask=None, eps=1e-12):
     """Pre-LN block of a quantized eval model with the quantizers fused
     (``_int8_block``): K3 quantizes the LayerNorm outputs and K4 the
@@ -308,6 +338,23 @@ def conv2d(x, weight, stride=1, padding=0, groups=1):
     """NCHW conv with an OIHW weight cast to ``x``'s dtype."""
     return F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding,
                     groups=groups)
+
+
+def conv_transpose2d(x, weight, stride=1, padding=0, groups=1):
+    """NCHW transposed conv with torch ``ConvTranspose2d``'s weight
+    ``[in, out / groups, k, k]`` and geometry, output side ``(H - 1) s -
+    2 p + k`` (``msclip_tpu/models/layers.py:311``: a stride-1 conv of the
+    ``s``-dilated input, padded ``k - 1 - p`` a side, with the kernel
+    flipped; the JAX function takes HWIO with ``I = 1`` for the depthwise
+    deconv it is used for, which is this layout's ``[C, 1, k, k]``)."""
+    return F.conv_transpose2d(x, weight.to(x.dtype), stride=stride,
+                              padding=padding, groups=groups)
+
+
+def avg_pool(x, k):
+    """NCHW average pool, kernel = stride = ``k`` (torch ``AvgPool2d(k)``;
+    JAX's ``reduce_window`` sum over VALID windows / k^2)."""
+    return F.avg_pool2d(x, k)
 
 
 def add_channel_bias(x, bias):

@@ -19,8 +19,9 @@ block that shares the trunk's attn/mlp holds no copy of its own and reads
 the trunk's int8 tensors (``msclip.resolve_text_block``).
 
 The JAX function's refusals hold here too: ``TPU.USE_FUSED_BLOCK`` with
-``TPU.INT8_EVAL`` raises ``ValueError``, and the extension zoo raises, both
-in ``msclip.spec_from_config``.
+``TPU.INT8_EVAL`` raises ``ValueError`` in ``msclip.spec_from_config``, and
+:func:`quantize_params_for_eval` raises for the extension families and for
+the ModifiedResNet tower. The Perceiver blocks keep full precision.
 """
 
 from __future__ import annotations
@@ -43,6 +44,16 @@ def quantize_linear_weight(w: torch.Tensor):
 def quantize_params_for_eval(params, spec):
     """A copy of ``params`` with every stored trunk block's GEMM weights
     as ``<key>_int8`` / ``<key>_scale`` pairs (module docstring)."""
+    if spec.vision_resnet_layers:
+        raise ValueError(
+            "TPU.INT8_EVAL quantizes the transformer trunk's blocks; the "
+            "ModifiedResNet tower has none (the JAX package's "
+            "quantize_params_for_eval fails on its tree too)")
+    if spec.ext.any_active:
+        raise ValueError(
+            "TPU.INT8_EVAL does not support the experimental extension "
+            "zoo (spec.ext is active); disable the CUSTOM extensions or "
+            "the int8 mode")
     out = dict(params)
     prefixes = [f"visual.transformer.resblocks.{i}"
                 for i in range(spec.first_block, spec.effective_vision_layers)]

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize_uint8
+from ..models.extensions import ExtSpec
 from ..models.msclip import (
     MSClipModel,
     MSClipSpec,
@@ -97,12 +98,15 @@ KERNEL_COUNTERS = {
 
 def spec_from_json(d: dict) -> MSClipSpec:
     """The spec back from its ``dataclasses.asdict`` in a manifest (JSON
-    lists -> tuples)."""
-    kw = {}
-    for f in dataclasses.fields(MSClipSpec):
-        if f.name in d:
-            v = d[f.name]
-            kw[f.name] = tuple(v) if isinstance(v, list) else v
+    lists -> tuples, the nested ``ExtSpec`` rebuilt)."""
+    def fields(cls, src):
+        return {f.name: tuple(src[f.name]) if isinstance(src[f.name], list)
+                else src[f.name]
+                for f in dataclasses.fields(cls) if f.name in src}
+
+    kw = fields(MSClipSpec, d)
+    if isinstance(kw.get("ext"), dict):  # the extension families' switches
+        kw["ext"] = ExtSpec(**fields(ExtSpec, kw["ext"]))
     return MSClipSpec(**kw)
 
 

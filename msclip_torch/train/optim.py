@@ -54,9 +54,11 @@ def _is_shared_param(key: str, spec: MSClipSpec) -> bool:
 
 
 def param_labels(params, spec: MSClipSpec):
-    """``{key: 'regular' | 'shared'}`` for every trained tensor of the
-    reference-layout dict; BN running statistics get no label."""
-    return {k: "shared" if _is_shared_param(k, spec) else "regular"
+    """``{key: 'regular' | 'shared' | 'arch'}`` for every trained tensor of
+    the reference-layout dict (``arch``: the Gumbel logits, the NAS
+    architecture parameter); BN running statistics get no label."""
+    return {k: "arch" if k == "gumbel_logit"
+            else "shared" if _is_shared_param(k, spec) else "regular"
             for k in params if not is_bn_stat(k)}
 
 
@@ -165,10 +167,13 @@ def build_optimizer(config, params, spec: MSClipSpec, steps_per_epoch: int):
     ``params`` (``MSClipModel.params()``: reference key -> tensor; the BN
     running statistics among them tell the weight-decay rule which modules
     are BatchNorms, and are not optimized), in four groups: regular and
-    shared, each with and without weight decay. The scheduler sets each
-    group's LR to its schedule's value at the step about to run (group LRs
-    start at 1 and the lambdas return the LR itself; the SWA anneal, when
-    configured, wraps each group's schedule)."""
+    shared, each with and without weight decay; and the Gumbel logits
+    (``GUMBEL_SELECT``) at the constant ``CUSTOM.GUMBEL_LR`` without weight
+    decay (the JAX package's ``arch`` group, ``optax.adamw``). The
+    scheduler sets each group's LR to its schedule's value at the step
+    about to run (group LRs start at 1 and the lambdas return the LR
+    itself; the SWA anneal, when configured, wraps each group's schedule
+    but the ``arch`` group's)."""
     without_wd = list(config.TRAIN.WITHOUT_WD_LIST)
     labels = param_labels(params, spec)
     mask = wd_mask(params, without_wd)
@@ -176,13 +181,15 @@ def build_optimizer(config, params, spec: MSClipSpec, steps_per_epoch: int):
     lr_share = config.CUSTOM.get("LR_SHARE", 0.0) or config.TRAIN.LR
     share_scale = lr_share / max(config.TRAIN.LR, 1e-12)
     wd_share = config.CUSTOM.get("WD_SHARE", 0.0) or config.TRAIN.WD
+    gumbel_lr = config.CUSTOM.get("GUMBEL_LR", 0.0) or config.TRAIN.LR
     groups, lambdas = [], []
     for label, wd, sched in (
             ("regular", config.TRAIN.WD,
              swa_anneal_wrap(base_sched, config, steps_per_epoch)),
             ("shared", wd_share,
              swa_anneal_wrap(lambda t: base_sched(t) * share_scale, config,
-                             steps_per_epoch))):
+                             steps_per_epoch)),
+            ("arch", 0.0, lambda t: gumbel_lr)):
         for decay in (True, False):
             members = [params[k] for k in labels
                        if labels[k] == label and mask[k] == decay]

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models import msclip as MM
+from ..models.extensions import gumbel_action
 from ..models.stem import BNState
 from ..parallel.collectives import group_rank, group_size
 from ..parallel.infonce import (
@@ -71,12 +72,19 @@ from .optim import DataShards, build_optimizer, clip_by_global_norm_, \
 MAX_LOGIT_SCALE = 4.6052
 
 
-def step_generator(seed: int, step: int, microbatch: int, device):
+# the stream of the Gumbel action's draws (step_generator's ``stream``)
+GUMBEL_STREAM = 1
+
+
+def step_generator(seed: int, step: int, microbatch: int, device,
+                   stream: int | None = None):
     """A ``torch.Generator`` on ``device`` seeded from ``(seed, step,
     microbatch)`` (the port's ``fold_in(fold_in(PRNGKey(seed), step),
-    i)``): the same triple gives the same draws."""
-    words = np.random.SeedSequence([seed, step, microbatch]).generate_state(
-        2, np.uint32)
+    i)``): the same triple gives the same draws. ``stream`` names another
+    sequence of draws of the same step (the Gumbel action's,
+    :data:`GUMBEL_STREAM`)."""
+    entropy = [seed, step, microbatch] + ([] if stream is None else [stream])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     g = torch.Generator(device=device)
     g.manual_seed((int(words[0]) << 31 | int(words[1])) & (2 ** 63 - 1))
     return g
@@ -91,7 +99,11 @@ def make_encode_fn(spec: MM.MSClipSpec, freeze_bn: bool = False,
     ``freeze_bn`` (``SWA.FROZEN_BN``) in eval mode on the running
     statistics, recording nothing. ``generator`` drives DropPath in the
     image tower (when ``spec.vision_drop_path > 0``), ``rows=(first,
-    total)`` places the images in the global batch whose masks it draws. Raises ValueError
+    total)`` places the images in the global batch whose masks it draws.
+    With ``GUMBEL_SELECT`` the action (``extensions.gumbel_action``) is
+    drawn from ``action_generator()``, a fresh generator of the step's
+    seed each call (so GradCache's passes and every microbatch take one
+    action), or is the deterministic argmax without it. Raises ValueError
     for a spec with ``use_fused_block``: K5 has no backward (the JAX
     package's ``fused_attention_halfblock`` has no VJP either)."""
     if spec.use_fused_block:
@@ -100,13 +112,19 @@ def make_encode_fn(spec: MM.MSClipSpec, freeze_bn: bool = False,
             "kernels (K5, K6) have no backward, so the train step cannot "
             "run with it")
 
-    def encode(params, images, tokens, generator=None, rows=None):
+    def encode(params, images, tokens, generator=None, rows=None,
+               action_generator=None):
         bn = BNState(training=not freeze_bn, group=group)
+        action = None
+        if spec.ext.gumbel_select:  # drawn anew a call: a graph each
+            action = gumbel_action(
+                params["gumbel_logit"],
+                None if action_generator is None else action_generator())
         fi = MM.encode_image(
             params, spec, images, bn=bn,
             generator=generator if spec.vision_drop_path > 0.0 else None,
-            rows=rows, tp=tp)
-        ft = MM.encode_text(params, spec, tokens, tp=tp)
+            rows=rows, tp=tp, action=action)
+        ft = MM.encode_text(params, spec, tokens, tp=tp, action=action)
         return fi, ft, bn.updates
 
     return encode
@@ -337,14 +355,19 @@ def make_train_step(spec: MM.MSClipSpec, clip_grad_norm: float = 0.0,
         def rows_of(i):  # microbatch i's rows of the global microbatch
             return rank * micro, n * micro
 
+        step_encode = encode
+        if spec.ext.gumbel_select:  # one action a step, every process's
+            step_encode = functools.partial(
+                encode, action_generator=lambda: step_generator(
+                    seed, state.step, 0, images.device, GUMBEL_STREAM))
         if accum_steps > 1:
             loss, bn_updates = gradcache_backward(
-                encode, params, images, tokens, accum_steps,
+                step_encode, params, images, tokens, accum_steps,
                 generator_of=generator_of, emb_loss=emb_loss,
                 rows_of=rows_of)
         else:
-            fi, ft, bn_updates = encode(params, images, tokens,
-                                        generator_of(0), rows_of(0))
+            fi, ft, bn_updates = step_encode(params, images, tokens,
+                                             generator_of(0), rows_of(0))
             loss = emb_loss(fi, ft, params["logit_scale"])
             loss.backward()
             loss = loss.detach()

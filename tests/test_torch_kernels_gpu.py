@@ -195,6 +195,34 @@ def test_attention_bwd_kernel_edge_lengths(cuda, dtype, causal, E, H, L):
     _assert_bwd_close(got, A.attention_qkv_bwd_plain(qkv, g, H, mask), dtype)
 
 
+# b32.yaml's and RN50's text tower (E = 512, 8 heads of 64, L = 77 causal)
+# and a 512-wide tower at the image length without a mask
+ZOO_SHAPES = [(256, 77, True), (1024, 77, True), (5, 77, True),
+              (256, 50, False), (7, 50, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,causal", ZOO_SHAPES)
+def test_attention_kernels_at_e512(cuda, dtype, B, L, causal):
+    """K1 and K2 at E = 512, H = 8 against their plain versions, to the
+    limits of the E = 768 tests (elementwise, and by the mean in bf16)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + L)
+    qkv = torch.randn(B, L, 3 * 512, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(B, L, 512, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda) if causal else None
+    before = (A.fused_attention_qkv.launches,
+              A.fused_attention_qkv_bwd.launches)
+    got = A.fused_attention_qkv(qkv, 8, mask)
+    dqkv = A.fused_attention_qkv_bwd(qkv, g, 8, mask)
+    torch.cuda.synchronize()
+    assert (A.fused_attention_qkv.launches,
+            A.fused_attention_qkv_bwd.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert got.shape == (B, L, 512) and dqkv.shape == qkv.shape
+    _assert_fwd_close(got, A.attention_qkv_plain(qkv, 8, mask), dtype)
+    _assert_bwd_close(dqkv, A.attention_qkv_bwd_plain(qkv, g, 8, mask), dtype)
+
+
 def test_attention_autograd_round_trip_on_the_card(cuda):
     """Gradients through FusedAttentionQKV on the card (K1 forward, K2
     backward) against torch autograd of the plain forward."""

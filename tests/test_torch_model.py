@@ -1,6 +1,7 @@
 """The port's MS-CLIP-S towers, key maps and spec against the JAX package's,
 fp32 on the CPU, on shared weights made with numpy from a seed."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,6 +24,7 @@ from msclip_torch.models import msclip as TM
 from msclip_torch.models.folding import fold_params_for_eval
 from msclip_torch.utils.convert import (
     build_key_map,
+    derived_keys,
     load_state_dict,
     params_from_jax,
 )
@@ -190,40 +192,108 @@ def test_released_configs_build_with_the_reference_key_set(name):
     assert spec.vision_seq_len == jax_build_model(jcfg).spec.vision_seq_len
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("CUSTOM.ADAPTER_FLAG", True, "M10"),
-    ("CUSTOM.LORA_ATTN_DIM", 4, "M10"),
-    ("CUSTOM.PERCEIVER_IN_V", True, "M10"),
-    ("CUSTOM.PARALLEL_B2T", True, "M10"),
-    ("CUSTOM.PARALLEL_T2B_WINDOWATTN", True, "M10"),
-    ("MODEL.SPEC.VISION.LAYERS", [3, 4, 6, 3], "M10"),
-    ("CUSTOM.EARLY_CONV_RES", False, "M10"),
-    ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False, "M10"),
-    ("MODEL.SPEC.POOL_TYPE", "linear", "M10"),
-    ("CUSTOM.GUMBEL_SELECT", True, "M10"),
-])
-def test_unported_features_are_rejected(key, value, item):
-    cfg = get_default_config()
-    update_config(cfg, os.path.join(REPO, "experiments", "model",
-                                    "b32-yfcc-msclips.yaml"))
+def _set(cfg, key, value):
     *path, leaf = key.split(".")
     node = cfg
     for part in path:
         node = node[part]
     node[leaf] = value
+
+
+# the model-zoo switches (ROADMAP M10), each over b32-yfcc-msclips.yaml
+ZOO_CASES = [
+    ("CUSTOM.ADAPTER_FLAG", True),
+    ("CUSTOM.LORA_ATTN_DIM", 4),
+    ("CUSTOM.PERCEIVER_IN_V", True),
+    ("CUSTOM.PARALLEL_B2T", True),
+    ("CUSTOM.PARALLEL_T2B_WINDOWATTN", True),
+    ("MODEL.SPEC.VISION.LAYERS", [3, 4, 6, 3]),
+    ("CUSTOM.EARLY_CONV_RES", False),
+    ("CUSTOM.EARLY_CONV_NEW_IMPLEMENT", False),
+    ("MODEL.SPEC.POOL_TYPE", "linear"),
+    ("CUSTOM.GUMBEL_SELECT", True),
+]
+
+
+@pytest.mark.parametrize("key,value", ZOO_CASES)
+def test_zoo_features_build_the_jax_spec(key, value):
+    """Each model-zoo switch builds the spec JAX's ``spec_from_config``
+    builds: the same sequence length, layer counts and sharing, and a key
+    map with JAX's keys (stored, aliased and derived)."""
+    path = os.path.join(REPO, "experiments", "model", "b32-yfcc-msclips.yaml")
+    cfg, jcfg = get_default_config(), jax_default_config()
+    update_config(cfg, path)
+    jax_update_config(jcfg, path)
+    _set(cfg, key, value)
+    _set(jcfg, key, value)
+    spec, jspec = TM.spec_from_config(cfg), jax_build_model(jcfg).spec
+    assert spec.vision_seq_len == jspec.vision_seq_len
+    assert spec.vision_resnet_layers == jspec.vision_resnet_layers
+    assert spec.effective_vision_layers - spec.first_block == \
+        (jspec.n_trunk_blocks if not jspec.vision_resnet_layers else 0) \
+        or spec.vision_resnet_layers
+    assert spec.text_layers == jspec.text_layers
+    assert [spec.text_layer_is_shared(i) for i in range(spec.text_layers)] \
+        == [jspec.text_layer_is_shared(i) and not jspec.vision_resnet_layers
+            for i in range(jspec.text_layers)]
+    assert dataclasses.asdict(spec.ext) == dataclasses.asdict(jspec.ext)
+    stored, aliases = build_key_map(spec)
+    assert set(stored) | set(aliases) | set(derived_keys(spec)) == \
+        set(jax_build_key_map(jspec))
+
+
+# b32.yaml, OpenAI CLIP's RN50 over it, and b32.yaml with a 512-wide
+# image tower
+K5_BASES = {"b32": "experiments/model/b32.yaml",
+            "rn50": "msclip_torch/config/rn50.json",
+            "b32_512": "experiments/model/b32.yaml"}
+
+
+@pytest.mark.parametrize("base,key,value,item", [
+    ("b32", "TPU.USE_FUSED_BLOCK", True, "Queue 2a.3"),
+    ("rn50", "TPU.USE_FUSED_BLOCK", True, "Queue 2a.3"),
+    ("b32_512", "TPU.USE_FUSED_BLOCK", True, "Queue 2a.3"),
+])
+def test_unported_features_are_rejected(base, key, value, item):
+    """What the port still refuses: K5 on a tower it does not take. Towers
+    of two widths (b32.yaml's 512-wide text tower) or a ResNet tower
+    (RN50) raise at spec time; towers of one width other than 768 build
+    (the CPU runs K5's plain version at any width) and the fused block
+    raises off the CPU."""
+    cfg = get_default_config()
+    update_config(cfg, os.path.join(REPO, K5_BASES[base]))
+    _set(cfg, key, value)
+    if base != "b32_512":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            TM.spec_from_config(cfg)
+        return
+    _set(cfg, "MODEL.SPEC.VISION.WIDTH", 512)
+    spec = TM.spec_from_config(cfg)
+    assert spec.use_fused_block and spec.vision_width == spec.text_width
+    x = torch.empty(2, 50, 512, device="meta")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TM.spec_from_config(cfg)
+        TM._block_fn(spec)({}, x, 8, None)
 
 
-@pytest.mark.parametrize("key", ["TPU.INT8_EVAL", "TPU.USE_FUSED_BLOCK"])
+# TPU.MESH_MODEL 2 with each of these: the ones that need whole blocks
+TP_REFUSED = {"TPU.INT8_EVAL": "True", "TPU.USE_FUSED_BLOCK": "True",
+              "CUSTOM.ADAPTER_FLAG": "True", "CUSTOM.LORA_ATTN_DIM": "4",
+              "CUSTOM.CVT_IN_V": "True", "CUSTOM.CONVIT_IN_V": "True",
+              "CUSTOM.CONTAINER_IN_V": "True", "CUSTOM.GUMBEL_SELECT": "True",
+              "CUSTOM.PERCEIVER_IN_V": "True",
+              "CUSTOM.PERCEIVER_IN_T": "True"}
+
+
+@pytest.mark.parametrize("key", list(TP_REFUSED))
 def test_tensor_parallelism_refuses_whole_block_kernels(key):
     """``TPU.MESH_MODEL > 1`` splits every block's heads over processes;
-    int8 eval and the fused half-blocks need whole blocks, so either
-    raises, naming the reason."""
+    int8 eval, the fused half-blocks, the zoo's plug-in blocks and the
+    Perceiver blocks need whole blocks, so each raises, naming the
+    reason."""
     cfg = get_default_config()
     update_config(cfg, os.path.join(REPO, "experiments", "model",
                                     "b32-yfcc-msclips.yaml"),
-                  opts=["TPU.MESH_MODEL", "2", key, "True"])
+                  opts=["TPU.MESH_MODEL", "2", key, TP_REFUSED[key]])
     with pytest.raises(ValueError, match="tensor parallelism"):
         TM.spec_from_config(cfg)
 

@@ -694,6 +694,25 @@ def tiny_int8():
             fold_params_for_eval(tp, spec))
 
 
+def _leaf(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _nudges(shape, n_random=16, seed=0):
+    """Factors ``1 + d`` that nudge a tensor of ``shape`` by ``|d| = 2^-22``
+    of itself: the two uniform ones, then ``n_random`` with a random sign
+    per element."""
+    rng = np.random.default_rng(seed)
+    step = np.float32(2.0 ** -22)
+    yield np.float32(1 + step)
+    yield np.float32(1 - step)
+    for _ in range(n_random):
+        yield (1 + step * rng.choice(np.array([-1, 1], np.float32), shape)
+               ).astype(np.float32)
+
+
 def _nudged(tree, path, scale):
     """``tree`` with the leaf at ``path`` scaled by ``scale``."""
     if not path:
@@ -705,14 +724,15 @@ def test_int8_towers_match_jax(tiny_int8, monkeypatch):
     """Whole towers on the same int8 tensors. A quantized value next to a
     tie moves by one step when its input moves by one ulp (the order of a
     LayerNorm or attention sum, the stem's convs), and the blocks after it
-    carry that on: nudging JAX's own input by 2^-22 of itself moves its
-    int8 features by as much as the port differs from it (about 4e-3 on
-    unit-norm features here, against 1e-4 in fp32). So each tower is held
-    within 4x how far the larger of two nudges (+-2^-22: the images, or the
-    token embedding for the text tower) moves JAX's features, and every
-    trunk block is shown to run its GEMMs in int8: the fused form in the
-    image tower (L = 101), the unfused one in the text tower (L = 77). The
-    blocks themselves are held to 2e-5 above."""
+    carry that on. So each tower is held within 4x how far JAX's own
+    features move when its input (the images, or the token embedding for
+    the text tower) is nudged by 2^-22 of itself in 18 directions: the two
+    uniform ones (+-), which the per-token scales of the text tower absorb
+    whole, and 16 of random signs per element, which move single codes
+    across their ties as a sum in another order does. Every trunk block is
+    shown to run its GEMMs in int8: the fused form in the image tower
+    (L = 101), the unfused one in the text tower (L = 77). The blocks
+    themselves are held to 2e-5 above."""
     jm, jq, spec, tp = tiny_int8
     images, tokens = _inputs(160)
     calls, fused, real_mm, real_block = [], [], TL._int_mm, TL.int8_block
@@ -727,10 +747,11 @@ def test_int8_towers_match_jax(tiny_int8, monkeypatch):
              ("text", "token_embedding"))):
         fn = jax.jit(encode)
         want = np.asarray(fn(jq, jnp.asarray(x)))
+        nudged = x if path is None else np.asarray(_leaf(jq, path))
         noise = max(np.abs(np.asarray(
-            fn(jq, jnp.asarray(x * (1 + d))) if path is None else
-            fn(_nudged(jq, path, 1 + d), jnp.asarray(x))) - want).max()
-            for d in (2.0 ** -22, -2.0 ** -22))
+            fn(jq, jnp.asarray(x * d)) if path is None else
+            fn(_nudged(jq, path, d), jnp.asarray(x))) - want).max()
+            for d in _nudges(nudged.shape))
         calls.clear()
         got = port_encode(tp, spec, torch.from_numpy(x)).numpy()
         n_blocks = n_vis if path is None else spec.text_layers
