@@ -18,7 +18,11 @@ Phases, each printed on its own line and each fatal on failure:
    the fp32 and bf16 turns of K5, K6, E1, E2 and the hybrid against their
    yardsticks that phases 3 and 12 report (``traced_turns``: the profiler
    traced none of them in a process that had run the other phases
-   first);
+   first), and in two more fresh processes the measurements that set
+   ``ops/tuning.py``'s ``sm_90`` row (``measure_tuning``: K1 and K2 with
+   lane pack 2 against 1 at 256 x 50, and B/16's int8 text tower with
+   the fused int8 gate at 77 against 96, each pair in turns by device
+   time);
 3. kernels: call each kernel's wrapper at the shapes the main paths give
    it, hold the result against its plain PyTorch version, and time the
    kernel, the plain version and the nearest PyTorch library call: the
@@ -139,7 +143,12 @@ Phases, each printed on its own line and each fatal on failure:
    images and 8 prompts, the card against the CPU within ``ZOO_ATOL``
    (``--zoo-faults`` shows it catching planted card-side faults); 3 bf16
    train steps of b32.yaml at batch 256, K1 and K2 held to 24 a step;
-   then each [off] family over
+   then the same two with ``TPU.USE_FUSED_BLOCK`` (``run_zoo_fused``):
+   zero-shot with K5 held to 12 a batch at E = 768 (b32.yaml's image
+   tower) and 12 a text chunk at E = 512 (both text towers), K1 to none;
+   fp32 features of 8 images and 16 prompts, the card against the CPU
+   within ``ZOO_ATOL``; bf16 fused image and text features against
+   unfused, least cosine > 0.999; then each [off] family over
    b32-yfcc-msclips.json at full width, cut to 6 layers (adapters,
    LoRA+MoE, CvT outside and inside, ConViT, Container, Gumbel, the
    Perceiver latents, the three bottom-to-top paths, windowed fusion, the
@@ -167,7 +176,8 @@ copy of the plain versions against the same check, and times both beside
 the port's unfused half (with K1, and with SDPA in K1's place, for K5) and
 ``torch.compile`` of the plain version; K5 and K6 each in turns with its
 unfused half (K1's; the cuBLAS MLP half), by event and device time, with
-``vs_unfused``, the ratio of their device times. A ``k5_design`` line
+``vs_unfused``, the ratio of their device times; at E = 768 and, at the
+text shapes of b32.yaml and RN50, at E = 512 (``HALF_SHAPES_512``). A ``k5_design`` line
 gives, apart from the measurements, the bytes K5's groups stage from the
 L2 as the design reckons them (``staged_l2_bytes``; no counter reads
 them), a ``k6_design`` line K6's plan (``mlp_plan``).
@@ -493,7 +503,8 @@ def halfblock_jobs(B, L, causal, dtype, p, gen, tuning=False):
     from msclip_torch.models import layers as TL
 
     F = torch.nn.functional
-    E, H = BF.WIDTH, BF.WIDTH // 64
+    E = p["ln_1.weight"].shape[0]  # the block's width: 768 or 512
+    H = E // 64
     mask = TL.build_causal_mask(L, device="cuda") if causal else None
     nbytes = B * L * E * torch.finfo(dtype).bits // 8 * (4 if tuning else 1)
     n = min(33, max(1, math.ceil(2 * L2_BYTES / nbytes)))
@@ -536,7 +547,8 @@ def halfblock_jobs(B, L, causal, dtype, p, gen, tuning=False):
 def traced_turns():
     """The turns (:func:`turns`) of phases 3 and 12 in fp32 and bf16: K5
     against the unfused half with K1 at ``HALF_SHAPES`` and
-    ``TUNING_SHAPES``; K6 against the unfused MLP half at ``HALF_SHAPES``;
+    ``TUNING_SHAPES``, and at E = 512 at ``HALF_SHAPES_512``; K6 against
+    the unfused MLP half at ``HALF_SHAPES`` and ``HALF_SHAPES_512``;
     at ``TUNING_SHAPES`` each E1 variant and the whole hybrid against the
     unfused half, E2 against K1 with the out-projection; the calls of
     :func:`halfblock_jobs`. Every call is
@@ -545,11 +557,17 @@ def traced_turns():
     (:func:`traced_turns_in_subprocess`): on the card, in a process that
     had run the other phases first (many other kernels, and
     ``torch.compile``), torch.profiler traced none of these calls; why is
-    not known."""
+    not known. The fp32 turns time ``FP32_TURN_ITERS`` calls a timing."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     jobs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        p512 = half_params(gen, dtype, 512)
+        for B, L, causal in HALF_SHAPES_512[dtype]:
+            j = halfblock_jobs(B, L, causal, dtype, p512, gen)
+            for kind, other in (("k5", "unfused"), ("k6", "unfused_mlp")):
+                jobs[turn_key(kind, B, L, dtype, causal, E=512)] = (
+                    j[kind], j[other], j["n"], "unfused")
         p = half_params(gen, dtype)
         for B, L, causal in sorted(set(HALF_SHAPES) | {
                 (B, L, False) for B, L in TUNING_SHAPES}):
@@ -574,14 +592,173 @@ def traced_turns():
         other(0)
     torch.cuda.synchronize()
     per_call = {}  # a yardstick's records, traced once for all its turns
-    return {key: turns(kernel, other, n, name, per_call)
+    return {key: turns(kernel, other, n, name, per_call,
+                       FP32_TURN_ITERS if "float32" in key.split() else 30)
             for key, (kernel, other, n, name) in jobs.items()}
 
 
-def turn_key(kind, B, L, dtype, causal=False, variant=None):
+# the measurements that set ops/tuning.py's sm_90 row: K1 and K2 with
+# MSCLIP_ATTN_PACK 2 against 1 at the B/32 image tower's attention (bf16),
+# and B/16's int8 text tower (a classifier chunk of 1024 prompts, L = 77)
+# with the fused int8 gate at 77 (K3/K4 in every block) against 96 (none)
+TUNING_PACK_SHAPE = (256, 50)
+TUNING_TEXT_CHUNK = 1024
+# calls of 140-270 ms a timing (at 30 the measurements took 307 s)
+TUNING_TEXT_ITERS = 6
+
+
+def int8_text_quantizers():
+    """``(K3, K4)`` launches of one B/16 int8 text block on the card: the
+    fused int8 block's two LayerNorm quantizers and one GELU quantizer
+    where the card's gate (``ops/tuning.py``) admits L = 77, else none."""
+    from msclip_torch.models.layers import int8_min_seq
+
+    return (2, 1) if 77 >= int8_min_seq(torch.device("cuda")) else (0, 0)
+
+
+def verdict(row):
+    """Whether the candidate (an :func:`in_turns` row's kernel) beat the
+    default (its yardstick): by device time, or by event time where the
+    profiler gave no trace that counts (for calls of many milliseconds
+    the two agree within 1%); ``basis`` says which."""
+    if row["vs_library"] is not None:
+        return {"wins": row["vs_library"] < 1, "basis": "device"}
+    return {"wins": row["ms"] < row["library_ms"],
+            "basis": "event (device not measured)"}
+
+
+def measure_tuning(part):
+    """The tuning row's measurements, each pair in turns by event and
+    device time (:func:`in_turns`: the candidate as the kernel, the
+    table's default as the yardstick): ``part`` "gate", ``int8_gate``,
+    ``encode_text`` of the B/16 int8 model at gate 77 against 96; or
+    "pack", ``pack_fwd`` and ``pack_bwd``, K1 and K2 at pack 2 against 1
+    on the same rows. Each entry carries ``wins`` and its ``basis``
+    (:func:`verdict`). Each part runs in a fresh process of its
+    own (:func:`tuning_in_subprocess`): in a process that had traced the
+    other part first, the profiler lost records."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return measure_int8_gate() if part == "gate" else measure_lane_pack()
+
+
+def measure_int8_gate():
+    """:func:`measure_tuning`'s ``int8_gate``."""
+    from msclip_torch.data import ClipTokenizer, get_classnames, get_templates
+    from msclip_torch.eval.zero_shot import load_eval_model
+    from msclip_torch.models.msclip import build_spec
+
+    cfg = b16_config("TPU.COMPUTE_DTYPE", "bfloat16", "TPU.INT8_EVAL", True)
+    model = load_eval_model(cfg, build_spec(cfg), "cuda")
+    names, templates = get_classnames("imagenet"), get_templates("imagenet")
+    texts = [t.format(c) for c in names for t in templates]
+    tok = ClipTokenizer()
+    chunks = [torch.from_numpy(tok(texts[i * TUNING_TEXT_CHUNK:
+                                         (i + 1) * TUNING_TEXT_CHUNK])).cuda()
+              for i in range(2)]
+    kept = os.environ.get("MSCLIP_INT8_MIN_SEQ")
+
+    def text(gate):
+        def f(i):
+            os.environ["MSCLIP_INT8_MIN_SEQ"] = str(gate)
+            with torch.inference_mode():
+                return model.encode_text(chunks[i % 2])
+        return f
+
+    try:
+        reset_launches()
+        text(77)(0)
+        text(96)(1)
+        torch.cuda.synchronize()
+        k3 = Q.ln_quant.launches
+        row = in_turns(text(77), text(96), 2, one_record=False,
+                       iters=TUNING_TEXT_ITERS)
+    finally:
+        if kept is None:
+            os.environ.pop("MSCLIP_INT8_MIN_SEQ", None)
+        else:
+            os.environ["MSCLIP_INT8_MIN_SEQ"] = kept
+    out = {"int8_gate": {
+        "model": "b16-yfcc-msclips", "tower": "text", "B": TUNING_TEXT_CHUNK,
+        "L": 77, "dtype": "bfloat16", "candidate": 77, "default": 96,
+        "k3_launches_at_77": k3, "ms": row["ms"],
+        "default_ms": row["library_ms"], "device_ms": row["device_ms"],
+        "default_device_ms": row["library_device_ms"], **verdict(row)}}
+    if k3 == 0:
+        raise AssertionError("gate 77 launched no K3 in the text tower")
+    return out
+
+
+def measure_lane_pack():
+    """:func:`measure_tuning`'s ``pack_fwd`` and ``pack_bwd``."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, L = TUNING_PACK_SHAPE
+    E, H, dt = 768, 12, torch.bfloat16
+    n = min(33, max(1, math.ceil(2 * L2_BYTES / (B * L * 3 * E * 2))))
+    qkvs = [torch.randn(B, L, 3 * E, device="cuda", generator=gen).to(dt)
+            for _ in range(n)]
+    gs = [torch.randn(B, L, E, device="cuda", generator=gen).to(dt)
+          for _ in range(n)]
+    mask = A.pack_mask(L, 2, qkvs[0].device)  # the wrapper's cached mask
+    jobs = {
+        "fwd": (lambda i: A.fused_attention_qkv(qkvs[i], H, lane_pack=2),
+                lambda i: A.fused_attention_qkv(qkvs[i], H, lane_pack=1)),
+        "bwd": (lambda i: A.fused_attention_qkv_bwd(
+                    qkvs[i].view(B // 2, 2 * L, 3 * E),
+                    gs[i].view(B // 2, 2 * L, E), H, mask),
+                lambda i: A.fused_attention_qkv_bwd(qkvs[i], gs[i], H))}
+    out = {}
+    for name, (packed, plain) in jobs.items():
+        row = in_turns(packed, plain, n)
+        out["pack_" + name] = {
+            "B": B, "L": L, "E": E, "dtype": "bfloat16", "candidate": 2,
+            "default": 1, "ms": row["ms"], "default_ms": row["library_ms"],
+            "device_ms": row["device_ms"],
+            "default_device_ms": row["library_device_ms"], **verdict(row)}
+    return out
+
+
+def tuning_in_subprocess():
+    """:func:`measure_tuning`'s two parts, each in a fresh Python process
+    on the same card; logs each measurement and the row it supports
+    beside the table's."""
+    out = {}
+    for part in ("gate", "pack"):
+        r = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke as C; "
+             f"print('TUNING ' + json.dumps(C.measure_tuning('{part}')))"],
+            cwd=REPO, capture_output=True, text=True)
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("TUNING ")]
+        if r.returncode or not lines:
+            raise AssertionError(f"tuning measurements ({part}) failed "
+                                 f"({r.returncode}): {r.stderr[-3000:]}")
+        out.update(json.loads(lines[-1][len("TUNING "):]))
+    for name, row in out.items():
+        log("tuning", measure=name, **row)
+    from msclip_torch.ops import tuning as T
+
+    pack = 2 if out["pack_fwd"]["wins"] and out["pack_bwd"]["wins"] else 1
+    gate = 77 if out["int8_gate"]["wins"] else 96
+    row = T._TABLE["sm_90"]
+    log("tuning_row", measured_attn_lane_pack=pack, measured_int8_min_seq=gate,
+        table_attn_lane_pack=row.attn_lane_pack,
+        table_int8_min_seq=row.int8_min_seq,
+        origin="the table keeps the default unless both (pack) or the one "
+               "(gate) measurement wins")
+    return out
+
+
+# calls a timing of the fp32 turns (30 in the bf16 ones): the fp32 rows are
+# on no main path, and their calls of 1-30 ms took most of the traced
+# turns' time; a depth cut that keeps the script within its limit
+FP32_TURN_ITERS = 10
+
+
+def turn_key(kind, B, L, dtype, causal=False, variant=None, E=768):
     return " ".join(str(k) for k in (
-        kind, variant, B, L, str(dtype).replace("torch.", ""),
-        causal and "causal") if k not in (None, False))
+        kind, variant, B, L, E != 768 and f"E{E}",
+        str(dtype).replace("torch.", ""), causal and "causal")
+        if k not in (None, False))
 
 
 def traced_turns_in_subprocess():
@@ -671,7 +848,8 @@ def device_ms(fn, n_inputs, event_ms, per_call, iters=30, tries=5):
     return None
 
 
-def in_turns(kernel, library, n_inputs, one_record=True, per_call=None):
+def in_turns(kernel, library, n_inputs, one_record=True, per_call=None,
+             iters=30):
     """The kernel and its one-call yardstick timed in turns, library,
     kernel, kernel, library, so that a drift of the card's clock between
     the two reads on both. Each turn takes the event time (:func:`cuda_ms`,
@@ -686,19 +864,21 @@ def in_turns(kernel, library, n_inputs, one_record=True, per_call=None):
     records (:func:`records_per_call`) across turns, so that a yardstick
     shared by several kernels is traced for them once. Where the
     profiler gives no trace that counts, the device times and
-    ``vs_library`` are None (not measured) and ``device_error`` says why."""
+    ``vs_library`` are None (not measured) and ``device_error`` says why.
+    ``iters``: calls a timing and a trace (fewer for calls of many
+    milliseconds)."""
     per_call = {} if per_call is None else per_call
     for fn in (kernel, library):
         if fn not in per_call:
-            per_call[fn] = records_per_call(fn, n_inputs)
+            per_call[fn] = records_per_call(fn, n_inputs, iters)
     if one_record and per_call[kernel] is not None \
             and sum(per_call[kernel].values()) != 1:
         raise AssertionError(f"a kernel call traced {per_call[kernel]}")
     turns = []
     for fn in (library, kernel, kernel, library):
-        event = cuda_ms(fn, n_inputs)
+        event = cuda_ms(fn, n_inputs, iters)
         turns.append((event, None if per_call[fn] is None else
-                      device_ms(fn, n_inputs, event, per_call[fn])))
+                      device_ms(fn, n_inputs, event, per_call[fn], iters)))
 
     def mean(i, j, k):
         t = (turns[i][k], turns[j][k])
@@ -1323,9 +1503,13 @@ def run_compile_baselines():
 HALF_SHAPES = [  # (B, L, causal): image tower, text chunk, B/16, odd shapes
     (256, 50, False), (1024, 77, True), (256, 197, False), (5, 77, True),
     (1, 1, False)]
+# K5/K6 at E = 512, 8 heads: the 512-wide text towers of b32.yaml and RN50
+# (phase 19), the classifier's text chunk and a batch of 256 prompts
+HALF_SHAPES_512 = {torch.bfloat16: [(1024, 77, True), (256, 77, True)],
+                   torch.float32: [(256, 77, True)]}
 
 
-def half_params(gen, dtype, E=BF.WIDTH):
+def half_params(gen, dtype, E=768):
     """One block's tensors under the port's local names, drawn on the card:
     LayerNorm affines near (1, 0), weights of std fan_in^-1/2, biases of std
     0.1, all in ``dtype`` as the eval model holds them."""
@@ -1403,28 +1587,32 @@ def half_with_fault(name, x, p, mask, fault):
     return x + proj(ctx, p["attn.out_proj.weight"], p["attn.out_proj.bias"])
 
 
-def staged_l2_bytes(B, L, S, boxes=True, item=2):
+def staged_l2_bytes(B, L, S, boxes=True, item=2, E=768):
     """The bytes K5 stages from the L2 into shared memory at ``B`` samples
-    of length ``L`` in groups of ``S``: each of a group's 16 GEMMs (12
-    heads' q/k/v, four column tiles of the out-projection) stages 192
-    weight rows and the group's rows, 768 values each; with ``boxes`` (the
-    TMA design) the rows in whole boxes of 128, else (the mma.sync design,
-    groups of ``max(1, 128 // L)``) the rows themselves."""
+    of length ``L`` and width ``E`` in groups of ``S``: each of a group's
+    GEMMs stages its weight rows and the group's rows, ``E`` values each:
+    ``E / 64`` heads' q/k/v of 192 weight rows, and the out-projection's
+    column tiles (four of 192 at E = 768, four of 128 at 512); with
+    ``boxes`` (the TMA design) the rows in whole boxes of 128, else (the
+    mma.sync design, groups of ``max(1, 128 // L)``) the rows
+    themselves."""
     full, rest = divmod(B, S)
     rows = [S * L] * full + ([rest * L] if rest else [])
     if boxes:
         rows = [128 * math.ceil(r / 128) for r in rows]
-    return sum(16 * (r + 192) * 768 * item for r in rows)
+    tile = 192 if E % 192 == 0 else 128
+    return sum(((E // 64) * (r + 192) + (E // tile) * (r + tile)) * E * item
+               for r in rows)
 
 
-def halfblock_bound(name, B, L, dtype, mask):
-    """``(ms, by)``: the least time for K5 or K6, the larger of its I/O (x
-    read and the output written once, the weights, LayerNorm and biases
-    once, the mask) over the memory rate and its products (K5: four
-    projections of ``2 L E^2`` a sample, and ``4 D`` flops per (query, key)
-    pair and head the mask leaves; K6: two of ``8 L E^2``) over the peak
-    rate of ``dtype``."""
-    E, item = BF.WIDTH, torch.finfo(dtype).bits // 8
+def halfblock_bound(name, B, L, dtype, mask, E=768):
+    """``(ms, by)``: the least time for K5 or K6 at width ``E``, the larger
+    of its I/O (x read and the output written once, the weights, LayerNorm
+    and biases once, the mask) over the memory rate and its products (K5:
+    four projections of ``2 L E^2`` a sample, and ``4 D`` flops per (query,
+    key) pair and head the mask leaves; K6: two of ``8 L E^2``) over the
+    peak rate of ``dtype``."""
+    item = torch.finfo(dtype).bits // 8
     if name == "attention_halfblock":
         pairs = L * L if mask is None else int(torch.isfinite(mask).sum())
         flops = 8 * B * L * E * E + 4 * B * (E // 64) * pairs * 64
@@ -1475,82 +1663,94 @@ def half_check(name, kernel, plain, extra, x, p, mask):
 def check_halfblocks(traced):
     """K5 and K6 against their plain versions in fp32 and bf16 at the shapes
     of the fused slice (the image tower, a text chunk), B/16's and two odd
-    ones (:func:`half_check`), and K5 untimed at the served shapes
-    ``SERVE_HALF_SHAPES``. Times each
+    ones (:func:`half_check`), at E = 512 (8 heads) at the text shapes of
+    b32.yaml and RN50 (``HALF_SHAPES_512``), and K5 untimed at the served
+    shapes ``SERVE_HALF_SHAPES``. Times each
     kernel, its plain version and the port's unfused half: for K5 the
     turns of :func:`traced_turns` against ``layer_norm`` + ``linear`` + K1
     + ``linear`` + residual, and the same with SDPA in K1's place; for K6
     its turns against the unfused MLP half (cuBLAS GEMMs); at the image
     shape in bf16 also ``torch.compile`` of the plain version. Logs, apart
     from the measurements, the bytes K5's groups stage from the L2 as
-    :func:`staged_l2_bytes` reckons them and K6's plan (``mlp_plan``)."""
+    :func:`staged_l2_bytes` reckons them and K6's plan (``mlp_plan``).
+    Rows at E = 512 go under ``attention_halfblock_e512`` and
+    ``mlp_halfblock_e512``."""
     from msclip_torch.models import layers as TL
 
-    rows = {"attention_halfblock": [], "mlp_halfblock": []}
+    rows = {"attention_halfblock": [], "mlp_halfblock": [],
+            "attention_halfblock_e512": [], "mlp_halfblock_e512": []}
     gen = torch.Generator(device="cuda").manual_seed(4)
     served_gen = torch.Generator(device="cuda").manual_seed(5)
-    H = BF.WIDTH // 64
+
+    def shape_rows(p, B, L, causal, dtype):
+        E = p["ln_1.weight"].shape[0]
+        H, tag = E // 64, "" if E == 768 else f"_e{E}"
+        j = halfblock_jobs(B, L, causal, dtype, p, gen)
+        xs, n_inputs, mask = j["xs"], j["n"], j["mask"]
+        kinds = {
+            "attention_halfblock": (
+                BF.fused_attention_halfblock,
+                BF.attention_halfblock_plain, (p, H, mask),
+                {"unfused_sdpa_ms": j["unfused_sdpa"]}),
+            "mlp_halfblock": (
+                BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,), {})}
+        for name, (kernel, plain, extra, baselines) in kinds.items():
+            row = {"B": B, "L": L, "E": E, "causal": causal,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   **half_check(name, kernel, plain, extra, xs[0], p,
+                                mask),
+                   "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
+                                       n_inputs, iters=10),
+                   "library_ms": None}
+            # K5 and the unfused half with K1, K6 and the unfused MLP
+            # half, in turns, by event and device time; vs_unfused from
+            # device times
+            row.update(traced[turn_key(
+                "k5" if name == "attention_halfblock" else "k6", B, L,
+                dtype, causal, E=E)])
+            for key, fn in baselines.items():
+                row[key] = cuda_ms(fn, n_inputs)
+            if dtype == torch.bfloat16 and (B, L, E) == (256, 50, 768):
+                compiled_ms_later(row, name, plain, xs, extra, n_inputs)
+            row["bound_ms"], row["bound_by"] = halfblock_bound(
+                name, B, L, dtype, mask, E)
+            log("kernel", name=name + tag, **row,
+                bound_us=row["bound_ms"] * 1e3)
+            rows[name + tag].append(row)
+        if dtype == torch.bfloat16:
+            S = BF.attn_plan(B, L, dtype, BF.sm_count(0), E)["S"]
+            log("k5_design", B=B, L=L, E=E, group=S,
+                staged_l2_gb=staged_l2_bytes(B, L, S, E=E) / 1e9,
+                staged_l2_gb_mma_sync_design=staged_l2_bytes(
+                    B, L, max(1, 128 // L), boxes=False, E=E) / 1e9,
+                origin="reckoned by staged_l2_bytes, not measured")
+            plan = BF.mlp_plan(B * L, dtype, BF.sm_count(0), E)
+            log("k6_design", B=B, L=L, E=E, **{k: plan[k] for k in (
+                "big", "groups", "slots", "slot_rows")},
+                hidden_rows_gb=2 * B * L * 4 * E * 2 / 1e9,
+                origin="the plan of mlp_plan; the hidden rows' bytes "
+                       "written and read back, reckoned, not measured")
+
     for dtype in (torch.float32, torch.bfloat16):
         p = half_params(gen, dtype)
         for B, L, causal in HALF_SHAPES:
-            j = halfblock_jobs(B, L, causal, dtype, p, gen)
-            xs, n_inputs, mask = j["xs"], j["n"], j["mask"]
-            kinds = {
-                "attention_halfblock": (
-                    BF.fused_attention_halfblock,
-                    BF.attention_halfblock_plain, (p, H, mask),
-                    {"unfused_sdpa_ms": j["unfused_sdpa"]}),
-                "mlp_halfblock": (
-                    BF.fused_mlp_halfblock, BF.mlp_halfblock_plain, (p,), {})}
-            for name, (kernel, plain, extra, baselines) in kinds.items():
-                row = {"B": B, "L": L, "causal": causal,
-                       "dtype": str(dtype).replace("torch.", ""),
-                       **half_check(name, kernel, plain, extra, xs[0], p,
-                                    mask),
-                       "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
-                                           n_inputs, iters=10),
-                       "library_ms": None}
-                # K5 and the unfused half with K1, K6 and the unfused MLP
-                # half, in turns, by event and device time; vs_unfused from
-                # device times
-                row.update(traced[turn_key(
-                    "k5" if name == "attention_halfblock" else "k6", B, L,
-                    dtype, causal)])
-                for key, fn in baselines.items():
-                    row[key] = cuda_ms(fn, n_inputs)
-                if dtype == torch.bfloat16 and (B, L) == (256, 50):
-                    compiled_ms_later(row, name, plain, xs, extra, n_inputs)
-                row["bound_ms"], row["bound_by"] = halfblock_bound(
-                    name, B, L, dtype, mask)
-                log("kernel", name=name, **row,
-                    bound_us=row["bound_ms"] * 1e3)
-                rows[name].append(row)
-            if dtype == torch.bfloat16:
-                S = BF.attn_plan(B, L, dtype, BF.sm_count(0))["S"]
-                log("k5_design", B=B, L=L, group=S,
-                    staged_l2_gb=staged_l2_bytes(B, L, S) / 1e9,
-                    staged_l2_gb_mma_sync_design=staged_l2_bytes(
-                        B, L, max(1, 128 // L), boxes=False) / 1e9,
-                    origin="reckoned by staged_l2_bytes, not measured")
-                plan = BF.mlp_plan(B * L, dtype, BF.sm_count(0))
-                log("k6_design", B=B, L=L, **{k: plan[k] for k in (
-                    "big", "groups", "slots", "slot_rows")},
-                    hidden_rows_gb=2 * B * L * 4 * BF.WIDTH * 2 / 1e9,
-                    origin="the plan of mlp_plan; the hidden rows' bytes "
-                           "written and read back, reckoned, not measured")
-            del xs, j
+            shape_rows(p, B, L, causal, dtype)
+        H = 768 // 64
         for B, L, causal in SERVE_HALF_SHAPES:
             mask = TL.build_causal_mask(L, device="cuda") if causal else None
-            x = torch.randn(B, L, BF.WIDTH, device="cuda",
+            x = torch.randn(B, L, 768, device="cuda",
                             generator=served_gen).to(dtype)
-            row = {"B": B, "L": L, "causal": causal, "served": True,
-                   "dtype": str(dtype).replace("torch.", ""),
+            row = {"B": B, "L": L, "E": 768, "causal": causal,
+                   "served": True, "dtype": str(dtype).replace("torch.", ""),
                    **half_check("attention_halfblock",
                                 BF.fused_attention_halfblock,
                                 BF.attention_halfblock_plain, (p, H, mask),
                                 x, p, mask)}
             log("kernel", name="attention_halfblock", **row)
             rows["attention_halfblock"].append(row)
+        p512 = half_params(gen, dtype, 512)
+        for B, L, causal in HALF_SHAPES_512[dtype]:
+            shape_rows(p512, B, L, causal, dtype)
     return rows
 
 
@@ -1810,8 +2010,9 @@ def b16_config(*opts):
 def reset_launches():
     A.fused_attention_qkv.launches = 0
     Q.ln_quant.launches = Q.gelu_quant.launches = 0
-    BF.fused_attention_halfblock.launches = 0
-    BF.fused_mlp_halfblock.launches = 0
+    for fn in (BF.fused_attention_halfblock, BF.fused_mlp_halfblock):
+        fn.launches = 0
+        fn.launches_by_width = dict.fromkeys(BF.WIDTHS, 0)
     HT.attention_halfblock_variant.launches = 0
     HT.core_out_halfblock.launches = 0
 
@@ -1863,7 +2064,9 @@ def run_int8_slice(batch=256):
                                  f"on {stats['n_images']} images")
     launches, stats = runs[True]
     nb, nc = stats["n_image_batches"], stats["n_text_chunks"]
-    expected = (11 * nb + 12 * nc, 22 * nb, 11 * nb)
+    q3, q4 = int8_text_quantizers()
+    expected = (11 * nb + 12 * nc, 22 * nb + 12 * q3 * nc,
+                11 * nb + 12 * q4 * nc)
     if launches != expected or 0 in launches:
         raise AssertionError(f"int8 slice launched (K1, K3, K4) {launches} "
                              f"times, expected {expected} for {nb} image "
@@ -1872,7 +2075,7 @@ def run_int8_slice(batch=256):
         raise AssertionError(f"the bf16 run launched K3/K4: {runs[False][0]}")
 
     # the model of the run: every trunk GEMM in int8; the text tower
-    # (L=77 < 96) launches K1 and no quantizer
+    # (L=77) launches K1, and K3/K4 where the card's gate admits 77
     cfg = b16_config(*zs, "TPU.INT8_EVAL", True)
     spec = build_spec(cfg)
     models = {int8: load_eval_model(b16_config(*zs, "TPU.INT8_EVAL", int8),
@@ -1900,9 +2103,10 @@ def run_int8_slice(batch=256):
         text_launches = read_launches()
         feats = {k: m.encode_image(images.cuda()).float()
                  for k, m in models.items()}
-    if text_launches != (12, 0, 0):
+    if text_launches != (12, 12 * q3, 12 * q4):
         raise AssertionError(f"the int8 text tower launched (K1, K3, K4) "
-                             f"{text_launches}, expected (12, 0, 0)")
+                             f"{text_launches}, expected "
+                             f"{(12, 12 * q3, 12 * q4)}")
     cos = (feats[True] * feats[False]).sum(-1) / (
         feats[True].norm(dim=-1) * feats[False].norm(dim=-1))
     ips = runs[True][1]["images_per_sec"], runs[False][1]["images_per_sec"]
@@ -1925,7 +2129,25 @@ def int8_card_against_cpu(atol=1e-3, noise_room=4.0):
     images and the token embedding nudged by +-2^-22 of themselves, read
     how far fp32 rounding alone moves the features; each tower passes
     within ``atol``, or within ``noise_room`` times its own noise where
-    that is larger."""
+    that is larger. The CPU runs take the card's int8 gate
+    (``MSCLIP_INT8_MIN_SEQ`` set to the ``sm_90`` row's for the phase), so
+    that both sides quantize the text tower the same way."""
+    from msclip_torch.models.layers import int8_min_seq
+
+    gate, kept = int8_min_seq(torch.device("cuda")), os.environ.get(
+        "MSCLIP_INT8_MIN_SEQ")
+    os.environ["MSCLIP_INT8_MIN_SEQ"] = str(gate)
+    try:
+        int8_features_against_cpu(atol, noise_room)
+    finally:
+        if kept is None:
+            os.environ.pop("MSCLIP_INT8_MIN_SEQ")
+        else:
+            os.environ["MSCLIP_INT8_MIN_SEQ"] = kept
+
+
+def int8_features_against_cpu(atol, noise_room):
+    """:func:`int8_card_against_cpu`'s runs and readings."""
     from msclip_torch.data import ClipTokenizer, get_classnames, get_templates
     from msclip_torch.data.datasets import SyntheticImageDataset
     from msclip_torch.eval.zero_shot import load_eval_model
@@ -1963,7 +2185,8 @@ def int8_card_against_cpu(atol=1e-3, noise_room=4.0):
         text_err=errs[1], image_noise=noise[0], text_noise=noise[1],
         image_limit=limits[0], text_limit=limits[1], atol=atol,
         noise_room=noise_room, card_launches=json.dumps(card_launches))
-    if card_launches[1:] != (22, 11):
+    q3, q4 = int8_text_quantizers()
+    if card_launches[1:] != (22 + 12 * q3, 11 + 12 * q4):
         raise AssertionError(f"the card's int8 run launched (K1, K3, K4) "
                              f"{card_launches}")
     if not all(math.isfinite(e) and e <= lim for e, lim in zip(errs, limits)):
@@ -2057,7 +2280,7 @@ def tuning_bound(kind, B, L, dtype):
     ``3E``-wide qkv and the output once, the out-projection's weight and
     bias once; ``2 L E^2`` flops a sample and ``4 D`` per (query, key) pair
     and head)."""
-    E, item = BF.WIDTH, torch.finfo(dtype).bits // 8
+    E, item = HT.WIDTH, torch.finfo(dtype).bits // 8
     if kind != "core_out":
         ms, by = halfblock_bound("attention_halfblock", B, L, dtype, None)
         if kind != "v2a":
@@ -2099,13 +2322,14 @@ def tuning_check(name, got, want, x, dtype, faults, caught, label):
             "planted_faults": readings}
 
 
-def turns(kernel, other, n_inputs, other_name, per_call=None):
+def turns(kernel, other, n_inputs, other_name, per_call=None, iters=30):
     """:func:`in_turns` of a wrapper call (which may launch small casts
     beside its kernel) against ``other``, its keys renamed for ``other``:
     ``ms``, ``device_ms``, ``<other_name>_ms``,
     ``<other_name>_device_ms`` and ``vs_<other_name>`` (device over
     device)."""
-    t = in_turns(kernel, other, n_inputs, one_record=False, per_call=per_call)
+    t = in_turns(kernel, other, n_inputs, one_record=False, per_call=per_call,
+                 iters=iters)
     out = {"ms": t["ms"], "device_ms": t["device_ms"],
            f"{other_name}_ms": t["library_ms"],
            f"{other_name}_device_ms": t["library_device_ms"],
@@ -3830,16 +4054,22 @@ def zoo_inputs(n, size, seed=0):
     return images, torch.from_numpy(ClipTokenizer()(texts))
 
 
-def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True):
-    """fp32 features of ``n`` images and ``n`` prompts through the
-    model's entry points, the card with its kernels against the CPU with
-    the plain versions, same weights, within ``atol``. The card's K1
-    launches are held to :func:`zoo_k1_blocks`. Returns them."""
+def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True,
+                         n_text=None):
+    """fp32 features of ``n`` images and ``n_text`` prompts (default
+    ``n``) through the model's entry points, the card with its kernels
+    against the CPU with the plain versions, same weights, within
+    ``atol``. The card's K1 launches are held to :func:`zoo_k1_blocks`;
+    with ``TPU.USE_FUSED_BLOCK`` K5's instead, by width (768 in the ViT,
+    the text tower's in the text tower), and K1 to none. Returns the K1
+    launches (with ``count``)."""
     from msclip_torch.models.msclip import MSClipModel, build_spec, init_params
 
     spec = build_spec(cfg)  # fp32: also turns TF32 off
     params = init_params(spec, torch.Generator().manual_seed(0))
-    images, tokens = zoo_inputs(n, spec.image_resolution)
+    n_text = n_text or n
+    images, tokens = zoo_inputs(max(n, n_text), spec.image_resolution)
+    images, tokens = images[:n], tokens[:n_text]
     feats = {}
     for dev in ("cuda", "cpu"):
         model = MSClipModel(spec, params).to(dev)
@@ -3850,18 +4080,27 @@ def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True):
         if dev == "cuda":
             torch.cuda.synchronize()
             k1 = A.fused_attention_qkv.launches
+            k5 = dict(BF.fused_attention_halfblock.launches_by_width)
     errs = [(a - b).abs().max().item()
             for a, b in zip(feats["cuda"], feats["cpu"])]
     expected = sum(zoo_k1_blocks(spec))
-    log("zoo_card_vs_cpu", family=name, dtype="float32", n=n,
+    k5_expected = dict.fromkeys(BF.WIDTHS, 0)
+    if spec.use_fused_block:
+        image, text = zoo_k1_blocks(spec)  # a ResNet tower has no block
+        if image:
+            k5_expected[spec.vision_width] += image
+        k5_expected[spec.text_width] += text
+        expected = 0
+    log("zoo_card_vs_cpu", family=name, dtype="float32", n=n, n_text=n_text,
         image_err=errs[0], text_err=errs[1], atol=atol, k1_launches=k1,
-        expected=expected, counted=count)
+        expected=expected, k5_launches=json.dumps(k5),
+        k5_expected=json.dumps(k5_expected), counted=count)
     if not all(math.isfinite(e) and e <= atol for e in errs):
         raise AssertionError(f"zoo {name}: card and CPU features differ: "
                              f"{errs} > {atol}")
-    if k1 != expected:
-        raise AssertionError(f"zoo {name}: K1 launched {k1} times, "
-                             f"expected {expected}")
+    if k1 != expected or k5 != k5_expected:
+        raise AssertionError(f"zoo {name}: K1 launched {k1} times and K5 "
+                             f"{k5}, expected {expected} and {k5_expected}")
     return k1 if count else 0
 
 
@@ -3911,6 +4150,7 @@ def run_zoo(batch=256):
     for name, base in ZOO_MODELS:
         zoo_card_against_cpu(name, zoo_config(
             base, "TPU.COMPUTE_DTYPE", "float32"), count=False)
+    k5 = run_zoo_fused(batch)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = zoo_config(B32_YAML, "DATASET.DATASET", "synthetic",
@@ -3963,7 +4203,79 @@ def run_zoo(batch=256):
     if not (math.isfinite(metrics["loss"].item()) and moved > 0):
         raise AssertionError(f"zoo gumbel step: loss {metrics['loss']}, "
                              f"logits moved {moved}")
-    return [total[0] + got[0], total[1] + got[1]]
+    return [total[0] + got[0], total[1] + got[1]], k5
+
+
+def run_zoo_fused(batch=256):
+    """b32.yaml and RN50 zero-shot with ``TPU.USE_FUSED_BLOCK`` (bf16, batch
+    256, 512 images, 100 classes x 80 templates): K5 in every transformer
+    block, at E = 768 in b32.yaml's 12 image blocks and at E = 512 in both
+    text towers' 12 blocks, held to 12 x image batches (b32.yaml) + 12 x
+    text chunks, and K1 to none; then fp32 features of 8 images and 16
+    prompts, the card (K5) against the CPU (its plain version), at
+    ``ZOO_ATOL``; and one batch of bf16 image and text features, fused
+    against unfused, same weights, least cosine > 0.999. Returns K5's
+    launches by width over the two zero-shot runs."""
+    from msclip_torch.eval.zero_shot import load_eval_model, run_zero_shot
+    from msclip_torch.models.msclip import build_spec
+
+    zs = ("DATASET.DATASET", "synthetic", "DATASET.NUM_SAMPLES", 512,
+          "TEST.BATCH_SIZE_PER_GPU", batch, "TEST.SUBSET_CLASSES", 100,
+          "TPU.COMPUTE_DTYPE", "bfloat16")
+    total = dict.fromkeys(BF.WIDTHS, 0)
+    for name, base in ZOO_MODELS:
+        cfg = zoo_config(base, *zs, "TPU.USE_FUSED_BLOCK", True)
+        spec = build_spec(cfg)
+        image, text = zoo_k1_blocks(spec)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        value, stats = run_zero_shot(cfg, device="cuda")
+        torch.cuda.synchronize()
+        nb, nc = stats["n_image_batches"], stats["n_text_chunks"]
+        k5 = dict(BF.fused_attention_halfblock.launches_by_width)
+        expected = dict.fromkeys(BF.WIDTHS, 0)
+        if image:  # a ResNet tower has no block
+            expected[spec.vision_width] += image * nb
+        expected[spec.text_width] += text * nc
+        log("zoo_fused_zero_shot", model=name, dtype="bfloat16", top1=value,
+            n_images=stats["n_images"], images_per_s=stats["images_per_sec"],
+            classifier_s=stats["classifier_s"], image_batches=nb,
+            text_chunks=nc,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            k5_launches=json.dumps(k5), expected=json.dumps(expected),
+            k1_launches=A.fused_attention_qkv.launches)
+        if stats["n_images"] != 512 or not 0.0 <= value <= 100.0:
+            raise AssertionError(f"zoo {name} fused zero-shot: {value}, "
+                                 f"{stats}")
+        if k5 != expected or k5[512] == 0 or A.fused_attention_qkv.launches:
+            raise AssertionError(
+                f"zoo {name} fused zero-shot: K5 launched {k5}, expected "
+                f"{expected}; K1 {A.fused_attention_qkv.launches}")
+        for w in BF.WIDTHS:
+            total[w] += k5[w]
+    for name, base in ZOO_MODELS:
+        zoo_card_against_cpu(name + "_fused", zoo_config(
+            base, "TPU.COMPUTE_DTYPE", "float32", "TPU.USE_FUSED_BLOCK",
+            True), count=False, n_text=16)
+    for name, base in ZOO_MODELS:
+        cfgs = {f: zoo_config(base, "TPU.COMPUTE_DTYPE", "bfloat16",
+                              "TPU.USE_FUSED_BLOCK", f) for f in (True, False)}
+        spec = build_spec(cfgs[True])
+        images, tokens = zoo_inputs(batch, spec.image_resolution, seed=2)
+        feats = {}
+        for fused, cfg in cfgs.items():
+            model = load_eval_model(cfg, build_spec(cfg), "cuda")
+            with torch.inference_mode():
+                feats[fused] = (model.encode_image(images.cuda()).float(),
+                                model.encode_text(tokens.cuda()).float())
+        cos = [least_cosine(a.cpu().numpy(), b.cpu().numpy())
+               for a, b in zip(feats[True], feats[False])]
+        log("zoo_fused_drift", model=name, batch=batch, image_min_cos=cos[0],
+            text_min_cos=cos[1])
+        if not min(cos) > 0.999:
+            raise AssertionError(f"zoo {name}: fused features drift from the "
+                                 f"unfused ones: least cosines {cos}")
+    return total
 
 
 def zoo_planted_faults():
@@ -4068,6 +4380,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     traced = timed("traced_turns", traced_turns_in_subprocess)
+    timed("tuning", tuning_in_subprocess)
     attn_rows = timed("k1", check_attention)
     bwd_rows = timed("k2", check_attention_bwd)
     quant_rows = timed("k3_k4", check_quant)
@@ -4092,7 +4405,7 @@ def main():
     dist_launches = timed("distributed", run_distributed, scratch.name,
                           slice_pred)
     scratch.cleanup()
-    zoo_launches = timed("zoo", run_zoo)
+    zoo_launches, zoo_k5 = timed("zoo", run_zoo)
     timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
@@ -4128,17 +4441,29 @@ def main():
                     headline(quant_rows["gelu_quant"], dtype="bfloat16"),
                     "B=256 L=197 F=3072 bfloat16", quant),
         {**kernel_line(half_rows["attention_halfblock"],
-                       k5_launches + serve["k5"], "attention_halfblock",
+                       k5_launches + serve["k5"] + zoo_k5[768],
+                       "attention_halfblock",
                        "msclip_tpu/ops/block_fused.py:132",
                        headline(half_rows["attention_halfblock"], B=256,
                                 L=50, dtype="bfloat16"),
                        "B=256 L=50 E=768 H=12 bfloat16", fused_src),
-         "serving_launches": serve["k5"]},
+         "serving_launches": serve["k5"], "zoo_launches": zoo_k5[768]},
         kernel_line(half_rows["mlp_halfblock"], 0, "mlp_halfblock",
                     "msclip_tpu/ops/block_fused.py:185",
                     headline(half_rows["mlp_halfblock"], B=256, L=50,
                              dtype="bfloat16"),
                     "B=256 L=50 E=768 F=3072 bfloat16", fused_src),
+        kernel_line(half_rows["attention_halfblock_e512"], zoo_k5[512],
+                    "attention_halfblock_e512",
+                    "msclip_tpu/ops/block_fused.py:132",
+                    headline(half_rows["attention_halfblock_e512"], B=1024,
+                             L=77, dtype="bfloat16"),
+                    "B=1024 L=77 E=512 H=8 bfloat16 causal", fused_src),
+        kernel_line(half_rows["mlp_halfblock_e512"], 0, "mlp_halfblock_e512",
+                    "msclip_tpu/ops/block_fused.py:185",
+                    headline(half_rows["mlp_halfblock_e512"], B=1024, L=77,
+                             dtype="bfloat16"),
+                    "B=1024 L=77 E=512 F=2048 bfloat16", fused_src),
         {**kernel_line(variants, tuning_launches[0],
                        "attention_halfblock_variants",
                        "experiments/halfblock_tuning.py:51",

@@ -8,6 +8,7 @@ reference MS-CLIP uses (``lib/config/default.py:14-192``). Semantics
 preserved:
 
 * attribute-style access (``cfg.MODEL.SPEC.EMBED_DIM``),
+* ``dump()`` to YAML (``config/io.save_config``),
 * recursive ``BASE: [other.yaml]`` inheritance resolved relative to the
   including file (reference ``default.py:279-291``),
 * ``merge_from_list`` CLI-override semantics with type coercion
@@ -152,6 +153,13 @@ class CfgNode(dict):
             k: (v.to_dict() if isinstance(v, CfgNode) else v)
             for k, v in self.items()
         }
+
+    def dump(self) -> str:
+        """The node as YAML (``yaml`` imported here, as for reading), the
+        form ``merge_from_file`` reads back."""
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), default_flow_style=None)
 
     def __repr__(self) -> str:
         return f"CfgNode({self.to_dict()!r})"

@@ -12,7 +12,11 @@
 //   in one launch.
 //
 // Every product, the six projection GEMMs included, is computed inside the
-// kernels. Widths are the ViT-B trunk's: E = 768, 12 heads of 64, F = 3072.
+// kernels. The width E is a template parameter, instantiated at the two
+// widths of the repo's transformer towers: E = 768 (ViT-B's trunk and the
+// MS-CLIP text tower; 12 heads of 64, F = 3072) and E = 512 (the text tower
+// of b32.yaml and RN50; 8 heads of 64, F = 2048). Every other width is
+// refused at launch.
 //
 // Rounding follows the TPU kernels step by step (ops/block_fused.py has the
 // plain torch versions that the card checks hold the kernels against):
@@ -34,7 +38,12 @@
 // bytes that bound a block are the weight and activation tiles it stages
 // from the L2.
 //
-// Design, and what lives where:
+// Design, and what lives where (the numbers at E = 768; at E = 512 the
+// same design with E / 64 = 8 heads and E / 64 K chunks, the q/k/v GEMM of
+// a head still 192 columns, but every GEMM over E or F = 4E output columns
+// in column tiles of 128, because 192 divides neither 512 nor 2048
+// (out_cols in halfblock.cuh): bf16 on wgmma.m64n128k16, fp32 in passes of
+// 128 columns; fp32 K6's c_proj tile is [32, 128] x [128, 512]):
 //
 // * K5, bf16 (halfblock.cuh attention_halfblock_group): a persistent grid,
 //   one block of two warpgroups an SM (225 KB of shared memory), walks the
@@ -115,14 +124,12 @@
 
 namespace {
 
-constexpr int kF = 4 * kE;         // MLP hidden width
 constexpr int kMlpRows = 32;       // token rows per fp32 K6 tile
 constexpr int kFChunk = 128;       // hidden columns per fp32 K6 chunk
 // the bf16 K6 groups' rows; ops/block_fused.py (MLP_BIG_ROWS,
 // MLP_SMALL_ROWS) plans the groups with them, held to these by a test
 constexpr int kMlpBigRows = 256;   // two 64-row m-tiles a warpgroup
 constexpr int kMlpSmallRows = 128; // one
-constexpr int kFChunks = kF / kChunk;  // K chunks of a c_proj GEMM
 static_assert(kMlpBigRows == kWgRows && kMlpSmallRows == kBoxRows, "the ring's row tiles");
 
 // ---------------------------------------------------------------------------
@@ -130,13 +137,13 @@ static_assert(kMlpBigRows == kWgRows && kMlpSmallRows == kBoxRows, "the ring's r
 // ---------------------------------------------------------------------------
 
 // workspace elements of one block at S samples of length L: h and ctx
-// [S L, 768], and for the fp32 body q/k/v [S L, 192]
-template <typename T>
+// [S L, E], and for the fp32 body q/k/v [S L, 192]
+template <typename T, int E>
 __host__ __device__ constexpr long long attn_slot_elems(int S, int L) {
-  return (long long)S * L * (2 * kE + (std::is_same<T, bf16>::value ? 0 : kQkv));
+  return (long long)S * L * (2 * E + (std::is_same<T, bf16>::value ? 0 : kQkv));
 }
 
-template <typename T, int A>
+template <typename T, int A, int E>
 __global__ void __launch_bounds__(kThreads)
 attention_halfblock_kernel(const __grid_constant__ HalfMaps maps, const T* __restrict__ x,
                            const T* __restrict__ ln_w, const T* __restrict__ ln_b,
@@ -146,23 +153,23 @@ attention_halfblock_kernel(const __grid_constant__ HalfMaps maps, const T* __res
                            T* __restrict__ ws, long long slot, int B, int L, int S, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* h = ws + blockIdx.x * slot;
-  T* ctx = h + (size_t)S * L * kE;
+  T* ctx = h + (size_t)S * L * E;
 
   if constexpr (std::is_same<T, bf16>::value) {
     Ring ring = make_ring(smem_raw);
-    const int h_row0 = (int)(blockIdx.x * slot / kE), ctx_row0 = h_row0 + S * L;
+    const int h_row0 = (int)(blockIdx.x * slot / E), ctx_row0 = h_row0 + S * L;
     for (int b0 = blockIdx.x * S; b0 < B; b0 += gridDim.x * S) {
-      const size_t off = (size_t)b0 * L * kE;  // the group's rows, contiguous
-      attention_halfblock_group<8 * A, kBase>(maps, x + off, ln_w, ln_b, b_in, b_out, mask,
-                                              out + off, h, ctx, h_row0, ctx_row0,
-                                              min(S, B - b0), L, eps, ring);
+      const size_t off = (size_t)b0 * L * E;  // the group's rows, contiguous
+      attention_halfblock_group<8 * A, kBase, E>(maps, x + off, ln_w, ln_b, b_in, b_out, mask,
+                                                 out + off, h, ctx, h_row0, ctx_row0,
+                                                 min(S, B - b0), L, eps, ring);
     }
   } else {
     for (int b0 = blockIdx.x * S; b0 < B; b0 += gridDim.x * S) {
-      const size_t off = (size_t)b0 * L * kE;
-      attention_halfblock_rows<T, A, kBase>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out, mask,
-                                            out + off, h, ctx, ctx + (size_t)S * L * kE,
-                                            min(S, B - b0) * L, L, eps, smem_raw);
+      const size_t off = (size_t)b0 * L * E;
+      attention_halfblock_rows<T, A, kBase, E>(x + off, ln_w, ln_b, w_in, b_in, w_out, b_out,
+                                               mask, out + off, h, ctx, ctx + (size_t)S * L * E,
+                                               min(S, B - b0) * L, L, eps, smem_raw);
     }
   }
 }
@@ -171,15 +178,25 @@ attention_halfblock_kernel(const __grid_constant__ HalfMaps maps, const T* __res
 // K6
 // ---------------------------------------------------------------------------
 
-// fp32 workspace elements of one block: h [32, 768] and the GELU tile [32, 128]
-__host__ __device__ constexpr long long mlp_slot_elems() { return (long long)kMlpRows * (kE + kFChunk); }
+// fp32 workspace elements of one block: h [32, E] and the GELU tile [32, 128]
+template <int E>
+__host__ __device__ constexpr long long mlp_slot_elems() {
+  return (long long)kMlpRows * (E + kFChunk);
+}
 
-using FcTile = Tile<float, 128, 2, 2, 1>;    // [32, 768] x [768, 128]
-using ProjTile = Tile<float, 64, 2, 12, 1>;  // [32, 128] x [128, 768]
+using FcTile = Tile<float, 128, 2, 2, 1>;  // [32, E] x [E, 128]
+template <int E>
+using ProjTile = Tile<float, 64, 2, E / 64, 1>;  // [32, 128] x [128, E]
 static_assert(FcTile::ROWS == kMlpRows && FcTile::N == kFChunk, "c_fc tile");
-static_assert(ProjTile::ROWS == kMlpRows && ProjTile::N == kE, "c_proj tile");
-constexpr size_t kMlpSmem =
-    ProjTile::smem_bytes > FcTile::smem_bytes ? ProjTile::smem_bytes : FcTile::smem_bytes;
+static_assert(ProjTile<768>::ROWS == kMlpRows && ProjTile<768>::N == 768 &&
+                  ProjTile<512>::N == 512,
+              "c_proj tile");
+// fp32 K6's dynamic shared memory at width E
+template <int E>
+constexpr size_t mlp_smem() {
+  return ProjTile<E>::smem_bytes > FcTile::smem_bytes ? ProjTile<E>::smem_bytes
+                                                      : FcTile::smem_bytes;
+}
 
 // The bf16 groups of a launch over `rows` token rows: `big` groups of 256
 // rows first, then groups of 128 (the last one ragged); group g starts at
@@ -195,9 +212,9 @@ __device__ __forceinline__ void mlp_group(int g, int rows, int big, int* r0, int
 }
 
 // The tensor maps of the bf16 K6, kernel parameters (__grid_constant__):
-// the workspace's h (rows of 768) and mid (rows of 3072) in boxes of 128
-// rows, w_fc [3072, 768] and w_proj [768, 3072] in boxes of 64 rows, each
-// box 64 columns wide in the 128-byte swizzle.
+// the workspace's h (rows of E) and mid (rows of F = 4E) in boxes of 128
+// rows, w_fc [F, E] and w_proj [E, F] in boxes of 64 rows, each box 64
+// columns wide in the 128-byte swizzle.
 struct MlpMaps {
   CUtensorMap h, mid, w_fc, w_proj;
 };
@@ -212,24 +229,26 @@ __device__ __forceinline__ float quick_gelu_fast(float m) {
 
 // K6's bf16 body over one group of n rows (contiguous in xb and ob), h
 // already its LayerNorm: the workspace rows from slot_row0 of maps.h and
-// maps.mid; mid the slot's first hidden row (row stride 3072).
-template <int MPW>
+// maps.mid; mid the slot's first hidden row (row stride F = 4E).
+template <int MPW, int E>
 __device__ void mlp_group_wgmma(const MlpMaps& maps, int slot_row0, int n,
                                 const float* __restrict__ b_fc, const float* __restrict__ b_proj,
                                 const bf16* __restrict__ xb, bf16* __restrict__ ob, bf16* mid,
                                 Ring& ring) {
-  for (int f0 = 0; f0 < kF; f0 += kQkv) {  // 16 slabs of 192 hidden columns
-    float acc[MPW][kQkv / 2];
-    wgmma_gemm<MPW>(acc, &maps.h, slot_row0, &maps.w_fc, f0, kD, ring);
+  constexpr int F = 4 * E, NF = out_cols(F);
+  // 16 slabs of NF hidden columns: 192 at E = 768, 128 at 512
+  for (int f0 = 0; f0 < F; f0 += NF) {
+    float acc[MPW][NF / 2];
+    wgmma_gemm<MPW, E / kChunk, NF>(acc, &maps.h, slot_row0, &maps.w_fc, f0, kD, ring);
 #pragma unroll
     for (int i = 0; i < MPW; ++i) {
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int r = acc_row(i, hi);
         if (r >= n) continue;
-        bf16* o = mid + (size_t)r * kF + f0;
+        bf16* o = mid + (size_t)r * F + f0;
 #pragma unroll
-        for (int j = 0; j < kQkv / 8; ++j) {
+        for (int j = 0; j < NF / 8; ++j) {
           const int col = acc_col(j);
           const float2 bias = *reinterpret_cast<const float2*>(b_fc + f0 + col);
           const float y0 = quick_gelu_fast(__fadd_rn(acc[i][4 * j + 2 * hi], bias.x));
@@ -241,14 +260,15 @@ __device__ void mlp_group_wgmma(const MlpMaps& maps, int slot_row0, int n,
   }
   fence_proxy_async_global();  // mid is read by TMA
   __syncthreads();
-  out_projection_wgmma<MPW, kFChunks>(&maps.mid, slot_row0, &maps.w_proj, n, b_proj, xb, ob, ring);
+  out_projection_wgmma<MPW, F / kChunk, E>(&maps.mid, slot_row0, &maps.w_proj, n, b_proj, xb, ob,
+                                          ring);
   // the next group's LayerNorm writes only h, which these GEMMs do not read
 }
 
-// bf16: the groups of mlp_group, h and mid [slots slot_rows, 768 | 3072]
-// the workspace (block i's slot the rows from i slot_rows); fp32: tiles of
-// 32 rows, each block's slot mlp_slot_elems() elements.
-template <typename T>
+// bf16: the groups of mlp_group, h and mid [slots slot_rows, E | 4E] the
+// workspace (block i's slot the rows from i slot_rows); fp32: tiles of 32
+// rows, each block's slot mlp_slot_elems<E>() elements.
+template <typename T, int E>
 __global__ void __launch_bounds__(kThreads)
 mlp_halfblock_kernel(const __grid_constant__ MlpMaps maps, const T* __restrict__ x,
                      const T* __restrict__ ln_w, const T* __restrict__ ln_b,
@@ -261,52 +281,53 @@ mlp_halfblock_kernel(const __grid_constant__ MlpMaps maps, const T* __restrict__
   if constexpr (std::is_same<T, bf16>::value) {
     Ring ring = make_ring(smem_raw);
     const int slot_row0 = blockIdx.x * slot_rows;
-    bf16* h = ws + (size_t)slot_row0 * kE;
-    bf16* mid = ws + (size_t)gridDim.x * slot_rows * kE + (size_t)slot_row0 * kF;
+    bf16* h = ws + (size_t)slot_row0 * E;
+    bf16* mid = ws + (size_t)gridDim.x * slot_rows * E + (size_t)slot_row0 * 4 * E;
     const int groups = mlp_groups(rows, big);
     for (int g = blockIdx.x; g < groups; g += gridDim.x) {
       int r0, n;
       mlp_group(g, rows, big, &r0, &n);
-      const size_t off = (size_t)r0 * kE;
-      layer_norm_rows<bf16>(x + off, ln_w, ln_b, h, n, eps);
+      const size_t off = (size_t)r0 * E;
+      layer_norm_rows<bf16, E>(x + off, ln_w, ln_b, h, n, eps);
       fence_proxy_async_global();  // h is read by TMA
       __syncthreads();
       if (n > kMlpSmallRows)
-        mlp_group_wgmma<2>(maps, slot_row0, n, b_fc, b_proj, x + off, out + off, mid, ring);
+        mlp_group_wgmma<2, E>(maps, slot_row0, n, b_fc, b_proj, x + off, out + off, mid, ring);
       else
-        mlp_group_wgmma<1>(maps, slot_row0, n, b_fc, b_proj, x + off, out + off, mid, ring);
+        mlp_group_wgmma<1, E>(maps, slot_row0, n, b_fc, b_proj, x + off, out + off, mid, ring);
     }
   } else {
-    T* h = ws + blockIdx.x * mlp_slot_elems();
-    T* mid = h + (size_t)kMlpRows * kE;
+    constexpr int F = 4 * E;
+    T* h = ws + blockIdx.x * mlp_slot_elems<E>();
+    T* mid = h + (size_t)kMlpRows * E;
 
     for (int t = blockIdx.x; t * kMlpRows < rows; t += gridDim.x) {
       const int r0 = t * kMlpRows, n = min(kMlpRows, rows - r0);
-      const T* xt = x + (size_t)r0 * kE;
-      layer_norm_rows<T>(xt, ln_w, ln_b, h, n, eps);
+      const T* xt = x + (size_t)r0 * E;
+      layer_norm_rows<T, E>(xt, ln_w, ln_b, h, n, eps);
       __syncthreads();
 
-      float acc[2][12][4];
+      float acc[2][E / 64][4];
       zero(acc);
-      for (int f0 = 0; f0 < kF; f0 += kFChunk) {
+      for (int f0 = 0; f0 < F; f0 += kFChunk) {
         float fc[2][2][4];
         zero(fc);
-        block_gemm<T, 128, 2, 2, 1>(fc, h, kE, n, [&](int j) { return w_fc + (size_t)(f0 + j) * kE; },
-                                    kE, smem_raw);
+        block_gemm<T, 128, 2, 2, 1>(fc, h, E, n, [&](int j) { return w_fc + (size_t)(f0 + j) * E; },
+                                    E, smem_raw);
         for_each_acc<2, 2, 1>(fc, [&](int r, int col, float v) {
           const float m = __fadd_rn(v, b_fc[f0 + col]);
           const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(__fmul_rn(-1.702f, m))));
           mid[r * kFChunk + col] = from_f<T>(__fmul_rn(m, sig));
         });
         __syncthreads();  // the GELU tile is complete before it is staged
-        block_gemm<T, 64, 2, 12, 1>(acc, mid, kFChunk, n,
-                                    [&](int j) { return w_proj + (size_t)j * kF + f0; }, kFChunk,
-                                    smem_raw);
+        block_gemm<T, 64, 2, E / 64, 1>(acc, mid, kFChunk, n,
+                                        [&](int j) { return w_proj + (size_t)j * F + f0; },
+                                        kFChunk, smem_raw);
       }
-      T* ot = out + (size_t)r0 * kE;
-      for_each_acc<2, 12, 1>(acc, [&](int r, int col, float v) {
+      T* ot = out + (size_t)r0 * E;
+      for_each_acc<2, E / 64, 1>(acc, [&](int r, int col, float v) {
         if (r < n) {
-          const size_t o = (size_t)r * kE + col;
+          const size_t o = (size_t)r * E + col;
           const float y = round_to<T>(__fadd_rn(v, b_proj[col]));
           ot[o] = from_f<T>(__fadd_rn(to_f<T>(xt[o]), y));
         }
@@ -340,20 +361,20 @@ cudaError_t grid_size(K kernel, size_t smem, int work, int slots, int* grid) {
   return cudaSuccess;
 }
 
-template <typename T, int A>
+template <typename T, int A, int E>
 cudaError_t launch_attn(const void* x, const void* ln_w, const void* ln_b, const void* w_in,
                         const float* b_in, const void* w_out, const float* b_out,
                         const float* mask, void* out, void* ws, long long slot, int slots, int B,
                         int L, int S, float eps, cudaStream_t stream) {
-  auto kernel = attention_halfblock_kernel<T, A>;
+  auto kernel = attention_halfblock_kernel<T, A, E>;
   constexpr size_t smem = halfblock_smem<T, A>();
-  // the bf16 body addresses the workspace as rows of 768 (its tensor map)
-  if (slot < attn_slot_elems<T>(S, L) || (std::is_same<T, bf16>::value && slot % kE != 0))
+  // the bf16 body addresses the workspace as rows of E (its tensor map)
+  if (slot < attn_slot_elems<T, E>(S, L) || (std::is_same<T, bf16>::value && slot % E != 0))
     return cudaErrorInvalidValue;
   HalfMaps maps{};
   cudaError_t err;
   if (std::is_same<T, bf16>::value &&
-      (err = half_maps(&maps, ws, slots, slot, w_in, w_out)) != cudaSuccess)
+      (err = half_maps(&maps, ws, slots, slot, w_in, w_out, E)) != cudaSuccess)
     return err;
   int grid = 0;
   if ((err = grid_size(kernel, smem, (B + S - 1) / S, slots, &grid)) != cudaSuccess) return err;
@@ -366,14 +387,15 @@ cudaError_t launch_attn(const void* x, const void* ln_w, const void* ln_b, const
 
 // bf16: the instantiation at K1's padded_len(L) (attn_core.cuh); fp32:
 // keys per lane
+template <int E>
 cudaError_t dispatch_attn(bool bf, const void* x, const void* ln_w, const void* ln_b,
                           const void* w_in, const float* b_in, const void* w_out,
                           const float* b_out, const float* mask, void* out, void* ws,
                           long long slot, int slots, int B, int L, int S, float eps,
                           cudaStream_t s) {
 #define MSCLIP_ATTN(T, A)                                                                    \
-  launch_attn<T, A>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, mask, out, ws, slot, slots, B, L, \
-                    S, eps, s)
+  launch_attn<T, A, E>(x, ln_w, ln_b, w_in, b_in, w_out, b_out, mask, out, ws, slot, slots, B, \
+                       L, S, eps, s)
   if (bf) {
     switch (padded_len(L)) {  // A = LP / 8
       case 64: return MSCLIP_ATTN(bf16, 8);
@@ -391,15 +413,16 @@ cudaError_t dispatch_attn(bool bf, const void* x, const void* ln_w, const void* 
 
 // K6: bf16 on `slots` blocks, one a workspace slot, over the groups of
 // mlp_group; fp32 on the persistent grid of 32-row tiles.
-template <typename T>
+template <typename T, int E>
 cudaError_t launch_mlp(const void* x, const void* ln_w, const void* ln_b, const void* w_fc,
                        const float* b_fc, const void* w_proj, const float* b_proj, void* out,
                        void* ws, int slots, int slot_rows, int big, int rows, float eps,
                        cudaStream_t stream) {
-  auto kernel = mlp_halfblock_kernel<T>;
+  constexpr int F = 4 * E;
+  auto kernel = mlp_halfblock_kernel<T, E>;
   MlpMaps maps{};
   int grid = 0;
-  size_t smem = kMlpSmem;
+  size_t smem = mlp_smem<E>();
   cudaError_t err;
   if (std::is_same<T, bf16>::value) {
     // the plan of ops/block_fused.mlp_plan: 256-row groups only whole and
@@ -409,10 +432,10 @@ cudaError_t launch_mlp(const void* x, const void* ln_w, const void* ln_b, const 
       return cudaErrorInvalidValue;
     const long long ws_rows = (long long)slots * slot_rows;
     const bf16* h = static_cast<const bf16*>(ws);
-    if ((err = tile_map(&maps.h, h, ws_rows, kBoxRows)) != cudaSuccess ||
-        (err = tile_map(&maps.mid, h + ws_rows * kE, ws_rows, kBoxRows, kF)) != cudaSuccess ||
-        (err = tile_map(&maps.w_fc, w_fc, kF, kD)) != cudaSuccess ||
-        (err = tile_map(&maps.w_proj, w_proj, kE, kD, kF)) != cudaSuccess)
+    if ((err = tile_map(&maps.h, h, ws_rows, kBoxRows, E)) != cudaSuccess ||
+        (err = tile_map(&maps.mid, h + ws_rows * E, ws_rows, kBoxRows, F)) != cudaSuccess ||
+        (err = tile_map(&maps.w_fc, w_fc, F, kD, E)) != cudaSuccess ||
+        (err = tile_map(&maps.w_proj, w_proj, E, kD, F)) != cudaSuccess)
       return err;
     smem = kWgmmaSmem;
     if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -432,47 +455,62 @@ cudaError_t launch_mlp(const void* x, const void* ln_w, const void* ln_b, const 
   return cudaGetLastError();
 }
 
+template <int E>
+cudaError_t dispatch_mlp(bool bf, const void* x, const void* ln_w, const void* ln_b,
+                         const void* w_fc, const float* b_fc, const void* w_proj,
+                         const float* b_proj, void* out, void* ws, int slots, int slot_rows,
+                         int big, int rows, float eps, cudaStream_t s) {
+  return bf ? launch_mlp<bf16, E>(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, out, ws, slots,
+                                  slot_rows, big, rows, eps, s)
+            : launch_mlp<float, E>(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, out, ws, slots,
+                                   slot_rows, big, rows, eps, s);
+}
+
 }  // namespace
 
-// K5. x, out: [B, L, 768]; ln_w, ln_b: [768]; w_in: [2304, 768] (q, k, v
-// rows); w_out: [768, 768]; all of one dtype (0 = float32, 1 = bfloat16),
-// contiguous and 16-byte aligned. b_in [2304] and b_out [768]: fp32. mask:
-// fp32 [L, L] or null. A block takes S samples at a time (bf16: at most 256
-// rows and 512 padded attention rows, or one sample); ws holds slots
-// slices of slot elements of the dtype, each at least h and ctx [S L, 768]
-// (and q/k/v [S L, 192] in fp32). Returns the launch's cudaError_t (0 on
-// success); the caller has checked the shapes.
+// K5. x, out: [B, L, E]; ln_w, ln_b: [E]; w_in: [3E, E] (q, k, v rows);
+// w_out: [E, E]; E = 512 or 768 (heads of 64); all of one dtype (0 =
+// float32, 1 = bfloat16), contiguous and 16-byte aligned. b_in [3E] and
+// b_out [E]: fp32. mask: fp32 [L, L] or null. A block takes S samples at a
+// time (bf16: at most 256 rows and 512 padded attention rows, or one
+// sample); ws holds slots slices of slot elements of the dtype, each at
+// least h and ctx [S L, E] (and q/k/v [S L, 192] in fp32). Returns the
+// launch's cudaError_t (0 on success); the caller has checked the shapes.
 extern "C" int msclip_attention_halfblock(const void* x, const void* ln_w, const void* ln_b,
                                           const void* w_in, const float* b_in,
                                           const void* w_out, const float* b_out,
                                           const float* mask, void* out, void* ws,
-                                          long long slot, int slots, int B, int L, int S,
+                                          long long slot, int slots, int B, int L, int S, int E,
                                           float eps, int dtype, void* stream) {
   if (B <= 0 || L <= 0 || L > kMaxSeq || slots <= 0 || S <= 0 || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && !bf16_group_fits(S, L)))
+      (dtype == 1 && !bf16_group_fits(S, L)) || (E != 512 && E != 768))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_attn(dtype == 1, x, ln_w, ln_b, w_in, b_in, w_out, b_out, mask, out, ws,
-                            slot, slots, B, L, S, eps, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(E == 512 ? dispatch_attn<512>(dtype == 1, x, ln_w, ln_b, w_in, b_in, w_out, b_out,
+                                             mask, out, ws, slot, slots, B, L, S, eps, s)
+                        : dispatch_attn<768>(dtype == 1, x, ln_w, ln_b, w_in, b_in, w_out, b_out,
+                                             mask, out, ws, slot, slots, B, L, S, eps, s));
 }
 
-// K6. x, out: [rows, 768]; ln_w, ln_b: [768]; w_fc: [3072, 768]; w_proj:
-// [768, 3072]; one dtype as above, 16-byte aligned. b_fc [3072] and b_proj
-// [768]: fp32. The plan is ops/block_fused.mlp_plan's. bf16: `big` groups
-// of 256 rows, then groups of 128, on `slots` blocks; ws holds h [slots
-// slot_rows, 768] and then mid [slots slot_rows, 3072], slot_rows 256
+// K6. x, out: [rows, E]; ln_w, ln_b: [E]; w_fc: [4E, E]; w_proj: [E, 4E];
+// E = 512 or 768; one dtype as above, 16-byte aligned. b_fc [4E] and
+// b_proj [E]: fp32. The plan is ops/block_fused.mlp_plan's. bf16: `big`
+// groups of 256 rows, then groups of 128, on `slots` blocks; ws holds h
+// [slots slot_rows, E] and then mid [slots slot_rows, 4E], slot_rows 256
 // where big > 0, else 128. fp32: big 0, slot_rows 32, and ws holds slots
-// slices of 32 (768 + 128) elements.
+// slices of 32 (E + 128) elements.
 extern "C" int msclip_mlp_halfblock(const void* x, const void* ln_w, const void* ln_b,
                                     const void* w_fc, const float* b_fc, const void* w_proj,
                                     const float* b_proj, void* out, void* ws, int slots,
-                                    int slot_rows, int big, int rows, float eps, int dtype,
+                                    int slot_rows, int big, int rows, int E, float eps, int dtype,
                                     void* stream) {
-  if (rows <= 0 || slots <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || slots <= 0 || (dtype != 0 && dtype != 1) || (E != 512 && E != 768))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1 ? launch_mlp<bf16>(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, out, ws,
-                                             slots, slot_rows, big, rows, eps, s)
-                          : launch_mlp<float>(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, out, ws,
-                                              slots, slot_rows, big, rows, eps, s));
+  return (int)(E == 512 ? dispatch_mlp<512>(dtype == 1, x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj,
+                                            out, ws, slots, slot_rows, big, rows, eps, s)
+                        : dispatch_mlp<768>(dtype == 1, x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj,
+                                            out, ws, slots, slot_rows, big, rows, eps, s));
 }
 
 extern "C" const char* msclip_cuda_error_string(int err) {

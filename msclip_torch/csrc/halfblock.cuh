@@ -5,8 +5,8 @@
 //
 // What lives here: element types and their roundings, cp.async and the
 // bf16 mma.sync product, the warp and block GEMMs over shared-memory tiles
-// (WarpMma, Tile, block_gemm, gemm_pass, gemm_192), LayerNorm of rows of
-// 768 (layer_norm_rows), one head's fp32 attention on the CUDA cores
+// (WarpMma, Tile, block_gemm, gemm_pass, gemm_cols), LayerNorm of rows of
+// E (layer_norm_rows), one head's fp32 attention on the CUDA cores
 // (AttnHead), and K5's body over one group of samples on them
 // (attention_halfblock_rows) with its out-projection epilogue
 // (out_projection_residual): the fp32 K5, E1 and E2 run these. K5's and
@@ -18,6 +18,13 @@
 // (block_fused.cu) runs wgmma_gemm and out_projection_wgmma on its own
 // tensor maps. block_fused.cu's header comment has the design and the
 // rounding points.
+//
+// The width E is a template parameter of everything that depends on it (E
+// / 64 heads of 64): K5 and K6 are instantiated at E = 512 (b32.yaml's and
+// RN50's text towers) and 768 (ViT-B), E1 and E2 at 768 only (kE, the
+// default). A GEMM over E output columns takes them in column tiles of
+// out_cols(E): 192 where 192 divides E, else 128 (wgmma.m64n128k16 at E =
+// 512); the q/k/v GEMM of one head is 192 columns at every width.
 
 #pragma once
 
@@ -35,14 +42,21 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kE = 768;            // width
-constexpr int kHeads = 12;
+constexpr int kE = 768;            // E1's and E2's width, the default E
+constexpr int kHeads = kE / 64;
 constexpr int kD = 64;             // head width
 constexpr int kQkv = 3 * kD;       // one head's q, k and v columns
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxSeq = 256;
 constexpr int kGroupRows = 128;    // GEMM rows per pass of the mma.sync body (GROUP_ROWS)
+
+// the column tile of a GEMM over n output columns (E, or K6's 4E): 192
+// (kQkv) where it divides n, else 128
+__host__ __device__ constexpr int out_cols(int n) { return n % kQkv == 0 ? kQkv : 128; }
+static_assert(out_cols(768) == 192 && out_cols(512) == 128 && out_cols(3072) == 192 &&
+                  out_cols(2048) == 128,
+              "the column tiles of both widths");
 
 // ---------------------------------------------------------------------------
 // element types
@@ -319,33 +333,34 @@ __device__ __forceinline__ void zero(float (&acc)[MPW][NPW][4]) {
     for (int j = 0; j < NPW; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 }
 
-// One pass of at most ROWS rows: acc = A W^T, then epi(row, col, value) for
-// the rows below n.
-template <typename T, int MPW, int NPW, int WM, typename WRow, typename Epi>
+// One pass of at most ROWS rows: acc = A W^T (A [n, E], row stride E),
+// then epi(row, col, value) for the rows below n.
+template <typename T, int E, int MPW, int NPW, int WM, typename WRow, typename Epi>
 __device__ void gemm_pass(const T* a, int n, WRow w_row, unsigned char* smem, Epi epi) {
   float acc[MPW][NPW][4];
   zero(acc);
-  block_gemm<T, 128, MPW, NPW, WM>(acc, a, kE, n, w_row, kE, smem);
+  block_gemm<T, 128, MPW, NPW, WM>(acc, a, E, n, w_row, E, smem);
   for_each_acc<MPW, NPW, WM>(acc, [&](int r, int col, float v) {
     if (r < n) epi(r, col, v);
   });
 }
 
-// K5's GEMMs: A [rows, 768] (row stride 768) times 192 rows of W, in passes
-// of at most 128 rows, each pass with the warp grid that wastes the fewest
-// padded rows: 64 rows as 2 x 4 warps, 80 as 1 x 8, 128 as 2 x 4.
-template <typename T, typename WRow, typename Epi>
-__device__ void gemm_192(const T* a, int rows, WRow w_row, unsigned char* smem, Epi epi) {
+// K5's GEMMs: A [rows, E] (row stride E) times N rows of W (N = 192 or
+// 128), in passes of at most 128 rows, each pass with the warp grid that
+// wastes the fewest padded rows: 64 rows as 2 x 4 warps, 80 as 1 x 8, 128
+// as 2 x 4.
+template <typename T, int E, int N, typename WRow, typename Epi>
+__device__ void gemm_cols(const T* a, int rows, WRow w_row, unsigned char* smem, Epi epi) {
   for (int r0 = 0; r0 < rows; r0 += kGroupRows) {
     const int n = min(rows - r0, kGroupRows);
-    const T* ar = a + (size_t)r0 * kE;
+    const T* ar = a + (size_t)r0 * E;
     auto epi_r = [&](int r, int col, float v) { epi(r0 + r, col, v); };
     if (n > 80)
-      gemm_pass<T, 4, 6, 2>(ar, n, w_row, smem, epi_r);
+      gemm_pass<T, E, 4, N / 32, 2>(ar, n, w_row, smem, epi_r);
     else if (n > 64)
-      gemm_pass<T, 5, 3, 1>(ar, n, w_row, smem, epi_r);
+      gemm_pass<T, E, 5, N / 64, 1>(ar, n, w_row, smem, epi_r);
     else
-      gemm_pass<T, 2, 6, 2>(ar, n, w_row, smem, epi_r);
+      gemm_pass<T, E, 2, N / 32, 2>(ar, n, w_row, smem, epi_r);
   }
 }
 
@@ -354,18 +369,22 @@ static_assert(Tile<bf16, 128, 4, 6, 2>::smem_bytes == kGemmSmem, "same bytes for
 static_assert(Tile<float, 128, 5, 3, 1>::N == kQkv && Tile<float, 128, 2, 6, 2>::N == kQkv &&
                   Tile<float, 128, 4, 6, 2>::N == kQkv,
               "every pass covers 192 columns");
+static_assert(Tile<float, 128, 5, 2, 1>::N == 128 && Tile<float, 128, 4, 4, 2>::N == 128 &&
+                  Tile<float, 128, 4, 4, 2>::smem_bytes <= kGemmSmem,
+              "the passes of 128 columns");
 
 // ---------------------------------------------------------------------------
-// LayerNorm of rows of 768, one warp a row, into h (row stride 768)
+// LayerNorm of rows of E, one warp a row, into h (row stride E)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int E = kE>
 __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ w,
                                 const T* __restrict__ b, T* __restrict__ h, int rows, float eps) {
-  constexpr int C = kE / 8 / 32;  // 8-element chunks per lane
+  static_assert(E % 256 == 0, "whole 8-element chunks on every lane");
+  constexpr int C = E / 8 / 32;  // 8-element chunks per lane
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < rows; r += kWarps) {
-    const T* xr = x + (size_t)r * kE;
+    const T* xr = x + (size_t)r * E;
     Vec8<T> v[C];
     float sum = 0.f;
 #pragma unroll
@@ -374,7 +393,7 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ w
 #pragma unroll
       for (int i = 0; i < 8; ++i) sum = __fadd_rn(sum, v[j].get(i));
     }
-    const float mean = __fdiv_rn(warp_sum(sum), (float)kE);
+    const float mean = __fdiv_rn(warp_sum(sum), (float)E);
     float sq = 0.f;
 #pragma unroll
     for (int j = 0; j < C; ++j) {
@@ -384,7 +403,7 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ w
         sq = __fadd_rn(sq, __fmul_rn(d, d));
       }
     }
-    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)kE), eps));
+    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)E), eps));
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int off = (lane + 32 * j) * 8;
@@ -396,13 +415,13 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ w
         const float normed = round_to<T>(__fmul_rn(__fsub_rn(v[j].get(i), mean), rstd));
         out.set(i, __fadd_rn(round_to<T>(__fmul_rn(wc.get(i), normed)), bc.get(i)));
       }
-      out.store(h + (size_t)r * kE + off);
+      out.store(h + (size_t)r * E + off);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// One head's fp32 attention to ctx (row stride 768, offset to the head's
+// One head's fp32 attention to ctx (row stride E, offset to the head's
 // columns). K1's arithmetic and layout. q, k and v point at row 0 of the
 // head's columns, each row ld elements after the last: K5's workspace
 // q/k/v [L, 192] (ld 192), or a qkv [L, 2304] as K1 reads it (ld 2304).
@@ -410,7 +429,7 @@ __device__ void layer_norm_rows(const T* __restrict__ x, const T* __restrict__ w
 // bf16 bodies run K1's wgmma attention from attn_core.cuh.)
 // ---------------------------------------------------------------------------
 
-template <typename T, int A, bool Recip = false>
+template <typename T, int A, bool Recip = false, int E = kE>
 struct AttnHead;
 
 // fp32, CUDA cores. KPL keys per lane (L <= 32 KPL). K_h ([L, D + 1]: 32
@@ -418,8 +437,8 @@ struct AttnHead;
 // each warp walks query rows, lane l owning keys l, l + 32, ..., so that
 // the scores stay in registers; for PV lane l owns output columns l, l + 32
 // and the weights are broadcast with shuffles.
-template <int KPL, bool Recip>
-struct AttnHead<float, KPL, Recip> {
+template <int KPL, bool Recip, int E>
+struct AttnHead<float, KPL, Recip, E> {
   static constexpr int DP = kD + 1, CPL = kD / 32;
   static constexpr size_t smem_bytes =
       sizeof(float) * ((size_t)32 * KPL * DP + (size_t)32 * KPL * kD + kWarps * kD);
@@ -493,7 +512,7 @@ struct AttnHead<float, KPL, Recip> {
           for (int c = 0; c < CPL; ++c) acc[c] = fmaf(w, v_row[lane + 32 * c], acc[c]);
         }
       }
-      float* o_row = ctx + (size_t)i * kE;
+      float* o_row = ctx + (size_t)i * E;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) o_row[lane + 32 * c] = acc[c];
       __syncwarp();
@@ -514,17 +533,19 @@ constexpr float kScale = 0.125f;  // kD^-1/2
 // replaces the attention by ctx = v + 1e-4 q + 1e-4 k in T (v2a).
 enum Variant : int { kBase = 0, kQkvRounded = 1, kReciprocal = 2, kNoHeads = 3 };
 
-// ob = xb + (ctx W_out^T + b_out) for rows of 768: the out-projection over
-// four column tiles of 192, the fp32 bias added before the rounding to T and
-// the residual added in T in its epilogue.
-template <typename T>
+// ob = xb + (ctx W_out^T + b_out) for rows of E: the out-projection over
+// column tiles of out_cols(E) (four of 192 at 768, four of 128 at 512), the
+// fp32 bias added before the rounding to T and the residual added in T in
+// its epilogue.
+template <typename T, int E = kE>
 __device__ void out_projection_residual(const T* ctx, int rows, const T* __restrict__ w_out,
                                         const float* __restrict__ b_out, const T* __restrict__ xb,
                                         T* __restrict__ ob, unsigned char* smem) {
-  for (int n0 = 0; n0 < kE; n0 += kQkv) {
-    auto w_row = [&](int n) { return w_out + (size_t)(n0 + n) * kE; };
-    gemm_192<T>(ctx, rows, w_row, smem, [&](int r, int col, float v) {
-      const size_t o = (size_t)r * kE + n0 + col;
+  constexpr int NO = out_cols(E);
+  for (int n0 = 0; n0 < E; n0 += NO) {
+    auto w_row = [&](int n) { return w_out + (size_t)(n0 + n) * E; };
+    gemm_cols<T, E, NO>(ctx, rows, w_row, smem, [&](int r, int col, float v) {
+      const size_t o = (size_t)r * E + n0 + col;
       const float y = round_to<T>(__fadd_rn(v, b_out[n0 + col]));
       ob[o] = from_f<T>(__fadd_rn(to_f<T>(xb[o]), y));
     });
@@ -532,11 +553,11 @@ __device__ void out_projection_residual(const T* ctx, int rows, const T* __restr
 }
 
 // K5's body over one group of rows (whole samples of L tokens, contiguous in
-// xb and ob): LN1 into h; per head the [rows, 768] x [768, 192] q/k/v GEMM
+// xb and ob): LN1 into h; per head the [rows, E] x [E, 192] q/k/v GEMM
 // into qkv, then the head's attention (or v2a's blend) into ctx; last the
-// out-projection with bias and residual. h, ctx [rows, 768] and qkv [rows,
+// out-projection with bias and residual. h, ctx [rows, E] and qkv [rows,
 // 192] are the block's workspace.
-template <typename T, int A, int V>
+template <typename T, int A, int V, int E = kE>
 __device__ void attention_halfblock_rows(const T* __restrict__ xb, const T* __restrict__ ln_w,
                                          const T* __restrict__ ln_b, const T* __restrict__ w_in,
                                          const float* __restrict__ b_in,
@@ -545,16 +566,16 @@ __device__ void attention_halfblock_rows(const T* __restrict__ xb, const T* __re
                                          const float* __restrict__ mask, T* __restrict__ ob, T* h,
                                          T* ctx, T* qkv, int rows, int L, float eps,
                                          unsigned char* smem) {
-  layer_norm_rows<T>(xb, ln_w, ln_b, h, rows, eps);
+  layer_norm_rows<T, E>(xb, ln_w, ln_b, h, rows, eps);
   __syncthreads();
 
-  for (int hh = 0; hh < kHeads; ++hh) {
-    // row n of the head's [192, 768] weight: q, k or v row n % 64
+  for (int hh = 0; hh < E / kD; ++hh) {
+    // row n of the head's [192, E] weight: q, k or v row n % 64
     auto w_row = [&](int n) {
-      return w_in + ((size_t)(n / kD) * kE + hh * kD + n % kD) * kE;
+      return w_in + ((size_t)(n / kD) * E + hh * kD + n % kD) * E;
     };
-    gemm_192<T>(h, rows, w_row, smem, [&](int r, int col, float v) {
-      const float bias = b_in[(col / kD) * kE + hh * kD + col % kD];
+    gemm_cols<T, E, kQkv>(h, rows, w_row, smem, [&](int r, int col, float v) {
+      const float bias = b_in[(col / kD) * E + hh * kD + col % kD];
       const float y = V == kQkvRounded ? __fadd_rn(round_to<T>(v), round_to<T>(bias))
                                        : __fadd_rn(v, bias);
       qkv[r * kQkv + col] = from_f<T>(y);
@@ -566,20 +587,20 @@ __device__ void attention_halfblock_rows(const T* __restrict__ xb, const T* __re
         const T* row = qkv + (size_t)(i / kD) * kQkv + i % kD;
         const float t = round_to<T>(
             __fadd_rn(to_f<T>(row[2 * kD]), round_to<T>(__fmul_rn(c, to_f<T>(row[0])))));
-        ctx[(size_t)(i / kD) * kE + hh * kD + i % kD] =
+        ctx[(size_t)(i / kD) * E + hh * kD + i % kD] =
             from_f<T>(__fadd_rn(t, round_to<T>(__fmul_rn(c, to_f<T>(row[kD])))));
       }
       __syncthreads();
     } else {
       for (int r0 = 0; r0 < rows; r0 += L) {  // attention sample by sample
         const T* q = qkv + (size_t)r0 * kQkv;
-        AttnHead<T, A, V == kReciprocal>::run(q, q + kD, q + 2 * kD, kQkv, mask,
-                                              ctx + (size_t)r0 * kE + hh * kD, L, kScale, smem);
+        AttnHead<T, A, V == kReciprocal, E>::run(q, q + kD, q + 2 * kD, kQkv, mask,
+                                                 ctx + (size_t)r0 * E + hh * kD, L, kScale, smem);
         __syncthreads();
       }
     }
   }
-  out_projection_residual<T>(ctx, rows, w_out, b_out, xb, ob, smem);
+  out_projection_residual<T, E>(ctx, rows, w_out, b_out, xb, ob, smem);
   // the next group's LayerNorm overwrites h, which the last GEMM's trailing
   // barrier has released
 }
@@ -591,19 +612,20 @@ __device__ void attention_halfblock_rows(const T* __restrict__ xb, const T* __re
 // A block owns a group of ns whole samples, at most 256 rows (one sample
 // when L > 128), whose rows are contiguous in x and out. LN1 of its rows
 // goes to its slice h of a device-memory workspace. Then for each head one
-// GEMM [rows, 768] x [768, 192] (the head's q, k and v rows of the
+// GEMM [rows, E] x [E, 192] (the head's q, k and v rows of the
 // in-projection) on wgmma, each weight tile staged once for all the
 // group's rows; its epilogue adds the fp32 bias, rounds, and writes q, k
 // and v as one swizzled [LP, 64] tile per sample into the shared memory
 // the GEMM's ring held, rows past L zero. The two warpgroups then take the
 // group's (sample, 64-row query tile) units in turn through K1's attention
 // (attn_core.cuh), writing the head's context columns to the slice ctx.
-// Last, the out-projection [rows, 768] x [768, 768] as four GEMMs of 192
-// columns, the bias and the residual in their epilogue.
+// Last, the out-projection [rows, E] x [E, E] as GEMMs of out_cols(E)
+// columns (four of 192 at 768, four of 128 at 512), the bias and the
+// residual in their epilogue.
 //
 // The GEMMs' operands come by TMA: thread 0 loads each 64-wide K chunk of
 // the activation rows (h or ctx, through a tensor map over the workspace)
-// and of the 192 weight rows (three 64-row boxes of w_in or w_out) into a
+// and of the 192 (or 128) weight rows (64-row boxes of w_in or w_out) into a
 // ring of four stages, two chunks ahead, each stage with a "full" mbarrier
 // that counts the bytes landing and an "empty" one that every thread
 // arrives on once its products of the stage are done. No block barrier
@@ -614,10 +636,10 @@ __device__ void attention_halfblock_rows(const T* __restrict__ xb, const T* __re
 constexpr int kWgRows = 256;                   // rows of a bf16 group
 constexpr int kWgTileRows = 512;               // its padded q/k/v rows (ns LP)
 constexpr int kChunk = 64;                     // K of a staged chunk: one swizzle row
-constexpr int kChunks = kE / kChunk;
+constexpr int kChunks = kE / kChunk;           // E1's and E2's K chunks (E / kChunk)
 constexpr int kBoxRows = 128;                  // activation rows a TMA box holds
 constexpr uint32_t kStageA = kWgRows * 128;    // a chunk's activation rows
-constexpr uint32_t kStageW = kQkv * 128;       // a chunk's 192 weight rows
+constexpr uint32_t kStageW = kQkv * 128;       // a chunk's 192 weight rows (or 128)
 constexpr uint32_t kStageBytes = kStageA + kStageW;
 constexpr int kStages = 4;
 // chunks in flight ahead of the one multiplied; the products of the
@@ -644,7 +666,7 @@ __host__ __device__ constexpr bool bf16_group_fits(int ns, int L) {
 }
 
 // The tensor maps of the bf16 body, kernel parameters (__grid_constant__):
-// the workspace as rows of 768 in boxes of 128 rows, w_in and w_out in
+// the workspace as rows of E in boxes of 128 rows, w_in and w_out in
 // boxes of 64 rows, each box 64 columns wide in the 128-byte swizzle.
 struct HalfMaps {
   CUtensorMap ws, w_in, w_out;
@@ -686,14 +708,14 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, long long rows, 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The maps of one launch: the workspace's slots x slot elements, w_in
-// [2304, 768] and w_out [768, 768].
+// The maps of one launch at width E: the workspace's slots x slot
+// elements, w_in [3E, E] and w_out [E, E].
 inline cudaError_t half_maps(HalfMaps* maps, const void* ws, long long slots, long long slot,
-                             const void* w_in, const void* w_out) {
+                             const void* w_in, const void* w_out, int E = kE) {
   cudaError_t err;
-  if ((err = tile_map(&maps->ws, ws, slots * slot / kE, kBoxRows)) != cudaSuccess) return err;
-  if ((err = tile_map(&maps->w_in, w_in, 3 * kE, kD)) != cudaSuccess) return err;
-  return tile_map(&maps->w_out, w_out, kE, kD);
+  if ((err = tile_map(&maps->ws, ws, slots * slot / E, kBoxRows, E)) != cudaSuccess) return err;
+  if ((err = tile_map(&maps->w_in, w_in, 3 * E, kD, E)) != cudaSuccess) return err;
+  return tile_map(&maps->w_out, w_out, E, kD, E);
 }
 
 // The block's ring: stage s at base + s kStageBytes, its full and empty
@@ -729,35 +751,36 @@ __device__ __forceinline__ Ring make_ring(unsigned char* smem_raw) {
 
 // acc = A W^T over the group, K = 64 KCH: A the rows a_row0 .. a_row0 +
 // 128 MPW of *amap (the group's rows first; the products of the rows past
-// them are not used), W the 192 rows w_row0 + t w_step + (0 .. 64), t < 3,
-// of *wmap. Warpgroup w owns the 64-row m-tiles w + 2 i (i < MPW),
-// wgmma.m64n192k16 with both operands from shared memory (K-major,
-// 128-byte swizzle). Thread 0 keeps kPrefetch chunks in flight; each
-// warpgroup leaves one chunk's products running while it waits for the
-// next chunk.
-template <int MPW, int KCH = kChunks>
-__device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const CUtensorMap* amap,
+// them are not used), W the N rows w_row0 + t w_step + (0 .. 64), t < N /
+// 64, of *wmap (N = 192 or 128). Warpgroup w owns the 64-row m-tiles w + 2
+// i (i < MPW), wgmma.m64n192k16 (or m64n128k16) with both operands from
+// shared memory (K-major, 128-byte swizzle). Thread 0 keeps kPrefetch
+// chunks in flight; each warpgroup leaves one chunk's products running
+// while it waits for the next chunk.
+template <int MPW, int KCH = kChunks, int N = kQkv>
+__device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][N / 2], const CUtensorMap* amap,
                                            int a_row0, const CUtensorMap* wmap, int w_row0,
                                            int w_step, Ring& ring) {
+  static_assert(N == kQkv || N == 128, "the wgmma widths of hopper.cuh");
   const int wg = threadIdx.x >> 7;
   const uint32_t it0 = ring.it;
 #pragma unroll
   for (int i = 0; i < MPW; ++i)
 #pragma unroll
-    for (int e = 0; e < kQkv / 2; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < N / 2; ++e) acc[i][e] = 0.f;
 
   // thread 0: chunk kc into its stage, once every thread has released it
   auto load = [&](int kc) {
     const uint32_t j = it0 + kc, s = j % kStages;
     mbar_wait(ring.empty(s), ((j / kStages) & 1) ^ 1);
-    mbar_arrive_expect_tx(ring.full(s), (128 * MPW + kQkv) * 128);
+    mbar_arrive_expect_tx(ring.full(s), (128 * MPW + N) * 128);
     const uint32_t sa = ring.base + s * kStageBytes;
 #pragma unroll
     for (int m = 0; m < MPW; ++m)
       tma_load_2d(sa + m * kBoxRows * 128, amap, ring.full(s), kc * kChunk,
                   a_row0 + m * kBoxRows);
 #pragma unroll
-    for (int t = 0; t < 3; ++t)
+    for (int t = 0; t < N / kD; ++t)
       tma_load_2d(sa + kStageA + t * kD * 128, wmap, ring.full(s), kc * kChunk,
                   w_row0 + t * w_step);
   };
@@ -776,9 +799,13 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const CU
 #pragma unroll
     for (int ks = 0; ks < kChunk / 16; ++ks) {
 #pragma unroll
-      for (int i = 0; i < MPW; ++i)
-        wgmma_m64n192k16_ss(acc[i], desc_add(desc_k_major(sa + (wg + 2 * i) * 8192), ks * 32),
-                            desc_add(db, ks * 32));
+      for (int i = 0; i < MPW; ++i) {
+        const uint64_t da = desc_add(desc_k_major(sa + (wg + 2 * i) * 8192), ks * 32);
+        if constexpr (N == kQkv)
+          wgmma_m64n192k16_ss(acc[i], da, desc_add(db, ks * 32));
+        else
+          wgmma_m64n128k16_ss(acc[i], da, desc_add(db, ks * 32));
+      }
     }
     wgmma_commit();
     wgmma_wait<kStages - kPrefetch - 1>();
@@ -790,7 +817,7 @@ __device__ __forceinline__ void wgmma_gemm(float (&acc)[MPW][kQkv / 2], const CU
 #pragma unroll
   for (int i = 0; i < MPW; ++i)
 #pragma unroll
-    for (int e = 0; e < kQkv / 2; ++e) fence_operand(acc[i][e]);
+    for (int e = 0; e < N / 2; ++e) fence_operand(acc[i][e]);
 }
 
 // The rows of this thread's accumulators: row(i, hi) of m-tile i, and the
@@ -808,15 +835,15 @@ __device__ __forceinline__ int acc_col(int j) { return 8 * j + 2 * (threadIdx.x 
 // first), the result rounded to bf16 and written as the group's swizzled
 // tiles in the ring: q of sample s at tile s, k at ns + s, v at 2 ns + s,
 // each [LP, 64], rows L .. LP - 1 zero. v2a instead writes ctx = v + 1e-4 q
-// + 1e-4 k, each operation rounded, to the head's columns of ctx. Ends
-// with a barrier after which the tiles are visible to wgmma.
-template <int MPW, int LP, int V>
+// + 1e-4 k, each operation rounded, to the head's columns of ctx (row
+// stride E). Ends with a barrier after which the tiles are visible to wgmma.
+template <int MPW, int LP, int V, int E = kE>
 __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh,
                          const float* __restrict__ b_in, bf16* ctx, Ring& ring) {
   const int rows = ns * L;
   float acc[MPW][kQkv / 2];
-  // rows hh 64 .. of the q, k and v blocks of w_in, 768 rows apart
-  wgmma_gemm<MPW>(acc, &maps.ws, h_row0, &maps.w_in, hh * kD, kE, ring);
+  // rows hh 64 .. of the q, k and v blocks of w_in, E rows apart
+  wgmma_gemm<MPW, E / kChunk>(acc, &maps.ws, h_row0, &maps.w_in, hh * kD, E, ring);
   __syncthreads();  // every warpgroup's products are done: the ring is free
   unsigned char* tiles = ring.ptr;
 
@@ -829,7 +856,7 @@ __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh
       const float* a = acc[i] + 2 * hi;
       if constexpr (V == kNoHeads) {
         const float cf = round_to<bf16>(1e-4f);  // the coefficient in bf16, as JAX's weak scalar
-        bf16* o = ctx + (size_t)r * kE + hh * kD;
+        bf16* o = ctx + (size_t)r * E + hh * kD;
 #pragma unroll
         for (int j = 0; j < kD / 8; ++j) {
           const int d = acc_col(j);
@@ -837,9 +864,9 @@ __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float q = round_to<bf16>(__fadd_rn(a[4 * j + e], b_in[hh * kD + d + e]));
-            const float k = round_to<bf16>(__fadd_rn(a[4 * (j + 8) + e], b_in[kE + hh * kD + d + e]));
+            const float k = round_to<bf16>(__fadd_rn(a[4 * (j + 8) + e], b_in[E + hh * kD + d + e]));
             const float v =
-                round_to<bf16>(__fadd_rn(a[4 * (j + 16) + e], b_in[2 * kE + hh * kD + d + e]));
+                round_to<bf16>(__fadd_rn(a[4 * (j + 16) + e], b_in[2 * E + hh * kD + d + e]));
             const float t = round_to<bf16>(__fadd_rn(v, round_to<bf16>(__fmul_rn(cf, q))));
             y[e] = __fadd_rn(t, round_to<bf16>(__fmul_rn(cf, k)));
           }
@@ -850,7 +877,7 @@ __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh
 #pragma unroll
         for (int j = 0; j < kQkv / 8; ++j) {
           const int col = acc_col(j), which = col / kD, d = col % kD;
-          const float* bias = b_in + which * kE + hh * kD + d;
+          const float* bias = b_in + which * E + hh * kD + d;
           float y[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
@@ -874,19 +901,21 @@ __device__ void qkv_head(const HalfMaps& maps, int h_row0, int ns, int L, int hh
   __syncthreads();
 }
 
-// ob = xb + (A W^T + b_out) for the group's rows, rows of 768: A the rows
+// ob = xb + (A W^T + b_out) for the group's rows, rows of E: A the rows
 // from a_row0 of *amap, 64 KCH wide (K5's and E2's ctx, the workspace rows
-// of maps.ws; K6's hidden rows), W [768, 64 KCH] through *wmap; four GEMMs
-// of 192 output columns, the fp32 bias added before the rounding to bf16
-// and the residual added in bf16 in their epilogue.
-template <int MPW, int KCH = kChunks>
+// of maps.ws; K6's hidden rows), W [E, 64 KCH] through *wmap; GEMMs of
+// out_cols(E) output columns (four of 192 at 768, four of 128 at 512), the
+// fp32 bias added before the rounding to bf16 and the residual added in
+// bf16 in their epilogue.
+template <int MPW, int KCH = kChunks, int E = kE>
 __device__ void out_projection_wgmma(const CUtensorMap* amap, int a_row0, const CUtensorMap* wmap,
                                      int rows, const float* __restrict__ b_out,
                                      const bf16* __restrict__ xb, bf16* __restrict__ ob,
                                      Ring& ring) {
-  for (int n0 = 0; n0 < kE; n0 += kQkv) {
-    float acc[MPW][kQkv / 2];
-    wgmma_gemm<MPW, KCH>(acc, amap, a_row0, wmap, n0, kD, ring);
+  constexpr int NO = out_cols(E);
+  for (int n0 = 0; n0 < E; n0 += NO) {
+    float acc[MPW][NO / 2];
+    wgmma_gemm<MPW, KCH, NO>(acc, amap, a_row0, wmap, n0, kD, ring);
 #pragma unroll
     for (int i = 0; i < MPW; ++i) {
 #pragma unroll
@@ -894,9 +923,9 @@ __device__ void out_projection_wgmma(const CUtensorMap* amap, int a_row0, const 
         const int r = acc_row(i, hi);
         if (r >= rows) continue;
 #pragma unroll
-        for (int j = 0; j < kQkv / 8; ++j) {
+        for (int j = 0; j < NO / 8; ++j) {
           const int col = n0 + acc_col(j);
-          const size_t o = (size_t)r * kE + col;
+          const size_t o = (size_t)r * E + col;
           const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(xb + o);
           const float y0 = round_to<bf16>(__fadd_rn(acc[i][4 * j + 2 * hi], b_out[col]));
           const float y1 = round_to<bf16>(__fadd_rn(acc[i][4 * j + 2 * hi + 1], b_out[col + 1]));
@@ -909,10 +938,10 @@ __device__ void out_projection_wgmma(const CUtensorMap* amap, int a_row0, const 
 }
 
 // K5's bf16 body over one group of ns samples (rows contiguous in xb and
-// ob), at attention tile LP and numeric variant V. h and ctx [ns L, 768]
-// are the block's workspace slice, rows h_row0 and h_row0 + S L of
+// ob), at attention tile LP, numeric variant V and width E. h and ctx [ns
+// L, E] are the block's workspace slice, rows h_row0 and h_row0 + S L of
 // maps.ws (S the group size, ns <= S); ring the block's (make_ring).
-template <int LP, int V>
+template <int LP, int V, int E = kE>
 __device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __restrict__ xb,
                                           const bf16* __restrict__ ln_w,
                                           const bf16* __restrict__ ln_b,
@@ -923,14 +952,14 @@ __device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __re
                                           int L, float eps, Ring& ring) {
   const int rows = ns * L, wg = threadIdx.x >> 7;
 
-  layer_norm_rows<bf16>(xb, ln_w, ln_b, h, rows, eps);
+  layer_norm_rows<bf16, E>(xb, ln_w, ln_b, h, rows, eps);
   fence_proxy_async_global();  // h is read by TMA
   __syncthreads();
-  for (int hh = 0; hh < kHeads; ++hh) {
+  for (int hh = 0; hh < E / kD; ++hh) {
     if (rows > 128)
-      qkv_head<2, LP, V>(maps, h_row0, ns, L, hh, b_in, ctx, ring);
+      qkv_head<2, LP, V, E>(maps, h_row0, ns, L, hh, b_in, ctx, ring);
     else
-      qkv_head<1, LP, V>(maps, h_row0, ns, L, hh, b_in, ctx, ring);
+      qkv_head<1, LP, V, E>(maps, h_row0, ns, L, hh, b_in, ctx, ring);
     if constexpr (V != kNoHeads) {
       // the warpgroups take the (sample, query tile) units in turn
       const int nqt = (L + 63) / 64;
@@ -939,7 +968,7 @@ __device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __re
         attn_query_tile<LP, V == kReciprocal>(
             ring.ptr + s * LP * 128, ring.base + (ns + s) * LP * 128,
             ring.base + (2 * ns + s) * LP * 128, mask, L, kScale, qt,
-            ctx + (size_t)s * L * kE + hh * kD, kE);
+            ctx + (size_t)s * L * E + hh * kD, E);
       }
     }
     // ctx's columns are written (and read by TMA later); the ring is free
@@ -949,9 +978,11 @@ __device__ void attention_halfblock_group(const HalfMaps& maps, const bf16* __re
     __syncthreads();
   }
   if (rows > 128)
-    out_projection_wgmma<2>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob, ring);
+    out_projection_wgmma<2, E / kChunk, E>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob,
+                                           ring);
   else
-    out_projection_wgmma<1>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob, ring);
+    out_projection_wgmma<1, E / kChunk, E>(&maps.ws, ctx_row0, &maps.w_out, rows, b_out, xb, ob,
+                                           ring);
   // the next group's LayerNorm ends in a barrier before the next GEMM
   // refills the ring
 }

@@ -10,6 +10,8 @@ card: top-1 is reduced by sum and count, the other metrics see every
 process's logits and labels (``utils/comm.gather_arrays``), and
 ``TEST.SAVE_PRED`` writes a ``.rank<r>`` file a process. The entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
+``MSCLIP_TRACE=<dir>`` writes a ``torch.profiler`` trace of image batches
+3-6 on rank 0 (``utils/summary.TraceWindow``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..models.msclip import (
 )
 from ..utils import metrics as M
 from ..utils.comm import comm, gather_arrays, init_distributed, reduce_dict
+from ..utils.summary import TraceWindow
 from .device import resolve_device
 
 # metrics computed over the masked logits of the whole run, on the host
@@ -232,16 +235,23 @@ def run_zero_shot(config, dataset=None, prompt_dataset: str | None = None,
                         int(mask.sum()))
         return int(mask.sum())
 
+    # MSCLIP_TRACE=<dir>: a torch.profiler trace of batches 3-6 (0-based,
+    # past the first batches' set-up), rank 0 only, as the JAX hook
+    trace = TraceWindow(os.environ.get("MSCLIP_TRACE") if comm.rank == 0
+                        else None, 3, 6, device, "zero-shot batches 3-6")
     # double buffering: batch i+1 is queued on the device before batch i's
     # logits are read back
     pending = None
-    for batch in loader:
+    for bi, batch in enumerate(loader):
+        trace.before(bi)
         images = torch.from_numpy(batch["image"]).to(device, non_blocking=True)
         logits = 100.0 * model.encode_image(pre(images)) @ weights
         n_batches += 1
         if pending is not None:
             n_images += consume(*pending)
         pending = (logits, batch)
+        trace.after(bi)
+    trace.close()  # a run shorter than the window
     if pending is not None:
         n_images += consume(*pending)
     elapsed = time.time() - t0

@@ -28,13 +28,13 @@ fp32, cast to the compute dtype before the bias is added.
 from __future__ import annotations
 
 import math
-import os
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.attention import fused_attention_qkv
 from ..ops.quant import gelu_quant, ln_quant, quantize_rows_plain
+from ..ops.tuning import DEFAULT as DEFAULT_TUNING, get_tuning
 from ..parallel.collectives import (
     all_reduce_mean,
     copy_to_group,
@@ -55,16 +55,17 @@ GEMM_KEYS = ("attn.in_proj_weight", "attn.out_proj.weight",
              "mlp.c_fc.weight", "mlp.c_proj.weight")
 INT8_SUFFIXES = ("_int8", "_scale")
 # the shortest sequence whose quantized block takes the fused quantizers
-# K3/K4 (msclip_tpu/ops/tuning.py:63-66, ``int8_min_seq``); shorter ones
-# quantize each GEMM input on the fly. ``MSCLIP_INT8_MIN_SEQ`` overrides it,
-# as in the JAX package (msclip_tpu/ops/tuning.py:94)
-INT8_MIN_SEQ = 96
+# K3/K4 on the CPU and any device the tuning table does not name
+# (``ops/tuning.py``; msclip_tpu/ops/tuning.py:63-66); shorter ones
+# quantize each GEMM input on the fly
+INT8_MIN_SEQ = DEFAULT_TUNING.int8_min_seq
 
 
-def int8_min_seq() -> int:
-    """The fused int8 gate: ``MSCLIP_INT8_MIN_SEQ`` if set, read at call
-    time, else :data:`INT8_MIN_SEQ`."""
-    return int(os.environ.get("MSCLIP_INT8_MIN_SEQ", INT8_MIN_SEQ))
+def int8_min_seq(device=None) -> int:
+    """The fused int8 gate of ``device`` (the CPU for None): its row of
+    the tuning table, or ``MSCLIP_INT8_MIN_SEQ`` if set, read at call
+    time."""
+    return get_tuning(device).int8_min_seq
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +323,7 @@ def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
     tensor parallelism (:func:`attention`, :func:`mlp`)."""
     dropping = drop_path_rate > 0.0 and keep is not None
     if "attn.in_proj_weight_int8" in p and not dropping \
-            and x.shape[1] >= int8_min_seq():
+            and x.shape[1] >= int8_min_seq(x.device):
         return int8_block(p, x, n_head, mask, eps)
 
     def dp(t, i):

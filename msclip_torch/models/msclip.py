@@ -35,7 +35,6 @@ import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
-from ..ops.block_fused import WIDTH as FUSED_WIDTH
 from ..ops.block_fused import fused_block
 from . import crossattn as X
 from . import layers as L
@@ -247,22 +246,12 @@ class _KeyRecorder:
         return self._node.get(key, default)
 
 
-def _k5_width_error(widths) -> NotImplementedError:
-    return NotImplementedError(
-        f"TPU.USE_FUSED_BLOCK runs every transformer tower through K5, "
-        f"which takes E = {FUSED_WIDTH} only on the card "
-        f"(ops/block_fused.py); this config's towers are {sorted(widths)} "
-        "wide: K5 at other widths is ROADMAP Queue 2a.3 (the b32.yaml/RN50 "
-        "text towers need E = 512)")
-
-
 def _validate(config, custom: _KeyRecorder) -> None:
     """Raise for what the JAX package's ``_validate_spec_config`` rejects
-    (the reference's own asserts), for the TPU options that exclude each
-    other, and for K5 on towers of two widths or a ResNet tower (one of
-    them is not 768 wide; a config whose towers share another width
-    builds, runs K5's plain version on the CPU and is refused on the card
-    by :func:`_block_fn`)."""
+    (the reference's own asserts) and for the TPU options that exclude
+    each other. ``TPU.USE_FUSED_BLOCK`` builds at any width, as in JAX:
+    the CPU runs K5's plain version, and on the card K5 takes the widths
+    it is built for (``ops.block_fused.WIDTHS``) and raises for another."""
     text = config.MODEL.SPEC.TEXT
     if text.get("STYLE", "clip") != "clip" or \
             text.get("TOKENIZER", "clip") != "clip":
@@ -288,18 +277,11 @@ def _validate(config, custom: _KeyRecorder) -> None:
                 ("INT8_EVAL", "the int8 eval path quantizes each whole GEMM "
                  "weight a row on one process"),
                 ("USE_FUSED_BLOCK", "the fused half-block kernels (K5, K6) "
-                 "take a whole E=768 block, every head and both "
-                 "projections, in one launch")):
+                 "take a whole block, every head and both projections, in "
+                 "one launch")):
             if tpu.get(key, False):
                 raise ValueError(f"TPU.{key} cannot run with tensor "
                                  f"parallelism (TPU.MESH_MODEL > 1): {why}")
-    vision = config.MODEL.SPEC.VISION
-    widths = {text.get("WIDTH", 512)}
-    if isinstance(vision.get("LAYERS", 12), int):
-        widths.add(vision.get("WIDTH", 768))
-    if tpu.get("USE_FUSED_BLOCK", False) and (
-            len(widths) > 1 or not isinstance(vision.get("LAYERS", 12), int)):
-        raise _k5_width_error(widths)
 
 
 def _validate_tensor_parallel(config, spec: MSClipSpec) -> None:
@@ -592,9 +574,8 @@ def _block_fn(spec: MSClipSpec, dropping: bool = False):
     so the recomputation draws nothing)."""
     if spec.use_fused_block and not dropping:
         def fused(p, x, n_head, mask, **kw):
-            # the CPU runs K5's plain version at any width, the card K5
-            if x.device.type != "cpu" and x.shape[-1] != FUSED_WIDTH:
-                raise _k5_width_error({x.shape[-1]})
+            # the CPU runs K5's plain version at any width, the card K5 at
+            # the widths it is built for
             return fused_block(x, p, n_head, mask, spec.ln_eps)
 
         return fused

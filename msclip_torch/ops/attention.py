@@ -16,16 +16,24 @@ before dV in the backward), which sums in fp32; the backward's dS is rounded
 to the input dtype before dQ and dK. The XLA path of
 ``msclip_tpu/models/layers.py`` pre-scales q in the compute dtype instead,
 so the two agree exactly in fp32 and differ slightly in bf16.
+
+Two wrapper features of the JAX function come with it: lane packing
+(``lane_pack``: maskless rows short enough are packed ``pack`` to a row of
+``pack * L <= 128`` under a block-diagonal mask, the default from the
+tuning table, ``ops/tuning.py``), and :func:`fused_attention`, the same
+core over head-split ``[B, H, L, D]`` inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import cuda_build
+from .tuning import get_tuning
 
 SOURCE = "attention_fwd.cu"
 BWD_SOURCE = "attention_bwd.cu"
@@ -211,16 +219,71 @@ class FusedAttentionQKV(torch.autograd.Function):
                 None, None)
 
 
+@functools.lru_cache(maxsize=None)
+def pack_mask(seq: int, pack: int, device) -> torch.Tensor:
+    """The block-diagonal additive fp32 mask of ``pack`` rows of length
+    ``seq`` sharing one attention row (JAX's ``_pack_mask_np``): 0 inside
+    each row's own ``[seq, seq]`` block, -1e9 across rows, so that each
+    query's softmax covers its own keys only. Cached per device."""
+    m = torch.full((pack * seq, pack * seq), -1e9, dtype=torch.float32)
+    for i in range(pack):
+        m[i * seq:(i + 1) * seq, i * seq:(i + 1) * seq] = 0.0
+    return m.to(device)
+
+
+def lane_pack_for(B: int, L: int, lane_pack: int, masked: bool) -> int:
+    """The pack JAX's rule takes (``msclip_tpu/ops/attention.py:231-234``):
+    1 with a mask, else ``lane_pack`` shrunk until ``pack * L <= 128`` and
+    ``B % pack == 0``."""
+    pack = 1 if masked else max(1, int(lane_pack))
+    while pack > 1 and (pack * L > 128 or B % pack):
+        pack -= 1
+    return pack
+
+
 def fused_attention_qkv(qkv: torch.Tensor, n_head: int,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
+                        mask: torch.Tensor | None = None, *,
+                        lane_pack: int | None = None) -> torch.Tensor:
     """qkv ``[B, L, 3E]`` (after the in-projection) -> context ``[B, L, E]``.
 
     ``mask``: additive float32 ``[L, L]`` (e.g. causal) or None.
     Differentiable in ``qkv``. CPU tensors take the plain versions; CUDA
     tensors launch the kernels, the forward counted in
     ``fused_attention_qkv.launches`` and the backward in
-    ``fused_attention_qkv_bwd.launches``."""
+    ``fused_attention_qkv_bwd.launches``.
+
+    ``lane_pack`` (default: the tuning table's ``attn_lane_pack`` for
+    ``qkv``'s device, ``MSCLIP_ATTN_PACK``): without a mask, ``pack``
+    rows (:func:`lane_pack_for`) are viewed as one, ``[B / pack, pack L,
+    3E]`` (a free reshape of the contiguous batch), and run under the
+    block-diagonal :func:`pack_mask`: one launch, as unpacked."""
+    B, L, three_e = qkv.shape
+    if lane_pack is None:
+        lane_pack = get_tuning(qkv.device).attn_lane_pack
+    pack = lane_pack_for(B, L, lane_pack, mask is not None)
+    if pack > 1:
+        out = FusedAttentionQKV.apply(
+            qkv.reshape(B // pack, pack * L, three_e), n_head,
+            pack_mask(L, pack, qkv.device))
+        return out.reshape(B, L, three_e // 3)
     return FusedAttentionQKV.apply(qkv, n_head, mask)
 
 
 fused_attention_qkv.launches = 0
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Head-split inputs ``[B, H, L, D]`` -> context ``[B, H, L, D]`` (JAX's
+    ``fused_attention``): repacks into ``[B, L, 3E]``, runs
+    :func:`fused_attention_qkv` and splits the heads again. Prefer
+    :func:`fused_attention_qkv` right after the in-projection, which needs
+    no repack."""
+    B, H, L, D = q.shape
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(B, L, H * D)
+
+    qkv = torch.cat([flat(q), flat(k), flat(v)], dim=-1)
+    out = fused_attention_qkv(qkv, H, mask)
+    return out.reshape(B, L, H, D).transpose(1, 2)

@@ -12,6 +12,10 @@ fallback:
 half unfused (its two GEMMs are plain ``torch.matmul``, as the JAX package
 leaves them to XLA). Inference only: nothing here has a backward.
 
+The kernels take E = 512 and 768 (:data:`WIDTHS`, heads of 64): the text
+towers of b32.yaml and RN50, and ViT-B's trunk with the MS-CLIP text tower.
+A CUDA tensor of another width raises; the plain versions take any E.
+
 Parameters are a block's tensors under the port's local names
 (``layers.block_params``), linear weights ``[out, in]``; K5 reads rows
 ``[0, E)``, ``[E, 2E)`` and ``[2E, 3E)`` of ``attn.in_proj_weight`` for q, k
@@ -31,7 +35,10 @@ import torch
 from . import cuda_build
 
 SOURCE = "block_fused.cu"
-WIDTH = 768      # the kernels' one width: ViT-B's trunk and B/32's text tower
+# the widths the kernels are built for (block_fused.cu's dispatch): the
+# 512-wide text towers of b32.yaml and RN50, and 768 (ViT-B's trunk and the
+# MS-CLIP text tower); no config of the repo has another
+WIDTHS = (512, 768)
 HEAD_DIM = 64
 MAX_SEQ = 256
 # K5's group limits, as the source has them (kGroupRows, kWgRows and
@@ -77,26 +84,28 @@ def group_samples(B: int, L: int, dtype: torch.dtype,
     return s
 
 
-def slot_elems(S: int, L: int, dtype: torch.dtype) -> int:
-    """Workspace elements of a K5 or E1 block at ``S`` samples a group: h
-    and ctx ``[S L, 768]``, and q/k/v ``[S L, 192]`` in fp32 (the least
-    the source's ``attn_slot_elems`` accepts)."""
-    return S * L * (2 * WIDTH + (0 if dtype == torch.bfloat16 else 3 * HEAD_DIM))
+def slot_elems(S: int, L: int, dtype: torch.dtype, E: int = 768) -> int:
+    """Workspace elements of a K5 or E1 block at ``S`` samples a group and
+    width ``E``: h and ctx ``[S L, E]``, and q/k/v ``[S L, 192]`` in fp32
+    (the least the source's ``attn_slot_elems`` accepts)."""
+    return S * L * (2 * E + (0 if dtype == torch.bfloat16 else 3 * HEAD_DIM))
 
 
-def attn_plan(B: int, L: int, dtype: torch.dtype, sms: int) -> dict:
-    """K5's launch plan on a card of ``sms`` SMs: samples per group ``S``,
-    ``groups``, workspace ``slots`` (one per block that can be resident,
-    at most two an SM and one a group) and ``slot`` elements of each
-    (:func:`slot_elems`). Block ``i`` of the grid takes groups ``i,
-    i + grid, ...`` and slot ``i``."""
+def attn_plan(B: int, L: int, dtype: torch.dtype, sms: int,
+              E: int = 768) -> dict:
+    """K5's launch plan on a card of ``sms`` SMs at width ``E``: samples
+    per group ``S``, ``groups``, workspace ``slots`` (one per block that
+    can be resident, at most two an SM and one a group) and ``slot``
+    elements of each (:func:`slot_elems`). Block ``i`` of the grid takes
+    groups ``i, i + grid, ...`` and slot ``i``. The groups do not depend
+    on ``E``: a group's rows and padded attention rows are the limits."""
     S = group_samples(B, L, dtype, sms)
     groups = -(-B // S)
     return {"S": S, "groups": groups, "slots": max(1, min(groups, 2 * sms)),
-            "slot": slot_elems(S, L, dtype)}
+            "slot": slot_elems(S, L, dtype, E)}
 
 
-def mlp_plan(rows: int, dtype: torch.dtype, sms: int) -> dict:
+def mlp_plan(rows: int, dtype: torch.dtype, sms: int, E: int = 768) -> dict:
     """K6's launch plan over ``rows`` token rows on a card of ``sms`` SMs.
 
     bf16: ``big`` groups of 256 rows first, as many whole rounds of one a
@@ -106,9 +115,9 @@ def mlp_plan(rows: int, dtype: torch.dtype, sms: int) -> dict:
     ...``: the busiest block takes ``ceil(ceil(rows / 128) / sms)`` units of
     128 rows, as few as any walk of whole m-tile pairs allows, and most
     rows sit in 256-row groups, whose weight tiles serve twice the rows.
-    Each slot holds ``slot_rows`` rows of h (768) and of the hidden rows
-    (3072): 256 where there are big groups, else 128. fp32: tiles of 32
-    rows on at most two blocks an SM, slots of 32 x (768 + 128).
+    Each slot holds ``slot_rows`` rows of h (E) and of the hidden rows
+    (4E): 256 where there are big groups, else 128. fp32: tiles of 32
+    rows on at most two blocks an SM, slots of 32 x (E + 128).
     ``elems``: the workspace's elements of ``dtype``."""
     if dtype == torch.bfloat16:
         big = rows // (MLP_BIG_ROWS * sms) * sms
@@ -117,12 +126,12 @@ def mlp_plan(rows: int, dtype: torch.dtype, sms: int) -> dict:
         slot_rows = MLP_BIG_ROWS if big else MLP_SMALL_ROWS
         return {"big": big, "groups": groups, "slots": slots,
                 "slot_rows": slot_rows,
-                "elems": slots * slot_rows * 5 * WIDTH}
+                "elems": slots * slot_rows * 5 * E}
     groups = -(-rows // MLP_TILE_ROWS)
     slots = max(1, min(groups, 2 * sms))
     return {"big": 0, "groups": groups, "slots": slots,
             "slot_rows": MLP_TILE_ROWS,
-            "elems": slots * MLP_TILE_ROWS * (WIDTH + MLP_F_CHUNK)}
+            "elems": slots * MLP_TILE_ROWS * (E + MLP_F_CHUNK)}
 
 
 def layer_norm(x, weight, bias, eps=1e-12):
@@ -175,10 +184,10 @@ def _lib():
     lib = cuda_build.load(SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.msclip_attention_halfblock.argtypes = [ptr] * 10 + [
-        i64, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        i64, i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.msclip_attention_halfblock.restype = i32
     lib.msclip_mlp_halfblock.argtypes = [ptr] * 9 + [
-        i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.msclip_mlp_halfblock.restype = i32
     return lib
 
@@ -189,14 +198,16 @@ def _device_type(x):
     return x.device.type
 
 
-def _check_cuda_input(x, n_head=None, mask=None):
-    """Raise for what the kernels do not take."""
+def _check_cuda_input(x, n_head=None, mask=None, widths=WIDTHS):
+    """Raise for what the kernels do not take, ``widths`` the widths they
+    are built for; returns the width E."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"half-block kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if x.dim() != 3 or x.shape[-1] != WIDTH:
-        raise ValueError(f"half-block kernel takes x [B, L, {WIDTH}], got "
-                         f"{tuple(x.shape)}")
+    if x.dim() != 3 or x.shape[-1] not in widths:
+        raise ValueError(
+            f"half-block kernel takes x [B, L, E] with E one of {widths} "
+            f"(the widths it is built for), got {tuple(x.shape)}")
     B, L, E = x.shape
     if n_head is not None and E != n_head * HEAD_DIM:
         raise ValueError(f"half-block kernel takes heads of width {HEAD_DIM}, "
@@ -214,6 +225,7 @@ def _check_cuda_input(x, n_head=None, mask=None):
             f"mask must be a contiguous float32 [{L}, {L}] tensor on "
             f"{x.device}, got {mask.dtype} {tuple(mask.shape)} on "
             f"{mask.device}")
+    return E
 
 
 def _operands(x, p, weights, biases, shapes):
@@ -241,13 +253,13 @@ def fused_attention_halfblock(x: torch.Tensor, p, n_head: int,
                               eps: float = 1e-12) -> torch.Tensor:
     """``x + out_proj(MHA(LN1(x)))`` for ``x [B, L, E]`` and ``mask`` an
     additive fp32 ``[L, L]`` or None. CPU tensors take
-    :func:`attention_halfblock_plain`; CUDA tensors launch K5 (E = 768,
-    heads of 64, L <= 256), counted in
-    ``fused_attention_halfblock.launches``."""
+    :func:`attention_halfblock_plain`; CUDA tensors launch K5 (E in
+    :data:`WIDTHS`, heads of 64, L <= 256), counted in
+    ``fused_attention_halfblock.launches`` and, by width, in
+    ``fused_attention_halfblock.launches_by_width``."""
     if _device_type(x) == "cpu":
         return attention_halfblock_plain(x, p, n_head, mask, eps)
-    _check_cuda_input(x, n_head, mask)
-    E = WIDTH
+    E = _check_cuda_input(x, n_head, mask)
     ops = _operands(
         x, p, ["ln_1.weight", "ln_1.bias", "attn.in_proj_weight",
                "attn.out_proj.weight"],
@@ -259,7 +271,7 @@ def fused_attention_halfblock(x: torch.Tensor, p, n_head: int,
     lib = _lib()
     out = torch.empty_like(x)
     B, L, _ = x.shape
-    plan = attn_plan(B, L, x.dtype, sm_count(x.device))
+    plan = attn_plan(B, L, x.dtype, sm_count(x.device), E)
     ws = torch.empty(plan["slots"] * plan["slot"], dtype=x.dtype,
                      device=x.device)
     with torch.cuda.device(x.device):
@@ -267,27 +279,30 @@ def fused_attention_halfblock(x: torch.Tensor, p, n_head: int,
             x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_in.data_ptr(),
             b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), plan["slot"], plan["slots"], B, L, plan["S"], eps,
-            _DTYPE_CODE[x.dtype],
+            ws.data_ptr(), plan["slot"], plan["slots"], B, L, plan["S"], E,
+            eps, _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_attention_halfblock")
     fused_attention_halfblock.launches += 1
+    fused_attention_halfblock.launches_by_width[E] += 1
     return out
 
 
 fused_attention_halfblock.launches = 0
+fused_attention_halfblock.launches_by_width = dict.fromkeys(WIDTHS, 0)
 
 
 def fused_mlp_halfblock(x: torch.Tensor, p, eps: float = 1e-12
                         ) -> torch.Tensor:
     """``x + c_proj(QuickGELU(c_fc(LN2(x))))`` for ``x [B, L, E]``. CPU
     tensors take :func:`mlp_halfblock_plain`; CUDA tensors launch K6
-    (E = 768) on the plan of :func:`mlp_plan`, counted in
-    ``fused_mlp_halfblock.launches``."""
+    (E in :data:`WIDTHS`) on the plan of :func:`mlp_plan`, counted in
+    ``fused_mlp_halfblock.launches`` and, by width, in
+    ``fused_mlp_halfblock.launches_by_width``."""
     if _device_type(x) == "cpu":
         return mlp_halfblock_plain(x, p, eps)
-    _check_cuda_input(x)
-    E, F = WIDTH, 4 * WIDTH
+    E = _check_cuda_input(x)
+    F = 4 * E
     g, beta, w_fc, w_proj, b_fc, b_proj = _operands(
         x, p, ["ln_2.weight", "ln_2.bias", "mlp.c_fc.weight",
                "mlp.c_proj.weight"], ["mlp.c_fc.bias", "mlp.c_proj.bias"],
@@ -297,21 +312,23 @@ def fused_mlp_halfblock(x: torch.Tensor, p, eps: float = 1e-12
     lib = _lib()
     out = torch.empty_like(x)
     rows = x.shape[0] * x.shape[1]
-    plan = mlp_plan(rows, x.dtype, sm_count(x.device))
+    plan = mlp_plan(rows, x.dtype, sm_count(x.device), E)
     ws = torch.empty(plan["elems"], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.msclip_mlp_halfblock(
             x.data_ptr(), g.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
             b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
             out.data_ptr(), ws.data_ptr(), plan["slots"], plan["slot_rows"],
-            plan["big"], rows, eps, _DTYPE_CODE[x.dtype],
+            plan["big"], rows, E, eps, _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "msclip_mlp_halfblock")
     fused_mlp_halfblock.launches += 1
+    fused_mlp_halfblock.launches_by_width[E] += 1
     return out
 
 
 fused_mlp_halfblock.launches = 0
+fused_mlp_halfblock.launches_by_width = dict.fromkeys(WIDTHS, 0)
 
 
 def fused_block(x: torch.Tensor, p, n_head: int,

@@ -34,12 +34,12 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .block_fused import (_DTYPE_CODE, HEAD_DIM, WIDTH,
-                          _check_cuda_input, _device_type, _operands, _proj,
-                          group_samples, layer_norm, max_group, slot_elems,
-                          sm_count)
+from .block_fused import (_DTYPE_CODE, HEAD_DIM, _check_cuda_input,
+                          _device_type, _operands, _proj, group_samples,
+                          layer_norm, max_group, slot_elems, sm_count)
 
 SOURCE = "halfblock_tuning.cu"
+WIDTH = 768  # E1's and E2's one width (kE in halfblock.cuh): the tool's ViT-B
 VARIANTS = ("v0", "v1", "v2", "v3", "v2a", "v2c")
 # the kernel's numeric variant of each JAX body (``Variant`` in the source)
 _VARIANT_CODE = {"v0": 0, "v2": 0, "v3": 0, "v1": 1, "v2c": 2, "v2a": 3}
@@ -75,7 +75,7 @@ def workspace_elems(B: int, L: int, tb: int, dtype: torch.dtype,
     slice, of which there are ``B / tb``: E1's h and ctx ``[G L, E]`` (and
     q/k/v ``[G L, 3 D]`` in fp32), E2's ctx ``[G L, E]``."""
     G = tuning_group(L, tb, dtype)
-    return G, G * L * WIDTH if core_out else slot_elems(G, L, dtype)
+    return G, G * L * WIDTH if core_out else slot_elems(G, L, dtype, WIDTH)
 
 
 def _softmax_weights(s, dtype, reciprocal):
@@ -173,8 +173,8 @@ def _lib():
 
 def _check(x, tb, variant=None):
     """The device rule, the variant, ``tb`` and the width: ``(device type,
-    tb)``. The kernels take E = 768 (heads of 64) and 0 < L <= 256, as K5;
-    the plain versions any width in heads of 64."""
+    tb)``. The kernels take E = 768 (heads of 64; K5 also takes 512) and
+    0 < L <= 256; the plain versions any width in heads of 64."""
     device = _device_type(x)
     if variant is not None and variant not in _VARIANT_CODE:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
@@ -211,7 +211,7 @@ def attention_halfblock_variant(x: torch.Tensor, p, variant: str,
     device, tb = _check(x, tb, variant)
     if device == "cpu":
         return attention_halfblock_variant_plain(x, p, variant, eps)
-    _check_cuda_input(x)
+    _check_cuda_input(x, widths=(WIDTH,))
     g, beta, w_in, w_out, b_in, b_out = _operands(
         x, p, ["ln_1.weight", "ln_1.bias", "attn.in_proj_weight",
                "attn.out_proj.weight"],
@@ -251,7 +251,7 @@ def core_out_halfblock(x: torch.Tensor, qkv: torch.Tensor, p,
                          f"{tuple(qkv.shape)} on {qkv.device}")
     if device == "cpu":
         return core_out_plain(x, qkv, p)
-    _check_cuda_input(x)
+    _check_cuda_input(x, widths=(WIDTH,))
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("core_out kernel needs a contiguous, 16-byte "
                          "aligned qkv")

@@ -22,6 +22,7 @@ import os
 
 from ..config import get_default_config, update_config
 from ..eval.zero_shot import resolve_device
+from ..utils.platform import apply_platform_override
 
 
 def parse_args(argv=None):
@@ -33,9 +34,9 @@ def parse_args(argv=None):
     p.add_argument("--classify-prompts", default="",
                    help="prompt-set name (e.g. imagenet) to bake a "
                         "zero-shot classifier into the bundle")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=None,
                    help="torch device of the classifier build (default "
-                        "cuda)")
+                        "cuda; cpu under MSCLIP_PLATFORM=cpu)")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -58,7 +59,9 @@ def build_classifier(spec, params, prompts: str, device):
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     device = resolve_device(args.device)
     logging.basicConfig(level=logging.INFO)
     config = get_default_config()

@@ -21,6 +21,7 @@ from ..eval.linear_probe import extract_features
 from ..eval.zero_shot import load_eval_model, make_dataset, resolve_device
 from ..models.msclip import build_spec
 from ..utils.logging import create_logger
+from ..utils.platform import apply_platform_override
 
 
 def parse_args(argv=None):
@@ -31,14 +32,17 @@ def parse_args(argv=None):
     p.add_argument("--image-set", default="test", choices=["train", "test"],
                    help="dataset split to featurize (probe protocols need "
                         "both)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu under "
+                        "MSCLIP_PLATFORM=cpu)")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     device = resolve_device(args.device)
     config = get_default_config()
     update_config(config, args.ds)

@@ -43,6 +43,7 @@ from ..utils.comm import (
     shutdown,
 )
 from ..utils.logging import create_logger
+from ..utils.platform import apply_platform_override
 
 
 def run_finetune(config, device="cuda"):
@@ -127,15 +128,18 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Finetune a classifier head.")
     p.add_argument("--ds", required=True)
     p.add_argument("--model", required=True)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' for the plain "
-                        "versions of the kernels)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda, or cpu under "
+                        "MSCLIP_PLATFORM=cpu; 'cpu' for the plain versions "
+                        "of the kernels)")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     config = get_default_config()
     update_config(config, args.ds)
     update_config(config, args.model, opts=args.opts)

@@ -18,6 +18,7 @@ from ..config import get_default_config, update_config
 from ..eval.linear_probe import run_linear_probe
 from ..eval.zero_shot import make_dataset, resolve_device
 from ..utils.logging import create_logger
+from ..utils.platform import apply_platform_override
 
 
 def parse_args(argv=None):
@@ -29,14 +30,17 @@ def parse_args(argv=None):
                    help="CLIP-paper protocol: validation sweep over the "
                         "regularization constant before the final fit "
                         "(sklearn probe only)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; cpu under "
+                        "MSCLIP_PLATFORM=cpu)")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     device = resolve_device(args.device)
     config = get_default_config()
     update_config(config, args.ds)

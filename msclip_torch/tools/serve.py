@@ -32,6 +32,7 @@ import logging
 import numpy as np
 
 from ..eval.device import resolve_device
+from ..utils.platform import apply_platform_override
 
 
 def parse_args(argv=None):
@@ -47,8 +48,9 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="dynamic-batching window")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' runs the plain "
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda, or cpu under "
+                        "MSCLIP_PLATFORM=cpu; 'cpu' runs the plain "
                         "versions eagerly); live mode takes a comma-"
                         "separated list")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
@@ -84,7 +86,9 @@ def load_live(args, devices):
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     if bool(args.bundle) == bool(args.model):
         raise SystemExit("pass exactly one of --bundle or --model")
     devices = [resolve_device(d) for d in args.device.split(",")]

@@ -33,7 +33,8 @@ this process keeps between steps, its K1/K2 launches, each step's ms and
 the loss of every step run.
 ``TPU.MESH_MODEL > 1`` splits every transformer block over that many
 processes (tensor parallelism; each model group shares its rows).
-``MSCLIP_TRACE`` waits for ROADMAP M13 and raises.
+``MSCLIP_TRACE=<dir>`` writes a ``torch.profiler`` trace of steps 4-7 of
+the first epoch on rank 0 (``utils/summary.TraceWindow``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ from ..train.checkpoint import CheckpointManager, auto_resume, save_params
 from ..train.trainer import init_train_state, make_train_step_from_config
 from ..utils.comm import comm, init_distributed, shutdown
 from ..utils.logging import create_logger
+from ..utils.platform import apply_platform_override
+from ..utils.summary import TraceWindow
 
 
 def _clone(params):
@@ -84,10 +87,6 @@ def train(config, device="cuda", out_dir=None):
     ``CUDNN.DETERMINISTIC`` sets ``torch.backends.cudnn.deterministic``
     for the run."""
     device = resolve_device(device)
-    if os.environ.get("MSCLIP_TRACE"):
-        raise NotImplementedError(
-            "MSCLIP_TRACE: the train loop's profiler trace is not ported "
-            "(ROADMAP M13); unset it")
     spec = build_spec(config)
     init_distributed(device)
     torch.backends.cudnn.deterministic = bool(config.CUDNN.DETERMINISTIC)
@@ -172,6 +171,10 @@ def train(config, device="cuda", out_dir=None):
         else:
             marks.append(time.perf_counter())
 
+    # MSCLIP_TRACE=<dir>: a torch.profiler trace of steps 4-7 of the first
+    # epoch (past the first steps' set-up), rank 0 only, as the JAX hook
+    trace = TraceWindow(os.environ.get("MSCLIP_TRACE") if comm.rank == 0
+                        else None, 3, 6, device, "train steps 4-7")
     t0 = time.time()
     mark()
     for epoch in range(begin_epoch, config.TRAIN.END_EPOCH):
@@ -188,11 +191,14 @@ def train(config, device="cuda", out_dir=None):
             epoch_step_fn = frozen_step_fn
         te = time.time()
         for i, b in enumerate(loader):
+            if epoch == begin_epoch:
+                trace.before(i)
             images = torch.from_numpy(b["image"]).to(device, non_blocking=True)
             tokens = torch.from_numpy(b["tokens"]).to(device, non_blocking=True)
             metrics = epoch_step_fn(state, images, tokens)
             losses.append(metrics["loss"])
             mark()
+            trace.after(i)
             seen += global_batch
             if (ckpt is not None and save_every
                     and state.step % save_every == 0
@@ -206,6 +212,7 @@ def train(config, device="cuda", out_dir=None):
                     f"Epoch[{epoch}] Step[{i + 1}/{steps_per_epoch}] loss "
                     f"{float(metrics['loss']):.4f} "
                     f"({seen / (time.time() - t0):.0f} samples/s)")
+        trace.close()  # a first epoch shorter than the window
         if swa_should_update(epoch, config):
             if swa is None:  # the first snapshot counts as one model
                 swa, swa_n = _clone(state.full_params()), 1
@@ -259,16 +266,19 @@ def parse_args(argv=None):
                     "several under torchrun).")
     parser.add_argument("--cfg", required=True,
                         help="model config (yaml or json)")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; 'cpu' for the "
-                             "plain versions of the kernels)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda, or cpu under "
+                             "MSCLIP_PLATFORM=cpu; 'cpu' for the plain "
+                             "versions of the kernels)")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="Modify config options using the command-line")
     return parser.parse_args(argv)
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     config = get_default_config()
     update_config(config, args.cfg, opts=args.opts)
     init_distributed(resolve_device(args.device))  # no card: raise

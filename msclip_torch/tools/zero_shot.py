@@ -20,6 +20,7 @@ from ..config import get_default_config, update_config
 from ..eval.zero_shot import resolve_device, run_zero_shot
 from ..utils.comm import comm, init_distributed, shutdown
 from ..utils.logging import create_logger
+from ..utils.platform import apply_platform_override
 
 
 def parse_args(argv=None):
@@ -29,16 +30,19 @@ def parse_args(argv=None):
                         help="Evaluation dataset configure file name.")
     parser.add_argument("--model", required=True,
                         help="Evaluation model configure file name")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; 'cpu' for the "
-                             "plain versions of the kernels)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda, or cpu under "
+                             "MSCLIP_PLATFORM=cpu; 'cpu' for the plain "
+                             "versions of the kernels)")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,
                         help="Modify config options using the command-line")
     return parser.parse_args(argv)
 
 
 def main(argv=None):
+    device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
+    args.device = args.device or device
     device = resolve_device(args.device)
     init_distributed(device)
     config = get_default_config()

@@ -25,6 +25,7 @@ from msclip_torch.models import layers as TL
 from msclip_torch.models import msclip as TM
 from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import cuda_build
+from msclip_torch.ops import halfblock_tuning as HT
 from msclip_torch.utils.convert import params_from_jax
 
 from reference_oracle import tiny_msclips_config
@@ -222,7 +223,8 @@ def test_group_limits_mirror_the_source():
     """The wrappers plan K5's and E1's groups and workspace with the
     source's limits, which the kernels check: the padded length of K1's
     ``padded_len`` (attn_core.cuh) at every L, the group limits of
-    halfblock.cuh, and the slice of ``attn_slot_elems`` and E1's
+    halfblock.cuh, the widths block_fused.cu dispatches (K5, K6) and E1's
+    and E2's one width, and the slice of ``attn_slot_elems`` and E1's
     ``variant_slot_elems``."""
     core, half = _source("attn_core.cuh"), _source("halfblock.cuh")
     body = re.search(r"constexpr int padded_len\(int L\) \{\s*return ([^;]*);",
@@ -231,15 +233,22 @@ def test_group_limits_mirror_the_source():
     last = int(body.rsplit(":", 1)[1])
     for L in range(1, 257):
         assert BF.padded_len(L) == next((p for at, p in steps if L <= at), last)
-    assert (_constant(half, "kE"), _constant(half, "kD")) == (BF.WIDTH, BF.HEAD_DIM)
+    assert (_constant(half, "kE"), _constant(half, "kD")) == (HT.WIDTH, BF.HEAD_DIM)
+    fused = _source("block_fused.cu")
+    assert BF.WIDTHS == (512, 768)
+    assert fused.count("(E != 512 && E != 768)") == 2  # K5's and K6's entry
+    assert fused.count("E == 512 ? dispatch_") == 2
     assert _constant(half, "kGroupRows") == BF.GROUP_ROWS
     assert _constant(half, "kWgRows") == BF.WGMMA_ROWS
     assert _constant(half, "kWgTileRows") == BF.TILE_ROWS
-    slot = "S * L * (2 * kE + (std::is_same<T, bf16>::value ? 0 : kQkv))"
-    assert slot in _source("block_fused.cu")
-    assert slot.replace("S * L", "G * L") in _source("halfblock_tuning.cu")
+    slot = "S * L * (2 * E + (std::is_same<T, bf16>::value ? 0 : kQkv))"
+    assert slot in fused
+    assert slot.replace("S * L", "G * L").replace("2 * E", "2 * kE") in \
+        _source("halfblock_tuning.cu")
     assert BF.slot_elems(3, 77, torch.bfloat16) == 3 * 77 * 2 * 768
     assert BF.slot_elems(1, 77, torch.float32) == 77 * (2 * 768 + 3 * 64)
+    assert BF.slot_elems(3, 77, torch.bfloat16, 512) == 3 * 77 * 2 * 512
+    assert BF.slot_elems(1, 77, torch.float32, 512) == 77 * (2 * 512 + 3 * 64)
 
 
 # token counts of the main paths and edges of K6's plan on 132 SMs: the
@@ -290,6 +299,13 @@ def test_mlp_plan_covers_every_row_once(sms):
         assert fp["groups"] == -(-rows // 32)
         assert fp["slots"] == min(fp["groups"], 2 * sms)
         assert fp["elems"] == fp["slots"] * 32 * (768 + 128)
+        # at E = 512 the same groups, slots of rows of 512 and 2048
+        at512 = BF.mlp_plan(rows, torch.bfloat16, sms, 512)
+        assert {k: at512[k] for k in ("big", "groups", "slots")} == \
+            {k: plan[k] for k in ("big", "groups", "slots")}
+        assert at512["elems"] == slots * plan["slot_rows"] * (512 + 2048)
+        assert BF.mlp_plan(rows, torch.float32, sms, 512)["elems"] == \
+            fp["slots"] * 32 * (512 + 128)
 
 
 def test_mlp_group_limits_mirror_the_source():
@@ -315,7 +331,7 @@ def test_mlp_group_limits_mirror_the_source():
             "if (slot_rows != kMlpRows || big != 0) return "
             "cudaErrorInvalidValue;"):
         assert line in src, line
-    assert "return (long long)kMlpRows * (kE + kFChunk);" in src
+    assert "return (long long)kMlpRows * (E + kFChunk);" in src
     # the walk's group count, from the Python groups
     for rows, sms in ((12_800, 132), (78_848, 132), (1, 7)):
         plan = BF.mlp_plan(rows, torch.bfloat16, sms)

@@ -334,12 +334,3 @@ def test_frozen_bn_epochs_and_anomaly_mode(tmp_path):
     assert all(torch.equal(after1[k], after0[k]) for k in stats_keys)
     swa = C.restore_params(str(tmp_path / "o" / "checkpoints" / "swa"))
     assert all(torch.equal(swa[k], after1[k]) for k in stats_keys)
-
-
-def test_train_refuses_the_unported_trace_hook(tmp_path, monkeypatch):
-    from msclip_torch.tools.train import train
-
-    monkeypatch.setenv("MSCLIP_TRACE", str(tmp_path / "trace"))
-    with pytest.raises(NotImplementedError, match="ROADMAP M13"):
-        train(_config(tmp_path), device="cpu")
-    assert not (tmp_path / "trace").exists()

@@ -530,13 +530,102 @@ def test_mlp_halfblock_kernel_groups(cuda, fill):
     assert mean <= 2.0 ** -10 * branch, (mean, branch)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [1, 17, 50, 65, 77, 129, 197, 256])
+def test_attention_halfblock_kernel_at_e512(cuda, dtype, causal, L):
+    """K5 at E = 512, 8 heads (the text towers of b32.yaml and RN50; its
+    out-projection in column tiles of 128), at the padding buckets of its
+    attention and an odd batch, to the E = 768 limits; counted by width."""
+    gen = torch.Generator(device=cuda).manual_seed(512 + L)
+    p = {k: v.to(dtype) for k, v in _block(512, gen, cuda).items()}
+    x = torch.randn(3, L, 512, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda) if causal else None
+    before = dict(BF.fused_attention_halfblock.launches_by_width)
+    got = BF.fused_attention_halfblock(x, p, 8, mask)
+    torch.cuda.synchronize()
+    assert BF.fused_attention_halfblock.launches_by_width == {
+        512: before[512] + 1, 768: before[768]}
+    _assert_half_close(got, BF.attention_halfblock_plain(x, p, 8, mask), x,
+                       dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(1024, 77), (256, 77), (131, 77)])
+def test_attention_halfblock_kernel_at_e512_text_batches(cuda, dtype, B, L):
+    """K5 at E = 512 at the text towers' batches (the classifier's chunk,
+    the zoo's batch, one group short of a round), causal, elementwise and
+    in bf16 at the mean limit."""
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    p = {k: v.to(dtype) for k, v in _block(512, gen, cuda).items()}
+    x = torch.randn(B, L, 512, device=cuda, generator=gen).to(dtype)
+    mask = build_causal_mask(L, device=cuda)
+    got = BF.fused_attention_halfblock(x, p, 8, mask)
+    torch.cuda.synchronize()
+    want = BF.attention_halfblock_plain(x, p, 8, mask)
+    _assert_half_close(got, want, x, dtype)
+    if dtype == torch.bfloat16:
+        mean = (got.float() - want.float()).abs().mean().item()
+        branch = (want.float() - x.float()).abs().mean().item()
+        assert mean <= 2.0 ** -10 * branch, (mean, branch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(1, 1), (3, 17), (5, 50), (3, 77), (2, 197),
+                                 (256, 77)])
+def test_mlp_halfblock_kernel_at_e512(cuda, dtype, B, L):
+    """K6 at E = 512 (F = 2048 in slabs of 128), ragged and whole row
+    groups, to the E = 768 limits; counted by width."""
+    gen = torch.Generator(device=cuda).manual_seed(B * L + 512)
+    p = {k: v.to(dtype) for k, v in _block(512, gen, cuda).items()}
+    x = torch.randn(B, L, 512, device=cuda, generator=gen).to(dtype)
+    before = dict(BF.fused_mlp_halfblock.launches_by_width)
+    got = BF.fused_mlp_halfblock(x, p)
+    torch.cuda.synchronize()
+    assert BF.fused_mlp_halfblock.launches_by_width == {
+        512: before[512] + 1, 768: before[768]}
+    _assert_half_close(got, BF.mlp_halfblock_plain(x, p), x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,lane_pack", [(256, 50, 2), (6, 40, 3),
+                                           (7, 17, 4), (256, 50, 1)])
+def test_attention_kernels_lane_packed(cuda, dtype, B, L, lane_pack):
+    """K1 (and K2 through autograd) on lane-packed rows against the
+    unpacked K1/K2 and the plain versions: the block-diagonal mask keeps
+    each row's softmax to its own keys. (7, 17, 4) shrinks to pack 1."""
+    gen = torch.Generator(device=cuda).manual_seed(B + L + lane_pack)
+    qkv = torch.randn(B, L, 3 * 768, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(B, L, 768, device=cuda, generator=gen).to(dtype)
+    outs, grads = [], []
+    for pack in (lane_pack, 1):
+        x = qkv.clone().requires_grad_(True)
+        before = (A.fused_attention_qkv.launches,
+                  A.fused_attention_qkv_bwd.launches)
+        out = A.fused_attention_qkv(x, 12, lane_pack=pack)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert (A.fused_attention_qkv.launches,
+                A.fused_attention_qkv_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+        outs.append(out.detach())
+        grads.append(x.grad)
+    _assert_fwd_close(outs[0], A.attention_qkv_plain(qkv, 12), dtype)
+    _assert_fwd_close(outs[0], outs[1], dtype)
+    _assert_bwd_close(grads[0], A.attention_qkv_bwd_plain(qkv, g, 12), dtype)
+    _assert_bwd_close(grads[0], grads[1], dtype)
+
+
 def test_halfblock_kernels_refuse_bad_inputs(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     p = _block(768, gen, cuda)
     x = torch.randn(2, 50, 768, device=cuda, generator=gen)
-    with pytest.raises(ValueError, match="x \\[B, L, 768\\]"):
-        BF.fused_attention_halfblock(torch.randn(2, 50, 512, device=cuda),
-                                     _block(512, gen, cuda), 8)
+    with pytest.raises(ValueError, match=r"E one of \(512, 768\)"):
+        BF.fused_attention_halfblock(torch.randn(2, 50, 640, device=cuda),
+                                     _block(640, gen, cuda), 10)
+    with pytest.raises(ValueError, match=r"E one of \(512, 768\)"):
+        BF.fused_mlp_halfblock(torch.randn(2, 50, 256, device=cuda),
+                               _block(256, gen, cuda))
     with pytest.raises(ValueError, match="heads of width 64"):
         BF.fused_attention_halfblock(x, p, 8)  # D = 96
     with pytest.raises(ValueError, match="L <= 256"):
@@ -672,7 +761,7 @@ def test_halfblock_tuning_kernels_refuse_bad_inputs(cuda):
     qkv = torch.randn(4, 50, 3 * 768, device=cuda, generator=gen)
     with pytest.raises(ValueError, match="tb"):
         HT.attention_halfblock_variant(x, p, "v2", 3)
-    with pytest.raises(ValueError, match="x \\[B, L, 768\\]"):
+    with pytest.raises(ValueError, match=r"E one of \(768,\)"):
         HT.attention_halfblock_variant(torch.randn(4, 50, 512, device=cuda),
                                        _block(512, gen, cuda), "v2")
     with pytest.raises(ValueError, match="L <= 256"):

@@ -244,37 +244,6 @@ def test_zoo_features_build_the_jax_spec(key, value):
 
 # b32.yaml, OpenAI CLIP's RN50 over it, and b32.yaml with a 512-wide
 # image tower
-K5_BASES = {"b32": "experiments/model/b32.yaml",
-            "rn50": "msclip_torch/config/rn50.json",
-            "b32_512": "experiments/model/b32.yaml"}
-
-
-@pytest.mark.parametrize("base,key,value,item", [
-    ("b32", "TPU.USE_FUSED_BLOCK", True, "Queue 2a.3"),
-    ("rn50", "TPU.USE_FUSED_BLOCK", True, "Queue 2a.3"),
-    ("b32_512", "TPU.USE_FUSED_BLOCK", True, "Queue 2a.3"),
-])
-def test_unported_features_are_rejected(base, key, value, item):
-    """What the port still refuses: K5 on a tower it does not take. Towers
-    of two widths (b32.yaml's 512-wide text tower) or a ResNet tower
-    (RN50) raise at spec time; towers of one width other than 768 build
-    (the CPU runs K5's plain version at any width) and the fused block
-    raises off the CPU."""
-    cfg = get_default_config()
-    update_config(cfg, os.path.join(REPO, K5_BASES[base]))
-    _set(cfg, key, value)
-    if base != "b32_512":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            TM.spec_from_config(cfg)
-        return
-    _set(cfg, "MODEL.SPEC.VISION.WIDTH", 512)
-    spec = TM.spec_from_config(cfg)
-    assert spec.use_fused_block and spec.vision_width == spec.text_width
-    x = torch.empty(2, 50, 512, device="meta")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TM._block_fn(spec)({}, x, 8, None)
-
-
 # TPU.MESH_MODEL 2 with each of these: the ones that need whole blocks
 TP_REFUSED = {"TPU.INT8_EVAL": "True", "TPU.USE_FUSED_BLOCK": "True",
               "CUSTOM.ADAPTER_FLAG": "True", "CUSTOM.LORA_ATTN_DIM": "4",
