@@ -89,7 +89,19 @@ Phases, each printed on its own line and each fatal on failure:
    JPEG + caption pairs (``DATASET.SAMPLER chunk``, one epoch of 4 steps)
    and one step on a 256-row TSV, fixtures it writes; K1 and K2 held to
    23 launches a step; samples/s end to end, peak memory and the host's
-   share of a step (against phase 6's resident step);
+   share of a step (against phase 6's resident step); then ``native``
+   (``run_native``): the native JPEG pipeline (``msclip_torch.native``)
+   built on this host through the link route it names (the run fails if
+   it does not build); its uint8 crops of 32 photo-sized JPEGs against
+   ``pil_eval_uint8`` within ``tests/test_native_pipeline.py``'s tolerance,
+   all served natively; B/32 bf16 zero-shot through ``run_zero_shot`` on
+   1,536 photos of 1024 x 768 by the native route, PIL and the native
+   route with the DCT scale, images/s each, K1 held to 11 x image batches
+   + 12 x text chunks; fp32 logits of 64 photos, native against PIL
+   within ``NATIVE_LOGIT_REL``, which channels reversed must fail; one
+   epoch of the shards with the native decode and with PIL (the fill and
+   steady step ms, every member decoded natively in the native run, K1
+   and K2 held to 23 a step);
 15. GradCache and REMAT: the fp32 ``ACCUM_STEPS 4`` gradients of every
    tensor against the one-shot step's on the card (frozen BN, TF32 off,
    batch 32) beside the fp32 noise floor; then bf16 at batch 1024 with
@@ -112,7 +124,7 @@ Phases, each printed on its own line and each fatal on failure:
    bucket; each replay against an eager call bit for bit, both timed (CUDA
    events, and device time from the profiler), with each graph's capture
    seconds, pool and launches; ``InferenceServer`` on 256 JPEGs of 96-320
-   px with 1 and 32 clients (512 requests each: requests/s, p50/p99, mean
+   px with 1 and 32 clients (256 requests each: requests/s, p50/p99, mean
    batch), every served embedding against an eager batch-1 call (least
    cosine > 0.999), and every other route; then a ``TPU.USE_FUSED_BLOCK``
    bundle (buckets 1/64) the same way against the unfused one, and a burst
@@ -160,8 +172,10 @@ Phases, each printed on its own line and each fatal on failure:
    ``ZOO_BWD_SHAPES``).
 
 Phase 1 also logs whether ``g++`` finds ``<jpeglib.h>`` and links
-``-ljpeg``, and the CUDA toolkit's ``<nvjpeg.h>`` and ``-lnvjpeg``
-(``jpeg_probe``; ROADMAP M14), without failing the run.
+``-ljpeg``, where Pillow's libjpeg-62 is and whether the port's vendored
+headers compile and link against it (the native pipeline's two routes),
+and the CUDA toolkit's ``<nvjpeg.h>`` and ``-lnvjpeg`` (``jpeg_probe``),
+without failing the run.
 
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16
@@ -192,6 +206,7 @@ printing any result.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import functools
 import json
 import math
@@ -201,6 +216,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -301,21 +317,32 @@ def device_and_packages():
 
 
 def jpeg_probe():
-    """Whether this host builds what the JAX package's native decoder needs
-    (ROADMAP M14): ``g++`` finding ``<jpeglib.h>`` and linking ``-ljpeg``;
-    and, for a decoder on the card instead, the CUDA toolkit's nvJPEG
-    (``<nvjpeg.h>``, ``-lnvjpeg``). Logged only; it never fails the run."""
+    """What this host offers a JPEG decoder, logged only (it never fails
+    the run; phase ``native`` builds and fails): ``g++`` finding the
+    system's ``<jpeglib.h>`` and linking ``-ljpeg``; the libjpeg-62 that
+    Pillow ships (its path) and whether the port's vendored headers
+    (``msclip_torch/native/include``) compile and link against it, the
+    native pipeline's second route; and, for a decoder on the card
+    instead, the CUDA toolkit's nvJPEG (``<nvjpeg.h>``, ``-lnvjpeg``)."""
+    from msclip_torch import native as N
+
     cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    jpeg_src = ("#include <cstdio>\n#include <jpeglib.h>\nint main() { "
+                "jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n")
     probes = {
-        "jpeglib": ("#include <cstdio>\n#include <jpeglib.h>\nint main() { "
-                    "jpeg_error_mgr e; jpeg_std_error(&e); return 0; }\n",
-                    [], ["-ljpeg"]),
+        "jpeglib": (jpeg_src, [], ["-ljpeg"]),
         "nvjpeg": ("#include <nvjpeg.h>\nint main() { nvjpegHandle_t h; "
                    "return (int)nvjpegCreateSimple(&h); }\n",
                    ["-I", os.path.join(cuda, "include")],
                    ["-L", os.path.join(cuda, "lib64"), "-lnvjpeg"]),
     }
-    found = {}
+    found = {"pillow_libjpeg": json.dumps(N.pillow_libjpeg())}
+    if N.pillow_libjpeg():
+        d = os.path.dirname(N.pillow_libjpeg())
+        probes["pillow"] = (jpeg_src, ["-I", N.INCLUDE_DIR],
+                            [f"-L{d}",
+                             f"-l:{os.path.basename(N.pillow_libjpeg())}",
+                             f"-Wl,-rpath,{d}"])
     try:
         with tempfile.TemporaryDirectory() as d:
             for name, (src, inc, libs) in probes.items():
@@ -603,8 +630,10 @@ def traced_turns():
 # with the fused int8 gate at 77 (K3/K4 in every block) against 96 (none)
 TUNING_PACK_SHAPE = (256, 50)
 TUNING_TEXT_CHUNK = 1024
-# calls of 140-270 ms a timing (at 30 the measurements took 307 s)
-TUNING_TEXT_ITERS = 6
+# calls of 140-270 ms a timing (at 30 the measurements took 307 s; 6 in
+# PR 15; 3 since PR 16, a depth cut for the time limit: the pair differs
+# by 2x)
+TUNING_TEXT_ITERS = 3
 
 
 def int8_text_quantizers():
@@ -751,7 +780,7 @@ def tuning_in_subprocess():
 # calls a timing of the fp32 turns (30 in the bf16 ones): the fp32 rows are
 # on no main path, and their calls of 1-30 ms took most of the traced
 # turns' time; a depth cut that keeps the script within its limit
-FP32_TURN_ITERS = 10
+FP32_TURN_ITERS = 5  # PR 15: 10; a depth cut for the time limit
 
 
 def turn_key(kind, B, L, dtype, causal=False, variant=None, E=768):
@@ -2778,6 +2807,303 @@ def run_train_data(tmp, resident, batch=256):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the native JPEG pipeline (after phase 14, on its shards)
+# ---------------------------------------------------------------------------
+
+# six batches of 256: the loader decodes a batch a thread (6 threads), so
+# fewer batches would leave cores idle
+NATIVE_IMAGES, NATIVE_CLASSES = 1536, 8
+NATIVE_LOGIT_IMAGES = 64  # the fp32 logit check's, in one batch
+NATIVE_PHOTO = (1024, 768)  # w, h: bench.py's photo-sized q90 JPEGs
+NATIVE_CROP_CHECK = 32
+# tests/test_native_pipeline.py's tolerance of the native pipeline against
+# PIL, in normalized units: the mean |difference| and its 99.9th percentile
+NATIVE_CROP_MEAN, NATIVE_CROP_Q999 = 0.02, 0.15
+# the native route's fp32 logits against the PIL route's, one batch: the
+# largest difference over the largest |logit| of the PIL route. A model of
+# random weights sees little of its image (features of two photos agree
+# to a cosine of 0.9996), below bf16's resolution: in bf16 the native and
+# PIL logits differ by 2-3 ulps and a planted fault by 2-5, so the bound
+# is held in fp32 (TF32 off), where the native route read 7.4e-6 and
+# channels reversed 2.3e-2 (full-width B/32 on the CPU, 32 photos; on
+# the card, 256 photos, 7.2e-6 and 3.3e-2)
+NATIVE_LOGIT_REL = 2.0 ** -10
+
+
+def write_photo_folder(root, n=NATIVE_IMAGES, classes=NATIVE_CLASSES,
+                       seed=0):
+    """An ImageFolder of ``n`` photo-sized JPEGs (``NATIVE_PHOTO`` at q90,
+    4:2:0, bilinear from a random 97 x 129 grid, as ``bench.py``'s) in
+    ``classes`` folders ``c0 ..``; returns ``root``."""
+    import io
+
+    from PIL import Image
+
+    seeds = np.random.SeedSequence(seed).spawn(n)
+
+    def one(i):
+        rng = np.random.default_rng(seeds[i])
+        small = rng.integers(0, 256, (97, 129, 3), np.uint8)
+        img = Image.fromarray(small, "RGB").resize(NATIVE_PHOTO,
+                                                   Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90)
+        path = os.path.join(root, f"c{i % classes}", f"{i:05d}.jpg")
+        with open(path, "wb") as f:
+            f.write(buf.getvalue())
+
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"c{c}"), exist_ok=True)
+    with cf.ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        list(pool.map(one, range(n)))
+    return root
+
+
+class FirstSamples:
+    """The first ``n`` samples of ``ds`` with its attributes (uint8 or not,
+    statistics, classes); ``reverse``: a planted fault, their channels
+    reversed (BGR)."""
+
+    def __init__(self, ds, n, reverse=False):
+        self.ds, self.n, self.reverse = ds, n, reverse
+        self.emits_uint8, self.mean, self.std = ds.emits_uint8, ds.mean, \
+            ds.std
+        self.classes, self.samples = ds.classes, ds.samples[:n]
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        img, label = self.ds[i]
+        return (np.ascontiguousarray(img[..., ::-1]) if self.reverse
+                else img), label
+
+
+def crop_reading(got_u8, want_u8):
+    """``(mean, 99.9th percentile)`` of the normalized difference of two
+    uint8 crops, the units of ``NATIVE_CROP_MEAN``/``Q999``."""
+    from msclip_torch.data.transforms import normalize_uint8
+
+    d = (normalize_uint8(torch.from_numpy(np.array(got_u8)))
+         - normalize_uint8(torch.from_numpy(np.array(want_u8)))).abs().numpy()
+    return float(d.mean()), float(np.quantile(d, 0.999))
+
+
+@contextlib.contextmanager
+def env(**values):
+    """``os.environ`` with ``values`` set (None: unset), restored after."""
+    kept = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in kept.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+NATIVE_ROUTES = {"native": {"MSCLIP_NATIVE_DECODE": "1",
+                            "MSCLIP_DCT_SCALE": None},
+                 "native_dct": {"MSCLIP_NATIVE_DECODE": "1",
+                                "MSCLIP_DCT_SCALE": "1"},
+                 "pil": {"MSCLIP_NATIVE_DECODE": None,
+                         "MSCLIP_DCT_SCALE": None}}
+
+
+def run_native(tmp, batch=256):
+    """The native JPEG pipeline (``msclip_torch.native``), run after phase
+    14 on its shards: (i) build the library on this host and name its
+    link route (the run fails if it does not build: the phase exists to
+    run the native route); (ii) its uint8 crops of ``NATIVE_CROP_CHECK``
+    photo-sized JPEGs against ``pil_eval_uint8`` within
+    ``tests/test_native_pipeline.py``'s tolerance, every one served
+    natively (the dataset's ``served`` counter), and channels reversed
+    caught; (iii) full-width B/32 zero-shot in bf16 through
+    ``run_zero_shot`` on an ImageFolder of ``NATIVE_IMAGES`` photo-sized
+    JPEGs (six batches) by three routes in turn: native, PIL, native with
+    the DCT scale; images/s of each, K1 held to 11 x image batches + 12 x
+    text chunks; then the fp32 logits of ``NATIVE_LOGIT_IMAGES`` of them,
+    native against PIL within ``NATIVE_LOGIT_REL`` of the largest, where
+    the native crops with their channels reversed (a planted fault) must
+    fail (bf16 cannot resolve what a model of random weights sees of its
+    image, so its readings are logged only); (iv)
+    one epoch of phase 14's shards (4 steps at batch 256) through
+    ``tools.train.train`` with the native decode and with PIL: the fill
+    and steady step times, every member decoded natively in the native
+    run, K1 and K2 held to 23 launches a step. Returns ``(K1, K2)``
+    launches of (iii) and (iv)."""
+    import glob
+
+    from msclip_torch import native as N
+    from msclip_torch.data.datasets import ImageFolderDataset, _load_image
+    from msclip_torch.data.transforms import pil_eval_uint8
+    from msclip_torch.eval.zero_shot import make_dataset, run_zero_shot
+    from msclip_torch.tools.train import train
+
+    # (i) build
+    start = time.time()
+    ok = N.native_available()
+    log("native_build", ok=ok, route=json.dumps(N.build_route()),
+        pillow_libjpeg=json.dumps(N.pillow_libjpeg()),
+        error=json.dumps(repr(N.build_error())[:300]),
+        seconds=round(time.time() - start, 2))
+    if not ok:
+        raise AssertionError(f"the native pipeline did not build: "
+                             f"{N.build_error()}")
+
+    # (ii) crops against PIL
+    start = time.time()
+    root = write_photo_folder(os.path.join(tmp, "photos", "val"),
+                              NATIVE_IMAGES)
+    log("native_fixtures", images=NATIVE_IMAGES, size=json.dumps(NATIVE_PHOTO),
+        seconds=round(time.time() - start, 1))
+    with env(MSCLIP_NATIVE_U8=None, MSCLIP_DCT_SCALE=None):
+        ds = ImageFolderDataset(root, native=True)
+        readings, faults, same = [], [], []
+        for i in range(NATIVE_CROP_CHECK):
+            got = ds[i][0]
+            want = pil_eval_uint8(_load_image(ds.samples[i][0]), 224)
+            readings.append(crop_reading(got, want))
+            faults.append(crop_reading(np.ascontiguousarray(got[..., ::-1]),
+                                       want))
+            same.append(float((got == want).mean()))
+    worst = tuple(max(r[k] for r in readings) for k in (0, 1))
+    caught = all(f[0] > NATIVE_CROP_MEAN or f[1] > NATIVE_CROP_Q999
+                 for f in faults)
+    log("native_crops", images=NATIVE_CROP_CHECK, served=json.dumps(ds.served),
+        worst_mean=worst[0], worst_q999=worst[1], mean_tol=NATIVE_CROP_MEAN,
+        q999_tol=NATIVE_CROP_Q999, equal_values=float(np.mean(same)),
+        fault_least_mean=min(f[0] for f in faults), fault_caught=caught)
+    if ds.served != {"native": NATIVE_CROP_CHECK, "pil": 0}:
+        raise AssertionError(f"native crops: served {ds.served}")
+    if not (worst[0] < NATIVE_CROP_MEAN and worst[1] < NATIVE_CROP_Q999
+            and caught):
+        raise AssertionError(f"native crops against PIL: {worst}, channels "
+                             f"reversed caught: {caught}")
+
+    # (iii) zero-shot by three routes in bf16, then the logits in fp32
+    def zs_config(pred, dtype):
+        cfg = transfer_config(
+            None, os.path.dirname(root), "DATASET.DATASET", "imagenet",
+            "DATASET.TEST_SET", "val", "TEST.BATCH_SIZE_PER_GPU", batch,
+            "TEST.SUBSET_CLASSES", NATIVE_CLASSES, "TEST.SAVE_PRED", pred,
+            dtype=dtype)
+        cfg.TEST.METRIC = "mean-per-class"  # a metric that saves logits
+        return cfg
+
+    def zero_shot(route, dtype, n=None, reverse=False):
+        pred = os.path.join(tmp, f"native_{route}_{dtype}.npz")
+        with env(MSCLIP_NATIVE_U8=None, **NATIVE_ROUTES[route]):
+            cfg = zs_config(pred, dtype)
+            dataset = make_dataset(cfg)
+            run = dataset if n is None else FirstSamples(dataset, n, reverse)
+            reset_launches()
+            _, stats = run_zero_shot(cfg, dataset=run, device="cuda")
+            torch.cuda.synchronize()
+        name = f"native zero-shot ({route}{', fault' if reverse else ''}, " \
+            f"{dtype})"
+        launches = k1_launches_held(name, A.fused_attention_qkv.launches,
+                                    stats["n_image_batches"],
+                                    stats["n_text_chunks"])
+        logits = np.load(pred)["logits"]
+        log("native_zero_shot", route=route, dtype=dtype, fault=reverse,
+            n_images=stats["n_images"], images_per_s=stats["images_per_sec"],
+            elapsed_s=stats["elapsed_s"], classifier_s=stats["classifier_s"],
+            image_batches=stats["n_image_batches"],
+            text_chunks=stats["n_text_chunks"], k1_launches=launches,
+            served=json.dumps(getattr(dataset, "served", None)))
+        if stats["n_images"] != (n or NATIVE_IMAGES) \
+                or not np.isfinite(logits).all():
+            raise AssertionError(f"{name}: {stats}")
+        if route.startswith("native") and dataset.served != {
+                "native": n or NATIVE_IMAGES, "pil": 0}:
+            raise AssertionError(f"{name}: served {dataset.served}")
+        return logits, launches
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    k1 = 0
+    bf16 = {}
+    for route in ("native", "pil", "native_dct"):
+        bf16[route], launches = zero_shot(route, "bfloat16")
+        k1 += launches
+    n = NATIVE_LOGIT_IMAGES
+    fp32 = {"native": zero_shot("native", "float32", n)[0],
+            "pil": zero_shot("pil", "float32", n)[0],
+            "fault": zero_shot("native", "float32", n, reverse=True)[0]}
+    readings = {"native": rel(fp32["native"], fp32["pil"]),
+                "fault": rel(fp32["fault"], fp32["pil"])}
+    log("native_logits", dtype="float32", images=n,
+        native_rel=readings["native"], fault_rel=readings["fault"],
+        bound=NATIVE_LOGIT_REL,
+        bf16_native_rel=rel(bf16["native"], bf16["pil"]),
+        bf16_native_dct_rel=rel(bf16["native_dct"], bf16["pil"]),
+        bf16_top1_agree=float((bf16["native"].argmax(-1)
+                               == bf16["pil"].argmax(-1)).mean()))
+    if not (readings["native"] <= NATIVE_LOGIT_REL < readings["fault"]):
+        raise AssertionError(f"native fp32 logits against PIL's: "
+                             f"{readings}, bound {NATIVE_LOGIT_REL}")
+
+    # (iv) train decode on phase 14's shards
+    shards = sorted(glob.glob(os.path.join(tmp, "shards", "*.tar")))
+    real_decode = N.decode_train
+    decoded, lock = [0], threading.Lock()
+
+    def counted(*args, **kw):
+        out = real_decode(*args, **kw)
+        with lock:
+            decoded[0] += out is not None
+        return out
+
+    total = [k1, 0]
+    for route in ("native", "pil"):
+        cfg = train_config("TRAIN.BATCH_SIZE_PER_GPU", batch,
+                           "TPU.COMPUTE_DTYPE", "bfloat16",
+                           "TRAIN.END_EPOCH", 1, "TPU.SEED", 0,
+                           "DATASET.TRAIN_SHARD_LIST", json.dumps(shards),
+                           "DATASET.SAMPLER", "chunk")
+        decoded[0] = 0
+        reset_launches()
+        A.fused_attention_qkv_bwd.launches = 0
+        N.decode_train = counted
+        try:
+            with env(**NATIVE_ROUTES[route]):
+                _, stats = train(cfg, device="cuda")
+                torch.cuda.synchronize()
+        finally:
+            N.decode_train = real_decode
+        steps = stats["steps"]
+        got = launches_held(f"native train ({route})", attention_launches(),
+                            B32_BLOCKS * steps, B32_BLOCKS * steps)
+        steady = stats["step_ms"][1:]
+        log("native_train", route=route, batch=batch, steps=steps,
+            losses=json.dumps(stats["losses"]),
+            samples_per_s=stats["samples_per_s"],
+            fill_step_ms=stats["step_ms"][0],
+            steady_step_ms=sum(steady) / len(steady) if steady else None,
+            each_step_ms=json.dumps(stats["step_ms"]),
+            native_decodes=decoded[0], k1_launches=got[0],
+            k2_launches=got[1])
+        want = len(shards) * PER_SHARD // batch
+        if steps != want or not all(map(math.isfinite, stats["losses"])):
+            raise AssertionError(f"native train ({route}): {steps} steps "
+                                 f"(expected {want}), {stats['losses']}")
+        if decoded[0] != (steps * batch if route == "native" else 0):
+            raise AssertionError(f"native train ({route}): {decoded[0]} "
+                                 f"native decodes for {steps * batch} "
+                                 "samples")
+        total = [total[0] + got[0], total[1] + got[1]]
+    return total
+
+
 def gradcache_card_check(batch=32, accum=4, grad_rel=1e-4, noise_room=4.0):
     """Phase 15 (i): full-width fp32 B/32 (TF32 off), frozen BN, no drop
     path, ``batch`` synthetic pairs: every gradient of ``ACCUM_STEPS
@@ -3446,7 +3772,9 @@ def run_distributed(tmp, slice_pred):
 # ---------------------------------------------------------------------------
 
 SERVE_JPEGS = 256
-SERVE_REQUESTS = 512
+# depth cut for the time limit (PR 15: 512): a window of 1 client at
+# ~55-85 requests/s takes seconds either way
+SERVE_REQUESTS = 256
 SERVE_CLIENTS = (1, 32)
 TRACED_REQUESTS = 256  # the 32-client window run again under torch.profiler
 FUSED_BURST = 128
@@ -3509,12 +3837,19 @@ def stream_ms(fn, n_inputs, stream, iters=30, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+# calls a device trace of a bucket (PR 12-15: 30; the profiler's
+# processing of 30 eager calls took 12-28 s a bucket): a depth cut for the
+# time limit
+SERVE_TRACED_CALLS = 10
+
+
 def graph_rows(served, label, profiled=(1, 64), eager_profiled=True):
     """Each tower and bucket of ``served``: the replay against an eager
     call of the same towers on the same padded batch, bit for bit (3
     inputs), then both timed by CUDA events (30 calls after 3). At the
-    ``profiled`` buckets also the device time of 30 replays from
-    torch.profiler (and of 30 eager calls with ``eager_profiled``), and the
+    ``profiled`` buckets also the device time of ``SERVE_TRACED_CALLS``
+    replays from torch.profiler (and of as many eager calls with
+    ``eager_profiled``), and the
     K1/K5 kernels that trace shows a replay, beside the launches the
     capture counted."""
     rows = []
@@ -3540,14 +3875,14 @@ def graph_rows(served, label, profiled=(1, 64), eager_profiled=True):
                 if b not in profiled or (name == "eager"
                                          and not eager_profiled):
                     continue
-                recs = device_records(call, 3, 30)
+                recs = device_records(call, 3, SERVE_TRACED_CALLS)
                 row[f"{name}_device_ms"] = (
-                    sum(us for _, us in recs.values()) / 30 / 1e3
-                    if recs else None)
+                    sum(us for _, us in recs.values())
+                    / SERVE_TRACED_CALLS / 1e3 if recs else None)
                 if name == "graph":
                     row["traced_per_replay"] = {
                         k: sum(n for key, (n, _) in recs.items()
-                               if kname in key) / 30
+                               if kname in key) / SERVE_TRACED_CALLS
                         for k, kname in TRACED_NAMES.items()} if recs \
                         else None
             row["graph_vs_eager"] = row["graph_ms"] / row["eager_ms"]
@@ -3736,7 +4071,7 @@ def run_serve():
     classifier (1,000 x 80) exported by the ``export_serving`` CLI on the
     card and loaded (a CUDA graph a tower and bucket); each graph against
     eager bit for bit and both timed; ``InferenceServer`` on 256 JPEGs of
-    96-320 px with 1 and 32 clients in another process (512 requests
+    96-320 px with 1 and 32 clients in another process (256 requests
     each), every served embedding against an eager batch-1 call on the
     same crop (least cosine > 0.999), the 32-client window again under
     torch.profiler for the device's busy share, and one request to each
@@ -4399,6 +4734,7 @@ def main():
         transfer_launches = timed("transfer", run_transfer, tmp)
         roots = {"cifar": os.path.join(tmp, "cifar")}
         data_launches = timed("train_data", run_train_data, tmp, resident)
+        native_launches = timed("native", run_native, tmp)
         gc_launches = timed("gradcache", run_gradcache, resident)
         resume_launches = timed("resume", run_resume, tmp, roots)
     serve = timed("serve", serve_in_subprocess)
@@ -4416,7 +4752,8 @@ def main():
     print(json.dumps({"kernels": [
         {**kernel_line(attn_rows, launches + train_launches[0]
                        + int8_launches[0] + transfer_launches
-                       + data_launches[0] + gc_launches[0]
+                       + data_launches[0] + native_launches[0]
+                       + gc_launches[0]
                        + resume_launches[0] + serve["k1"]
                        + dist_launches[0] + zoo_launches[0],
                        "attention_fwd", "msclip_tpu/ops/attention.py:243",
@@ -4425,7 +4762,7 @@ def main():
                        "B=256 L=50 E=768 H=12 bfloat16"),
          "serving_launches": serve["k1"]},
         kernel_line(bwd_rows, train_launches[1] + data_launches[1]
-                    + gc_launches[1] + resume_launches[1] + dist_launches[1]
+                    + native_launches[1] + gc_launches[1] + resume_launches[1] + dist_launches[1]
                     + zoo_launches[1],
                     "attention_bwd",
                     "msclip_tpu/ops/attention.py:146",

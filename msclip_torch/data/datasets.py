@@ -1,17 +1,21 @@
 """Eval datasets, the port of ``msclip_tpu/data/datasets.py``.
 
-``ImageFolderDataset`` (torchvision ``ImageFolder`` semantics, PIL decode),
-the reference's three custom datasets (``lib/evaluation/dataset.py``:
+``ImageFolderDataset`` (torchvision ``ImageFolder`` semantics, PIL decode,
+or the native C++ pipeline under ``MSCLIP_NATIVE_DECODE=1``), the
+reference's three custom datasets (``lib/evaluation/dataset.py``:
 ``Voc2007Classification`` :11-69, ``HatefulMemes`` :72-116, ``ChestXRay8``
 :119-179) with the same annotation parsing, and ``SyntheticImageDataset``.
-Each yields ``(np.float32 HWC image, label)``. The JAX package's native C++
-decoder (``MSCLIP_NATIVE_DECODE``) is not ported (ROADMAP M14).
+Each yields ``(np.float32 HWC image, label)``, but the native
+``ImageFolderDataset``, which yields uint8 crops (``emits_uint8``) unless
+``MSCLIP_NATIVE_U8=0``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import threading
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -58,18 +62,75 @@ def scan_image_folder(root: str, skip: Sequence[str] = ()):
 class ImageFolderDataset:
     """One subdirectory per class, classes sorted lexicographically, images
     sorted within class, decoded with PIL and passed through ``transform``
-    (default: the eval transform at 224 px with the ImageNet statistics)."""
+    (default: the eval transform at ``image_size`` with ``mean``/``std``).
 
-    def __init__(self, root: str, transform: Optional[Callable] = None):
+    ``native=True`` (by default when ``MSCLIP_NATIVE_DECODE=1`` and no
+    ``transform`` is given) decodes each JPEG with the C++ pipeline
+    (``msclip_torch.native``), which computes the default eval transform;
+    a file that is not a JPEG, or that the pipeline cannot decode, takes
+    the PIL path. The native path yields uint8 center crops
+    (``emits_uint8``), which the consumer normalizes on its device
+    (``transforms.dataset_normalizer``), unless ``MSCLIP_NATIVE_U8=0``
+    (fp32 normalized on the host); the PIL fallback then yields the same
+    dtype. ``MSCLIP_DCT_SCALE=1`` decodes at a reduced IDCT scale
+    (PIL-draft-like pixels, not the full decode's). ``served`` counts the
+    samples each path yielded (``{"native": n, "pil": m}``)."""
+
+    def __init__(self, root: str, transform: Optional[Callable] = None,
+                 native: Optional[bool] = None, image_size: int = 224,
+                 mean=None, std=None):
+        from .transforms import IMAGENET_MEAN, IMAGENET_STD
+
         self.root = root
-        self.transform = transform or pil_eval_transform
+        if native is None:
+            native = (transform is None
+                      and os.environ.get("MSCLIP_NATIVE_DECODE") == "1")
+        self.native = bool(native) and transform is None
+        self.image_size = image_size
+        self.mean = tuple(mean) if mean is not None else IMAGENET_MEAN
+        self.std = tuple(std) if std is not None else IMAGENET_STD
+        # the default transform (and the native path's fallback) takes the
+        # same geometry and statistics, so a mixed folder gives one shape
+        self.transform = transform or functools.partial(
+            pil_eval_transform, size=self.image_size, mean=self.mean,
+            std=self.std)
+        self.emits_uint8 = (self.native
+                            and os.environ.get("MSCLIP_NATIVE_U8") != "0")
         self.samples, self.classes = scan_image_folder(root)
+        self.served = {"native": 0, "pil": 0}
+        self._served_lock = threading.Lock()
 
     def __len__(self):
         return len(self.samples)
 
+    def _count(self, path: str):
+        with self._served_lock:
+            self.served[path] += 1
+
     def __getitem__(self, i):
         path, label = self.samples[i]
+        if self.native:
+            from .. import native as N
+
+            with open(path, "rb") as f:
+                data = f.read()
+            dct = os.environ.get("MSCLIP_DCT_SCALE") == "1"
+            if self.emits_uint8:
+                img = N.decode_eval_u8(data, self.image_size, dct_scale=dct)
+                if img is None:
+                    from .transforms import pil_eval_uint8
+
+                    self._count("pil")
+                    return pil_eval_uint8(_load_image(path),
+                                          self.image_size), label
+                self._count("native")
+                return img, label
+            img = N.decode_eval(data, self.image_size, self.mean, self.std,
+                                dct_scale=dct)
+            if img is not None:
+                self._count("native")
+                return img, label
+        self._count("pil")
         return self.transform(_load_image(path)), label
 
 

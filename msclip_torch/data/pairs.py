@@ -16,13 +16,17 @@ All yield ``(float32 HWC image, int32 [context_length] tokens)``.
 (RandomResizedCrop over ``AUG.SCALE``/``AUG.RATIO``, bilinear, flip,
 normalize), whose draws come from a thread-local stream of
 ``MSCLIP_SEED`` (:func:`_worker_rng`); a bare dataset takes the eval
-transform. The native JPEG decoder (``MSCLIP_NATIVE_DECODE=1``) is not
-ported (ROADMAP M14): the training transforms raise on it.
+transform. Under ``MSCLIP_NATIVE_DECODE=1`` JPEGs take the native C++
+pipeline (``msclip_torch.native.decode_train``: the same crop and flip
+semantics with bicubic resampling, seeded from the same stream), with
+``MSCLIP_DCT_SCALE=1`` at a reduced IDCT scale; anything else, and a JPEG
+the pipeline cannot decode, takes PIL.
 """
 
 from __future__ import annotations
 
 import functools
+import io
 import os
 import threading
 from typing import List, Optional
@@ -53,6 +57,53 @@ def _worker_rng() -> np.random.Generator:
     return rng
 
 
+def _native_train_decode(path: str, size, mean, std, scale, ratio, hflip_p,
+                         rng=None):
+    """The native training decode of the JPEG at ``path`` under
+    ``MSCLIP_NATIVE_DECODE=1`` (``msclip_tpu/data/pairs.py:56-88``).
+    Returns ``(image or None, bytes or None)``: None for the image where
+    the native path does not apply or fails, and then the bytes already
+    read, so that the PIL fallback does not read the file again. The
+    library and the extension are checked first, and the seed is drawn
+    (from ``rng``, else :func:`_worker_rng`) only for JPEG bytes."""
+    if os.environ.get("MSCLIP_NATIVE_DECODE") != "1":
+        return None, None
+    from .. import native as N
+
+    if not N.native_available():
+        return None, None
+    if not path.lower().endswith((".jpg", ".jpeg")):
+        return None, None
+    with open(path, "rb") as f:
+        data = f.read()
+    if not N.is_jpeg(data):
+        return None, data
+    seed = int((rng if rng is not None else _worker_rng()).integers(
+        1, 2 ** 63))
+    img = N.decode_train(
+        data, size, mean, std, seed=seed, scale=scale, ratio=ratio,
+        hflip_p=hflip_p, dct_scale=os.environ.get("MSCLIP_DCT_SCALE") == "1")
+    return img, data
+
+
+def open_tolerant(data: bytes):
+    """A PIL image of ``data`` that tolerates a truncated JPEG (as
+    ``datasets._load_image``; the native decoder rejects one, which is how
+    it reaches PIL), so that one bad file does not stop a run."""
+    from PIL import Image, ImageFile
+
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    return Image.open(io.BytesIO(data))
+
+
+def _image_of(transform, path):
+    """``transform`` applied to the image at ``path``: the path itself for
+    a transform that ``takes_path``, else the PIL image."""
+    if getattr(transform, "takes_path", False):
+        return transform(path)
+    return transform(_load_image(path))
+
+
 class TsvPairDataset:
     def __init__(self, tsv_paths: List[str], tokenizer: ClipTokenizer,
                  context_length: int = 77, transform=None):
@@ -77,7 +128,7 @@ class TsvPairDataset:
 
     def __getitem__(self, i):
         path, caption = self.entries[i]
-        image = self.transform(_load_image(path))
+        image = _image_of(self.transform, path)
         tokens = self.tokenizer([caption], self.context_length)[0]
         return image, tokens
 
@@ -105,7 +156,7 @@ class FolderPairDataset:
         img_path, txt_path = self.items[i]
         with open(txt_path) as f:
             caption = f.read().strip()
-        image = self.transform(_load_image(img_path))
+        image = _image_of(self.transform, img_path)
         tokens = self.tokenizer([caption], self.context_length)[0]
         return image, tokens
 
@@ -140,25 +191,33 @@ class SyntheticPairDataset:
 
 
 def make_train_transform(config, rng=None):
-    """PIL image -> fp32 array: RandomResizedCrop(``AUG.SCALE``,
-    ``AUG.RATIO``, bilinear) at ``TRAIN.IMAGE_SIZE`` + flip + normalize
-    with ``INPUT.MEAN``/``STD``. Draws from ``rng`` when given (a
-    ``numpy.random.Generator``; one thread), else from
-    :func:`_worker_rng`. Tar-shard members take it too (the JAX
-    package's ``make_shard_train_transform`` differs only in feeding the
-    native decoder bytes)."""
-    if os.environ.get("MSCLIP_NATIVE_DECODE") == "1":
-        raise NotImplementedError(
-            "MSCLIP_NATIVE_DECODE=1: the native image decoder is not ported "
-            "(ROADMAP M14); unset it to decode with PIL")
-    fn = functools.partial(
-        pil_train_transform, size=config.TRAIN.IMAGE_SIZE[0],
-        mean=tuple(config.INPUT.MEAN), std=tuple(config.INPUT.STD),
-        scale=tuple(config.AUG.SCALE), ratio=tuple(config.AUG.RATIO))
+    """The training transform: RandomResizedCrop(``AUG.SCALE``,
+    ``AUG.RATIO``) at ``TRAIN.IMAGE_SIZE`` + flip + normalize with
+    ``INPUT.MEAN``/``STD``. It takes a path (``takes_path``: the pair
+    datasets hand it theirs, so that the native pipeline decodes the raw
+    bytes under ``MSCLIP_NATIVE_DECODE=1``) or a PIL image (bilinear, in
+    PIL). Draws from ``rng`` when given (a ``numpy.random.Generator``; one
+    thread), else from :func:`_worker_rng`. Tar-shard members take
+    ``shards.make_shard_train_transform``, which feeds the native decoder
+    their bytes."""
+    size = config.TRAIN.IMAGE_SIZE[0]
+    mean, std = tuple(config.INPUT.MEAN), tuple(config.INPUT.STD)
+    scale, ratio = tuple(config.AUG.SCALE), tuple(config.AUG.RATIO)
+    fn = functools.partial(pil_train_transform, size=size, mean=mean,
+                           std=std, scale=scale, ratio=ratio)
 
-    def transform(image):
-        return fn(image, rng=rng if rng is not None else _worker_rng())
+    def transform(src):
+        draws = rng if rng is not None else _worker_rng()
+        if isinstance(src, str):
+            img, data = _native_train_decode(src, size, mean, std, scale,
+                                             ratio, 0.5, rng)
+            if img is not None:
+                return img
+            src = open_tolerant(data) if data is not None \
+                else _load_image(src)
+        return fn(src, rng=draws)
 
+    transform.takes_path = True
     return transform
 
 
@@ -169,10 +228,11 @@ def make_train_dataset(config, tokenizer: Optional[ClipTokenizer] = None):
     ctx = config.MODEL.SPEC.TEXT.get("CONTEXT_LENGTH", 77)
     shards = config.DATASET.get("TRAIN_SHARD_LIST", [])
     if shards:
-        from .shards import TarShardPairDataset
+        from .shards import TarShardPairDataset, make_shard_train_transform
 
-        return TarShardPairDataset(shards, tokenizer or ClipTokenizer(), ctx,
-                                   transform=make_train_transform(config))
+        return TarShardPairDataset(
+            shards, tokenizer or ClipTokenizer(), ctx,
+            transform=make_shard_train_transform(config))
     tsvs = config.DATASET.get("TRAIN_TSV_LIST", [])
     if tsvs:
         return TsvPairDataset(tsvs, tokenizer or ClipTokenizer(), ctx,

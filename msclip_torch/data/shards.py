@@ -11,7 +11,9 @@ loader's threads. The ``chunk`` sampler keeps reads sequential within a
 shard while shuffling the chunk order.
 
 Config: ``DATASET.TRAIN_SHARD_LIST`` (tar paths or globs), checked before
-``TRAIN_TSV_LIST``.
+``TRAIN_TSV_LIST``. The training transform of a member is
+:func:`make_shard_train_transform`, which takes its bytes (``takes_bytes``)
+and decodes JPEGs natively under ``MSCLIP_NATIVE_DECODE=1``.
 """
 
 from __future__ import annotations
@@ -122,10 +124,13 @@ class TarShardPairDataset:
         si = int(self.shard_of[i])
         caption = self._read(si, to_, ts_).decode(
             "utf-8", errors="replace").strip()
-        from PIL import Image
+        data = self._read(si, io_, is_)
+        if getattr(self.transform, "takes_bytes", False):
+            image = self.transform(data)
+        else:
+            from PIL import Image
 
-        image = self.transform(Image.open(io.BytesIO(self._read(si, io_,
-                                                                 is_))))
+            image = self.transform(Image.open(io.BytesIO(data)))
         tokens = self.tokenizer([caption], self.context_length)[0]
         return image, tokens
 
@@ -136,3 +141,34 @@ class TarShardPairDataset:
             except OSError:
                 pass
 
+
+def make_shard_train_transform(config):
+    """The training transform of a shard member's bytes (``takes_bytes``;
+    ``msclip_tpu/data/shards.py:165-200``): under
+    ``MSCLIP_NATIVE_DECODE=1`` the native RandomResizedCrop + flip +
+    normalize (``native.decode_train``, seeded from
+    :func:`.pairs._worker_rng`; ``MSCLIP_DCT_SCALE=1`` at a reduced IDCT
+    scale), else, and for bytes the pipeline cannot decode, PIL's
+    (``pairs.make_train_transform``'s, truncated JPEGs tolerated)."""
+    from .pairs import _worker_rng, make_train_transform, open_tolerant
+
+    size = config.TRAIN.IMAGE_SIZE[0]
+    mean, std = tuple(config.INPUT.MEAN), tuple(config.INPUT.STD)
+    scale, ratio = tuple(config.AUG.SCALE), tuple(config.AUG.RATIO)
+    pil_fn = make_train_transform(config)
+
+    def transform(data: bytes):
+        if os.environ.get("MSCLIP_NATIVE_DECODE") == "1":
+            from .. import native as N
+
+            seed = int(_worker_rng().integers(1, 2 ** 63))
+            img = N.decode_train(
+                data, size, mean, std, seed=seed, scale=scale, ratio=ratio,
+                hflip_p=0.5,
+                dct_scale=os.environ.get("MSCLIP_DCT_SCALE") == "1")
+            if img is not None:
+                return img
+        return pil_fn(open_tolerant(data))
+
+    transform.takes_bytes = True
+    return transform

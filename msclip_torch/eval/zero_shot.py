@@ -107,9 +107,8 @@ def make_dataset(config, transform=None, image_set: str = "test"):
     from ..data.probe_datasets import PROBE_DATASETS, build_probe_dataset
     from ..data.transforms import pil_eval_transform
 
-    # the JAX package's C++ decoder (msclip_tpu/native) serves ImageFolder
-    # trees under the default transform; the port has none, and a PIL
-    # decode in its place would be another pipeline than the one asked for
+    # the native C++ decoder (msclip_torch.native) serves ImageFolder trees
+    # under the default transform, at the config's size and statistics
     native = transform is None and os.environ.get("MSCLIP_NATIVE_DECODE") == "1"
     if transform is None:
         transform = functools.partial(
@@ -134,13 +133,13 @@ def make_dataset(config, transform=None, image_set: str = "test"):
             size=config.TEST.IMAGE_SIZE[0],
             n_classes=config.DATASET.get("NUM_CLASSES", 1000),
             seed=10_000 if image_set == "train" else 0)
-    if native:
-        raise NotImplementedError(
-            "MSCLIP_NATIVE_DECODE=1: the native image decoder is not ported "
-            "(ROADMAP M14); unset it to decode with PIL")
     folder = os.path.join(
         root, config.DATASET.TRAIN_SET if image_set == "train"
         else config.DATASET.TEST_SET)
+    if native:
+        return ImageFolderDataset(
+            folder, native=True, image_size=config.TEST.IMAGE_SIZE[0],
+            mean=tuple(config.INPUT.MEAN), std=tuple(config.INPUT.STD))
     return ImageFolderDataset(folder, transform=transform)
 
 

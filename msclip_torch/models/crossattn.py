@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import copy_to_group, group_size
 from . import layers as L
 from .stem import BNState
 
@@ -69,22 +70,35 @@ def init_residual_cross_block(prefix, dim, generator):
     return p
 
 
-def residual_cross_block(params, prefix, x, context, n_head, eps=1e-12):
+def residual_cross_block(params, prefix, x, context, n_head, eps=1e-12,
+                         tp=None):
     """``x`` attends to ``norm_context(context)``, then the MLP (reference
     ``:1071-1075``): q from ``ln_1(x)``, k and v from the normed context,
-    the three slices of the fused in-projection."""
+    the three slices of the fused in-projection. With a model group ``tp``
+    the block holds this process's heads and MLP columns, as a plain
+    block under tensor parallelism: the attention runs on its heads and
+    the out-projection and MLP sum over the group."""
     p = L.block_params(params, prefix)
-    query = L.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"], eps)
-    ctx = L.layer_norm(context, params[f"{prefix}.norm_context.weight"],
-                       params[f"{prefix}.norm_context.bias"], eps)
+    query = copy_to_group(L.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"],
+                                       eps), tp)
+    ctx = copy_to_group(L.layer_norm(
+        context, params[f"{prefix}.norm_context.weight"],
+        params[f"{prefix}.norm_context.bias"], eps), tp)
     w_q, w_k, w_v = p["attn.in_proj_weight"].chunk(3)
     b_q, b_k, b_v = p["attn.in_proj_bias"].chunk(3)
     out = L.softmax_attention(L.linear(query, w_q, b_q),
                               L.linear(ctx, w_k, b_k),
-                              L.linear(ctx, w_v, b_v), n_head)
-    x = x + L.linear(out, p["attn.out_proj.weight"], p["attn.out_proj.bias"])
+                              L.linear(ctx, w_v, b_v),
+                              n_head // group_size(tp))
+    if tp is None:
+        out = L.linear(out, p["attn.out_proj.weight"],
+                       p["attn.out_proj.bias"])
+    else:
+        out = L.row_split_linear(out, p["attn.out_proj.weight"],
+                                 p["attn.out_proj.bias"], tp)
+    x = x + out
     return x + L.mlp(p, L.layer_norm(x, p["ln_2.weight"], p["ln_2.bias"],
-                                     eps))
+                                     eps), tp=tp)
 
 
 # ---------------------------------------------------------------------------

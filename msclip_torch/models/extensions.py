@@ -24,6 +24,17 @@ plain torch (:func:`extended_attention`, the JAX function's einsums and
 softmax); a block whose attention no plug-in touches (the Gumbel branches
 alone, adapters, CvT before the block, a block the families skip) runs
 ``layers.attention``, the kernel K1 on the card.
+
+Under tensor parallelism (a model group ``tp``) every block holds this
+process's heads of the in- and out-projections and its columns of the
+MLP, as a plain block does (the Gumbel family's specific block too); the
+plug-ins' own tensors are whole on every process, as the JAX rule keeps
+them. Where a plug-in's arithmetic crosses the cut, activations move, not
+weights: LoRA's deltas of q, k and v are computed whole and cut to the
+process's heads, its output delta reads the context gathered whole;
+ConViT's positional attention and gates are cut to the process's heads;
+Container's convolution reads the values gathered whole, and its output
+is cut back (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +46,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import (
+    copy_to_group,
+    gather_from_group,
+    group_size,
+    scatter_to_group,
+)
 from . import layers as L
 from .stem import BNState
 
@@ -311,30 +328,34 @@ def convit_rel_indices(n_patches: int, device=None):
     return torch.from_numpy(rel.astype(np.float32)).to(device)
 
 
-def convit_blend(params, prefix, weights):
+def convit_blend(params, prefix, weights, tp=None):
     """Content attention ``[B, H, L, L]`` (fp32, post-softmax, ``L = 1 +
     N``) blended with the gated positional attention, rows renormalised
-    (reference ``convit_forward`` ``:493-514``)."""
+    (reference ``convit_forward`` ``:493-514``); with a model group ``tp``
+    ``weights`` holds this process's heads, and so do the positional
+    attention and the gates."""
     n = weights.shape[-1] - 1
     rel = convit_rel_indices(n, weights.device)
     pos = rel @ params[f"{prefix}.attn.convit_pos_proj.weight"].float().t() \
         + params[f"{prefix}.attn.convit_pos_proj.bias"].float()  # [N, N, H]
-    pos = F.pad(pos.softmax(dim=1).permute(2, 0, 1)[None], (1, 0, 1, 0))
-    gate = torch.sigmoid(
-        params[f"{prefix}.attn.convit_gating_param"].float())[None, :, None,
-                                                              None]
+    pos = scatter_to_group(pos.softmax(dim=1), tp, -1)
+    pos = F.pad(pos.permute(2, 0, 1)[None], (1, 0, 1, 0))
+    gate = scatter_to_group(torch.sigmoid(
+        params[f"{prefix}.attn.convit_gating_param"].float()), tp,
+        0)[None, :, None, None]
     blended = (1.0 - gate) * weights + gate * pos
     return blended / blended.sum(dim=-1, keepdim=True)
 
 
 def extended_attention(blk, params, prefix, x, n_head, ext: ExtSpec, grid_hw,
-                       mask=None, bn: BNState | None = None):
+                       mask=None, bn: BNState | None = None, tp=None):
     """Attention with the plug-ins of the block at ``prefix``, in the
     reference ``Attention_CUST.forward``'s order (``:592-755``): CvT on
     q/k/v, the three projections, LoRA, the scores and softmax, ConViT's
     blend, the context, Container's mix, LoRA on the output, the output
     projection. ``blk``: the block's local tensors
-    (``layers.block_params``)."""
+    (``layers.block_params``), with a model group ``tp`` this process's
+    heads of them (see the module's note)."""
     bn = bn or BNState()
     query = key = value = x
     for n in ("q", "k", "v"):
@@ -345,64 +366,85 @@ def extended_attention(blk, params, prefix, x, n_head, ext: ExtSpec, grid_hw,
             query, key, value = (t if n == "q" else query,
                                  t if n == "k" else key,
                                  t if n == "v" else value)
+    copies = {}  # one copy_to_group a distinct input
+
+    def copied(t):
+        if id(t) not in copies:
+            copies[id(t)] = copy_to_group(t, tp)
+        return copies[id(t)]
+
     w = blk["attn.in_proj_weight"].chunk(3)
     b = blk["attn.in_proj_bias"].chunk(3)
-    q = L.linear(query, w[0], b[0])
-    k = L.linear(key, w[1], b[1])
-    v = L.linear(value, w[2], b[2])
+    q, k, v = (L.linear(copied(t), w[i], b[i])
+               for i, t in enumerate((query, key, value)))
     lora = f"{prefix}.attn.q_proj_adapter1.weight" in params
     if lora:
         def moe(n):
             return params.get(f"{prefix}.attn.{n}_moe_adapter1.weight")
 
-        q = q + lora_delta(ext, params, f"{prefix}.attn.q", query, moe("q"))
-        v = v + lora_delta(ext, params, f"{prefix}.attn.v", query, moe("v"))
+        def delta(n, gate=None):
+            return scatter_to_group(lora_delta(
+                ext, params, f"{prefix}.attn.{n}", query, gate), tp, -1)
+
+        q = q + delta("q", moe("q"))
+        v = v + delta("v", moe("v"))
         if ext.lora_add_where in ("v1", "v2"):
-            k = k + lora_delta(ext, params, f"{prefix}.attn.k", query)
+            k = k + delta("k")
     blend = None
     if f"{prefix}.attn.convit_gating_param" in params:
         def blend(weights):
-            return convit_blend(params, prefix, weights)
-    out = L.softmax_attention(q, k, v, n_head, mask=mask, blend=blend)
+            return convit_blend(params, prefix, weights, tp)
+    out = L.softmax_attention(q, k, v, n_head // group_size(tp), mask=mask,
+                              blend=blend)
     if f"{prefix}.attn.container_gating" in params:
         conv = grid_dwconv_bn(params, f"{prefix}.attn.container_conv",
-                              v[:, 1:], grid_hw, bn, ext.container_stride,
-                              ext.container_pad)
-        conv = torch.cat([out[:, :1], conv], dim=1)
-        gate = torch.sigmoid(
-            params[f"{prefix}.attn.container_gating"].to(out.dtype))
+                              gather_from_group(v, tp)[:, 1:], grid_hw, bn,
+                              ext.container_stride, ext.container_pad)
+        conv = torch.cat([out[:, :1], scatter_to_group(conv, tp, -1)], dim=1)
+        gate = torch.sigmoid(copy_to_group(
+            params[f"{prefix}.attn.container_gating"], tp).to(out.dtype))
         out = gate * out + (1.0 - gate) * conv
     fc_delta = None
     if lora and ext.lora_add_where == "v2":
-        fc_delta = lora_delta(ext, params, f"{prefix}.attn.fc", out)
-    out = L.linear(out, blk["attn.out_proj.weight"], blk["attn.out_proj.bias"])
+        fc_delta = lora_delta(ext, params, f"{prefix}.attn.fc",
+                              gather_from_group(out, tp))
+    if tp is None:
+        out = L.linear(out, blk["attn.out_proj.weight"],
+                       blk["attn.out_proj.bias"])
+    else:
+        out = L.row_split_linear(out, blk["attn.out_proj.weight"],
+                                 blk["attn.out_proj.bias"], tp)
     return out if fc_delta is None else out + fc_delta
 
 
 def extended_block(blk, params, prefix, x, n_head, ext: ExtSpec, modality,
                    grid_hw, mask=None, eps=1e-12, bn: BNState | None = None,
-                   action=None, take_shared=True):
+                   action=None, take_shared=True, tp=None):
     """The residual block with the plug-ins of the block at ``prefix``,
     in the reference ``ResidualAttentionBlock.forward``'s order
     (``:941-1033``). ``blk``: the block's local tensors (a text block that
     shares the trunk's, resolved). ``action``: the block's Gumbel action
     ``[2]`` (``gumbel_action``), ``take_shared`` its hard choice, read on
     the host once a forward (the JAX function's ``where(a[0] > a[1],
-    ...)``, whose other branch's value and gradient are dropped)."""
+    ...)``, whose other branch's value and gradient are dropped). ``tp``:
+    the model group of tensor parallelism (see the module's note)."""
     bn = bn or BNState()
     plugins = any(f"{prefix}.{k}" in params for k in _ATTN_PLUGINS)
 
     def attend(p, t, with_plugins):
         if with_plugins:
             return extended_attention(p, params, prefix, t, n_head, ext,
-                                      grid_hw, mask, bn)
-        return L.attention(p, t, n_head, mask)
+                                      grid_hw, mask, bn, tp)
+        return L.attention(p, t, n_head, mask, tp=tp)
+
+    def mlp(p, t):
+        return L.mlp(p, L.layer_norm(t, p["ln_2.weight"], p["ln_2.bias"],
+                                     eps), tp=tp)
 
     def path(p, t, with_plugins):
         t = t + attend(p, L.layer_norm(t, p["ln_1.weight"], p["ln_1.bias"],
                                        eps), with_plugins)
-        return t + L.mlp(p, L.layer_norm(t, p["ln_2.weight"], p["ln_2.bias"],
-                                         eps))
+        return t + mlp(p, t)
 
     if ext.gumbel_select:
         specific = {k: params[f"{prefix}.specific_{k}"] for k in L.BLOCK_KEYS}
@@ -418,8 +460,7 @@ def extended_block(blk, params, prefix, x, n_head, ext: ExtSpec, modality,
         x = x + apply_adapter(params, f"{prefix}.adapter_attn", attend(
             blk, L.layer_norm(x, blk["ln_1.weight"], blk["ln_1.bias"], eps),
             plugins))
-        return x + apply_adapter(params, f"{prefix}.adapter_ffn", L.mlp(
-            blk, L.layer_norm(x, blk["ln_2.weight"], blk["ln_2.bias"], eps)))
+        return x + apply_adapter(params, f"{prefix}.adapter_ffn", mlp(blk, x))
 
     if modality == "visual" and f"{prefix}.cvt_dw.{_first_conv(ext)}" \
             in params:

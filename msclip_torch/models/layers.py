@@ -205,7 +205,7 @@ def block_linear(p, x, weight, bias):
     return linear(x, p[weight], p[bias])
 
 
-def _row_split_linear(x, weight, bias, tp):
+def row_split_linear(x, weight, bias, tp):
     """A row-split linear under tensor parallelism: this process's partial
     product, summed over the model group ``tp``, then the whole bias."""
     return reduce_from_group(linear(x, weight), tp) + bias.to(x.dtype)
@@ -217,7 +217,7 @@ def mlp(p, x, tp=None):
     if tp is not None:
         h = quick_gelu(linear(copy_to_group(x, tp), p["mlp.c_fc.weight"],
                               p["mlp.c_fc.bias"]))
-        return _row_split_linear(h, p["mlp.c_proj.weight"],
+        return row_split_linear(h, p["mlp.c_proj.weight"],
                                  p["mlp.c_proj.bias"], tp)
     h = quick_gelu(block_linear(p, x, "mlp.c_fc.weight", "mlp.c_fc.bias"))
     return block_linear(p, h, "mlp.c_proj.weight", "mlp.c_proj.bias")
@@ -233,7 +233,7 @@ def attention(p, x, n_head, mask=None, tp=None):
         qkv = linear(copy_to_group(x, tp), p["attn.in_proj_weight"],
                      p["attn.in_proj_bias"])
         out = fused_attention_qkv(qkv, n_head // group_size(tp), mask)
-        return _row_split_linear(out, p["attn.out_proj.weight"],
+        return row_split_linear(out, p["attn.out_proj.weight"],
                                  p["attn.out_proj.bias"], tp)
     qkv = block_linear(p, x, "attn.in_proj_weight", "attn.in_proj_bias")
     out = fused_attention_qkv(qkv, n_head, mask)

@@ -284,27 +284,6 @@ def _validate(config, custom: _KeyRecorder) -> None:
                                  f"parallelism (TPU.MESH_MODEL > 1): {why}")
 
 
-def _validate_tensor_parallel(config, spec: MSClipSpec) -> None:
-    """Tensor parallelism cuts every ``attn`` in-/out-projection and
-    ``mlp`` c_fc/c_proj to one process's part
-    (``parallel/mesh.split_for_model``), but only the plain blocks take the
-    model group and all-reduce; the plug-in blocks and the Perceiver
-    blocks read those tensors whole, so they are refused."""
-    if int(config.TPU.get("MESH_MODEL", 1)) <= 1:
-        return
-    found = [name for name, on in (
-        ("a model-zoo plug-in block (adapters, LoRA, CvT, ConViT, "
-         "Container, Gumbel)", spec.ext.any_active),
-        ("the Perceiver blocks", spec.perceiver_in_v or spec.perceiver_in_t))
-        if on]
-    if found:
-        raise ValueError(
-            f"{' and '.join(found)} cannot run with tensor parallelism "
-            "(TPU.MESH_MODEL > 1): they read the attention and MLP weights "
-            "whole, which tensor parallelism cuts to one process's heads "
-            "and columns (ROADMAP Queue 3)")
-
-
 def spec_from_config(config) -> MSClipSpec:
     """An MSClipSpec from a merged config tree, reading the keys of the
     reference factory (``get_clip_model`` ``:3182-3227``) as
@@ -391,7 +370,6 @@ def spec_from_config(config) -> MSClipSpec:
         remat=bool(config.TPU.get("REMAT", False)),
         ext=ext_spec_from_custom(custom),
     )
-    _validate_tensor_parallel(config, spec)
     unread = (set(config.CUSTOM.keys()) - custom.seen
               - _CUSTOM_KEYS_CONSUMED_ELSEWHERE)
     if unread:
@@ -669,7 +647,7 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
         if spec.perceiver_in_v and idx in spec.perceiver_layers:
             tokens = _perceiver(params, "visual.transformer", spec,
                                 spec.perceiver_layers.index(idx), tokens,
-                                spec.vision_heads)
+                                spec.vision_heads, tp)
         if spec.parallel and idx in spec.lateral_layers:
             parallel_x, tokens = _lateral(params, spec, idx, x, parallel_x,
                                           tokens, bn)
@@ -680,7 +658,8 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
                 spec.vision_heads, spec.ext, "visual", (g, g),
                 eps=spec.ln_eps, bn=bn,
                 action=None if action is None else action[idx],
-                take_shared=None if action is None else take_shared[idx])
+                take_shared=None if action is None else take_shared[idx],
+                tp=tp)
             continue
         keep = None
         if dropping:  # drawn here, in block order, for both branches
@@ -698,13 +677,13 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
     return L.l2_normalize(feats) if normalize else feats
 
 
-def _perceiver(params, trunk, spec: MSClipSpec, pi, x, n_head):
+def _perceiver(params, trunk, spec: MSClipSpec, pi, x, n_head, tp=None):
     """The Perceiver block ``pi``: ``x`` attends to the learned latents."""
     latent = params[f"{trunk}.perceiver_latent"].to(x.dtype).expand(
         x.shape[0], -1, -1)
     return X.residual_cross_block(
         params, f"{trunk}.perceiver_latent2ori_blocks.{pi}", x, latent,
-        n_head, spec.ln_eps)
+        n_head, spec.ln_eps, tp)
 
 
 def _lateral(params, spec: MSClipSpec, idx, x, parallel_x, tokens, bn):
@@ -758,7 +737,8 @@ def encode_text(params, spec: MSClipSpec, tokens, *, normalize=True,
     for i in range(spec.text_layers):
         if spec.perceiver_in_t and i in spec.perceiver_layers:
             x = _perceiver(params, "transformer", spec,
-                           spec.perceiver_layers.index(i), x, spec.text_heads)
+                           spec.perceiver_layers.index(i), x, spec.text_heads,
+                           tp)
         blk = resolve_text_block(params, spec, i)
         if spec.ext.block_has_any("text", i):
             x = extended_block(
@@ -766,7 +746,8 @@ def encode_text(params, spec: MSClipSpec, tokens, *, normalize=True,
                 spec.text_heads, spec.ext, "text", None, mask=mask,
                 eps=spec.ln_eps,
                 action=None if action is None else action[i],
-                take_shared=None if action is None else take_shared[i])
+                take_shared=None if action is None else take_shared[i],
+                tp=tp)
             continue
         x = block(blk, x, spec.text_heads, mask, tp=tp)
     if spec.pool_type == "linear":

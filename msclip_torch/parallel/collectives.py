@@ -23,11 +23,27 @@ With those, the mean of the processes' gradients is the gradient of the
 global loss (``tests/test_torch_multiproc.py`` holds it against one
 process fed the concatenated batch).
 
-Tensor parallelism adds Megatron's pair over the model group, whose
-processes share their rows and so seed the same loss:
-:func:`copy_to_group` in front of a column-split layer (its backward sums
-the processes' partial input gradients) and :func:`reduce_from_group`
-behind a row-split one (the forward sums the partial outputs).
+Tensor parallelism adds Megatron's functions over the model group, whose
+processes share their rows and so seed the same loss: a value every
+process holds whole (replicated) and a value each holds its part of
+(split: its heads, or its columns) meet through
+
+* :func:`copy_to_group`, in front of a column-split layer, and on any
+  replicated tensor that enters split arithmetic whole (the Container
+  gate): the forward passes it on, the backward sums the processes'
+  partial gradients;
+* :func:`reduce_from_group`, behind a row-split layer: the forward sums
+  the partial outputs;
+* :func:`scatter_to_group`: a replicated value cut to this process's part
+  (LoRA's delta of q, k or v; ConViT's positional attention of its heads);
+  the backward gathers the parts' gradients, so every process holds the
+  whole gradient;
+* :func:`gather_from_group`: the parts made whole (the context that
+  LoRA's output projection or Container's convolution reads whole); the
+  backward keeps this process's part of the (replicated) gradient.
+
+Each keeps the replicated tensors' gradients whole and the same on every
+process of the model group, so only the data group averages them.
 """
 
 from __future__ import annotations
@@ -188,3 +204,51 @@ def reduce_from_group(x, group):
     if group is None:
         return x
     return _ReduceFromGroup.apply(x, group)
+
+
+def _part(x, group, dim):
+    return x.chunk(group_size(group), dim=dim)[group_rank(group)]
+
+
+def _gather_dim(x, group, dim):
+    return gather_rows(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+class _ScatterToGroup(Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _part(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherFromGroup(Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _part(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+def scatter_to_group(x, group, dim: int = -1):
+    """This process's part of the replicated ``x``: its chunk of ``dim``
+    in group-rank order (the model rank's heads: ``mesh.tp_split``); the
+    backward gathers the chunks' gradients."""
+    if group is None:
+        return x
+    return _ScatterToGroup.apply(x, group, dim % x.ndim)
+
+
+def gather_from_group(x, group, dim: int = -1):
+    """Every process's part ``x`` concatenated along ``dim`` in group-rank
+    order; the backward keeps this process's chunk of the gradient, which
+    is whole and the same on every process downstream."""
+    if group is None:
+        return x
+    return _GatherFromGroup.apply(x, group, dim % x.ndim)

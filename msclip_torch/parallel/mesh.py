@@ -102,8 +102,12 @@ def jax_axes(key: str, ndim: int):
 
 
 def _jax_tp_dim(key: str, ndim: int):
-    """``_param_pspec`` in the JAX layout: the split dim, or None."""
-    parts = key.split(".")
+    """``_param_pspec`` in the JAX layout: the split dim, or None. The
+    Gumbel family's specific block (``<block>.specific_attn.*``,
+    ``.specific_mlp.*``) is a block under JAX's ``specific/attn`` and
+    ``specific/mlp``."""
+    parts = [p[len("specific_"):] if p.startswith("specific_") else p
+             for p in key.split(".")]
     if "attn" in parts:
         if key.endswith(("in_proj_weight", "in_proj_bias")):
             return 1 if ndim == 2 else 0  # qkv column split

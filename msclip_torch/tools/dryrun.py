@@ -1,7 +1,7 @@
 """Multi-process dry run of the train step, the port of
 ``__graft_entry__.dryrun_multichip``.
 
-    python -m msclip_torch.tools.dryrun --nproc N [--device cpu|cuda]
+    python -m msclip_torch.tools.dryrun --nproc N [--device cpu|cuda] [--zoo]
 
 Starts ``N`` processes with ``torchrun`` (gloo on the CPU, NCCL on the
 cards, one card a process) on a tiny MS-CLIP-S (width 128, 64-pixel
@@ -20,7 +20,12 @@ batch of ``4 N`` synthetic pairs, and checks in every process, fp32:
   replicated step;
 * ``tp`` (an even ``N``): the ``N/2 x 2`` (data x model) step, every
   block split over two processes, against the ``N x 1`` one (``2 x 2``
-  against ``4 x 1`` at ``--nproc 4``);
+  against ``4 x 1`` at ``--nproc 4``); with ``--zoo`` also ``tp_<family>``
+  for each of the model zoo's plug-in families and the Perceiver
+  (:data:`ZOO`, switched on over the same config), by the losses and the
+  first step's gradients (:func:`check_grads`: AdamW's first steps move a
+  parameter whose gradient is nought but rounding by up to the learning
+  rate, as the Gumbel logits at their constant ``GUMBEL_LR``);
 
 each over two steps, by the loss and the largest parameter difference.
 Rank 0 prints one ``DRYRUN`` line; the exit status is non-zero if a check
@@ -55,6 +60,27 @@ ROWS = 4  # per process
 BOUNDS = {"dp": (1e-5, 1e-5), "ring": (1e-5, 1e-5),
           "gradcache": (1e-4, 5e-5), "zero1": (1e-5, 1e-5),
           "fsdp": (1e-5, 1e-5), "tp": (1e-5, 1e-5)}
+
+
+# the model zoo's plug-in families and the Perceiver, each as overrides of
+# the tiny config (``tests/torch_zoo_configs.py``'s), for ``--zoo``
+ZOO = {
+    "adapter": ("CUSTOM.ADAPTER_FLAG", True, "CUSTOM.ADAPTER_ATTN_DIM", 16,
+                "CUSTOM.ADAPTER_LAYERS", [1, 3, 4]),
+    "lora": ("CUSTOM.LORA_ATTN_DIM", 8, "CUSTOM.LORA_ATTN_ALPHA", 16,
+             "CUSTOM.LORA_WHERE_ADD", "v2", "CUSTOM.LORA_MOE", 1,
+             "CUSTOM.LORA_MOE_ACT", "sigmoid", "CUSTOM.LORA_MOE_GROUP", 2),
+    "cvt": ("CUSTOM.CVT_IN_V", True, "CUSTOM.CVT_V_RES", True,
+            "CUSTOM.CVT_LAYERS", [2, 3]),
+    "cvt_inside": ("CUSTOM.CVT_IN_V", True, "CUSTOM.CVT_INSIDE", True,
+                   "CUSTOM.CVT_INSIDE_Q", True, "CUSTOM.CVT_INSIDE_V", True),
+    "convit": ("CUSTOM.CONVIT_IN_V", True, "CUSTOM.CONVIT_LAYERS", [1, 2]),
+    "container": ("CUSTOM.CONTAINER_IN_V", True),
+    "gumbel": ("CUSTOM.GUMBEL_SELECT", True),
+    "perceiver": ("CUSTOM.PERCEIVER_IN_V", True, "CUSTOM.PERCEIVER_IN_T",
+                  True, "CUSTOM.PERCEIVER_LAYER", [2, 4],
+                  "CUSTOM.PERCEIVER_N_LATENT", 3),
+}
 
 
 def tiny_config(*opts):
@@ -146,8 +172,31 @@ def check(name, got, want, failures):
     return {"loss_rel": loss_rel, "param_abs": param_diff}
 
 
-def worker(device) -> int:
-    """One process of the dry run (under ``torchrun``)."""
+# the zoo checks' gradient bound: each gradient within GRAD_TOL of the
+# larger of its tensor's largest value and the step's largest gradient
+# (tests/test_torch_tp_zoo.py's bound, fp32 sums in another order)
+GRAD_TOL = 1e-4
+
+
+def check_grads(name, got, want, failures):
+    """Hold ``got``'s losses (the ``tp`` rtol) and first-step gradients
+    (:data:`GRAD_TOL`) to ``want``'s; returns the readings."""
+    rtol, _ = BOUNDS["tp"]
+    loss_rel = max(abs(g - w) / max(abs(w), 1e-12)
+                   for g, w in zip(got["losses"], want["losses"]))
+    top = max(float(w.abs().max()) for w in want["grads"].values())
+    grad = max(float((got["grads"][k] - w).abs().max())
+               / max(float(w.abs().max()), top)
+               for k, w in want["grads"].items())
+    if not (loss_rel <= rtol and grad <= GRAD_TOL
+            and all(map(math.isfinite, got["losses"]))):
+        failures.append(name)
+    return {"loss_rel": loss_rel, "grad_rel": grad}
+
+
+def worker(device, zoo=False) -> int:
+    """One process of the dry run (under ``torchrun``); ``zoo``: the
+    ``tp_<family>`` checks too."""
     device = resolve_device(device)
     init_distributed(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,6 +232,17 @@ def worker(device) -> int:
         split = create_mesh(world // 2, 2)
         readings["tp"] = check(
             "tp", run("TPU.MESH_MODEL", 2, on=split), replicated, failures)
+        for name, opts in (ZOO.items() if zoo else ()):
+            family = init_params(build_spec(tiny_config(*opts)),
+                                 torch.Generator().manual_seed(0))
+
+            def run_family(*more, on=mesh):
+                return run_steps(tiny_config(*opts, *more), family, images,
+                                 tokens, on, device)
+
+            readings[f"tp_{name}"] = check_grads(
+                f"tp_{name}", run_family("TPU.MESH_MODEL", 2, on=split),
+                run_family(), failures)
     if comm.is_main_process():
         print("DRYRUN " + ("ok" if not failures else "FAILED "
                            + ",".join(failures))
@@ -201,13 +261,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(nproc: int, device: str, timeout: float = 900) -> int:
+def launch(nproc: int, device: str, timeout: float = 900,
+           zoo: bool = False) -> int:
     """Run the dry run's ``nproc`` processes under ``torchrun`` and wait
     for them; returns their exit status."""
     cmd = [sys.executable, "-m", "torch.distributed.run",
            "--nproc_per_node", str(nproc), "--master_addr", "localhost",
            "--master_port", str(free_port()), "-m",
-           "msclip_torch.tools.dryrun", "--device", device, "--worker"]
+           "msclip_torch.tools.dryrun", "--device", device, "--worker"] \
+        + (["--zoo"] if zoo else [])
     env = dict(os.environ)
     if device == "cpu":
         env.setdefault("OMP_NUM_THREADS", "1")
@@ -223,6 +285,9 @@ def parse_args(argv=None):
                    help="processes (one a card on CUDA)")
     p.add_argument("--device", default="cuda",
                    help="cuda (NCCL, default) or cpu (gloo)")
+    p.add_argument("--zoo", action="store_true",
+                   help="also check tensor parallelism through the model "
+                        "zoo's plug-in families and the Perceiver")
     p.add_argument("--worker", action="store_true",
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -231,9 +296,9 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     if args.worker:
-        sys.exit(worker(args.device))
+        sys.exit(worker(args.device, args.zoo))
     resolve_device(args.device)  # no card: raise before starting anything
-    sys.exit(launch(args.nproc, args.device))
+    sys.exit(launch(args.nproc, args.device, zoo=args.zoo))
 
 
 if __name__ == "__main__":

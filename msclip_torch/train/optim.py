@@ -11,8 +11,8 @@ them: clip -> AdamW -> LARC.
 
 Parameters are named by their reference keys. BatchNorm running statistics
 are buffers, never optimized (the JAX package's ``'state'`` label). The
-Gumbel architecture group waits for a later slice (ROADMAP M10); the model
-spec rejects its switch.
+Gumbel logits (``GUMBEL_SELECT``) are a group of their own, ``arch``, at
+``CUSTOM.GUMBEL_LR`` without weight decay (:func:`build_optimizer`).
 """
 
 from __future__ import annotations

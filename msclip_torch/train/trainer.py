@@ -26,7 +26,8 @@ every collective is in sight here. With ``TPU.MESH_MODEL > 1`` each
 process of a model group holds its part of every transformer block
 (Megatron's column and row splits, ``parallel/mesh.split_for_model``) and
 the blocks sum their partial outputs over the group
-(``layers.attention``, ``layers.mlp``).
+(``layers.attention``, ``layers.mlp``; the zoo's plug-in and Perceiver
+blocks too, ``models/extensions.py``, ``models/crossattn.py``).
 
 ``TPU.ACCUM_STEPS > 1`` takes the GradCache two-pass gradient
 (:func:`gradcache_backward`). DropPath draws from a generator derived from

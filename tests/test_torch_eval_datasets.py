@@ -164,18 +164,41 @@ def test_make_dataset_image_set_routing(tmp_path):
 
 
 def test_native_decode_raises(tmp_path, monkeypatch):
-    """MSCLIP_NATIVE_DECODE=1 asks for the JAX package's C++ decoder, which
-    is not ported: an ImageFolder eval raises and names the item, never
-    decoding through PIL in its place."""
+    """MSCLIP_NATIVE_DECODE=1 no longer raises: ``make_dataset`` gives the
+    ImageFolder eval the native pipeline at the config's size, which
+    serves its JPEG (uint8, normalized on the device), while a PNG, and
+    every file where the library is reported unavailable, takes PIL in the
+    same dtype."""
+    from msclip_torch import native as N
+    from msclip_torch.data.transforms import pil_eval_uint8
+
     save_image(str(tmp_path / "val" / "c" / "0.jpg"))
+    save_image(str(tmp_path / "val" / "c" / "1.png"), seed=1)
     cfg = _cfg()
     cfg.DATASET.DATASET = "imagenet"
     cfg.DATASET.ROOT = str(tmp_path)
     monkeypatch.setenv("MSCLIP_NATIVE_DECODE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP M14"):
-        make_dataset(cfg)
+    with monkeypatch.context() as m:
+        m.setattr(N, "_load", lambda: None)
+        ds = make_dataset(cfg)
+        assert ds.native and ds.emits_uint8 and ds.image_size == 32
+        imgs = [ds[i][0] for i in range(2)]
+        assert ds.served == {"native": 0, "pil": 2}
+    for img, path in zip(imgs, (ds.samples[0][0], ds.samples[1][0])):
+        assert img.dtype == np.uint8 and img.shape == (32, 32, 3)
+        np.testing.assert_array_equal(img, pil_eval_uint8(
+            PD._load_image(path), 32))
+    if not N.native_available():
+        pytest.skip(f"the native pipeline did not build: {N.build_error()}")
+    ds = make_dataset(cfg)
+    img = ds[0][0]
+    assert img.dtype == np.uint8 and img.shape == (32, 32, 3)
+    assert ds[1][0].dtype == np.uint8
+    assert ds.served == {"native": 1, "pil": 1}
     monkeypatch.delenv("MSCLIP_NATIVE_DECODE")
-    assert len(make_dataset(cfg)) == 1
+    ds = make_dataset(cfg)
+    assert not ds.native and ds[0][0].dtype == np.float32
+    assert ds.served == {"native": 0, "pil": 1}
 
 
 def test_karpathy_split_matches_jax(tmp_path):

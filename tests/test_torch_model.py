@@ -244,7 +244,8 @@ def test_zoo_features_build_the_jax_spec(key, value):
 
 # b32.yaml, OpenAI CLIP's RN50 over it, and b32.yaml with a 512-wide
 # image tower
-# TPU.MESH_MODEL 2 with each of these: the ones that need whole blocks
+# TPU.MESH_MODEL 2 with each of these: the two kernels that need whole
+# blocks are refused, the zoo's plug-in and Perceiver blocks take the split
 TP_REFUSED = {"TPU.INT8_EVAL": "True", "TPU.USE_FUSED_BLOCK": "True",
               "CUSTOM.ADAPTER_FLAG": "True", "CUSTOM.LORA_ATTN_DIM": "4",
               "CUSTOM.CVT_IN_V": "True", "CUSTOM.CONVIT_IN_V": "True",
@@ -256,15 +257,22 @@ TP_REFUSED = {"TPU.INT8_EVAL": "True", "TPU.USE_FUSED_BLOCK": "True",
 @pytest.mark.parametrize("key", list(TP_REFUSED))
 def test_tensor_parallelism_refuses_whole_block_kernels(key):
     """``TPU.MESH_MODEL > 1`` splits every block's heads over processes;
-    int8 eval, the fused half-blocks, the zoo's plug-in blocks and the
-    Perceiver blocks need whole blocks, so each raises, naming the
-    reason."""
+    int8 eval and the fused half-blocks need whole blocks in one launch,
+    so each raises, naming the reason (as in the JAX package); the zoo's
+    plug-in blocks and the Perceiver blocks run split
+    (``tests/test_torch_tp_zoo.py``), so their configs build the spec
+    they build without it."""
+    path = os.path.join(REPO, "experiments", "model", "b32-yfcc-msclips.yaml")
     cfg = get_default_config()
-    update_config(cfg, os.path.join(REPO, "experiments", "model",
-                                    "b32-yfcc-msclips.yaml"),
-                  opts=["TPU.MESH_MODEL", "2", key, TP_REFUSED[key]])
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        TM.spec_from_config(cfg)
+    update_config(cfg, path, opts=["TPU.MESH_MODEL", "2", key,
+                                   TP_REFUSED[key]])
+    if key.startswith("TPU."):
+        with pytest.raises(ValueError, match="tensor parallelism"):
+            TM.spec_from_config(cfg)
+        return
+    plain = get_default_config()
+    update_config(plain, path, opts=[key, TP_REFUSED[key]])
+    assert TM.spec_from_config(cfg) == TM.spec_from_config(plain)
 
 
 @pytest.mark.parametrize("key", ["TPU.SHARDED_LOSS", "TPU.RING_LOSS",

@@ -651,6 +651,73 @@ def test_int8_min_seq_moves_both_gates(int8_block_pair, monkeypatch,
     assert TL.int8_min_seq() == TL.INT8_MIN_SEQ == 96
 
 
+def test_int8_fused_block_under_a_causal_mask_matches_jax(int8_block_pair,
+                                                          monkeypatch):
+    """The fused int8 block under the text tower's causal mask at L = 77,
+    the card's gate (``MSCLIP_INT8_MIN_SEQ=77`` in both packages): the
+    port's fused form against JAX's ``transformer_block`` with its Pallas
+    quantizers in interpret mode, at ``BLOCK_TOL`` on every token row
+    whose QuickGELU codes the two quantizers agree on. On these inputs
+    they disagree on one code of one row: its quotient h / s is
+    83.4999958 exactly, the port's fp32 division gives 83.49999 and the
+    code 83, JAX's kernel inside the jitted block on XLA:CPU gives 84
+    (XLA may rewrite a division by a broadcast scale as a product with
+    its reciprocal, which lands on 83.5). A row off ``BLOCK_TOL`` must
+    differ by exactly one such code: a quotient next to a tie, and the
+    difference that code's column of c_proj. A fault under the mask
+    moves most rows, and at most 1% of the rows may be off."""
+    from msclip_tpu.ops import tuning
+
+    qb, tp, _ = int8_block_pair
+    rng = np.random.default_rng(770)
+    fused_calls, seen = [], []
+    real_block, real_gelu = TL.int8_block, TL.gelu_quant
+
+    def spy(*args):
+        fused_calls.append(1)
+        return real_block(*args)
+
+    def gelu_spy(mid):
+        out = real_gelu(mid)
+        seen.append((mid.clone(), *out))
+        return out
+
+    monkeypatch.setattr(TL, "int8_block", spy)
+    monkeypatch.setattr(TL, "gelu_quant", gelu_spy)
+    monkeypatch.setenv("MSCLIP_INT8_MIN_SEQ", "77")
+    tuning.get_tuning.cache_clear()
+    try:
+        assert tuning.get_tuning().int8_min_seq == TL.int8_min_seq() == 77
+        x = _np(rng, 2, 77, 128, scale=0.5)
+        want = jax.jit(lambda x: JL.transformer_block(
+            qb, x, 2, JL.build_causal_mask(77), 1e-12, use_pallas=True,
+            pallas_interpret=True))(jnp.asarray(x))
+        got = TL.transformer_block(tp, _t(x), 2, TL.build_causal_mask(77),
+                                   1e-12)
+    finally:
+        monkeypatch.delenv("MSCLIP_INT8_MIN_SEQ")
+        tuning.get_tuning.cache_clear()
+    assert fused_calls and len(seen) == 1
+    mid, q, s = seen[0]
+    got, want = got.numpy(), np.asarray(want)
+    close = np.isclose(got, want, **BLOCK_TOL).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    w = (tp["mlp.c_proj.weight_int8"].double()
+         * tp["mlp.c_proj.weight_scale"].double()[:, None])
+    for b, t in np.argwhere(~close):
+        # the row is one QuickGELU code off: a quotient of the fp32 GELU
+        # by its scale next to a tie, and the difference is that code's
+        # column of c_proj
+        h = mid[b, t] / (1.0 + torch.exp(-1.702 * mid[b, t]))
+        exact = h.double() / s[b, t].double()
+        near = torch.nonzero((exact.abs() % 1 - 0.5).abs() < 1e-6)[:, 0]
+        fits = [e for e in near.tolist() for sign in (1, -1)
+                if np.allclose(want[b, t] - got[b, t],
+                               sign * s[b, t].item() * w[:, e].numpy(),
+                               atol=BLOCK_TOL["atol"])]
+        assert len(fits) == 1, (b, t, near.tolist())
+
+
 
 def _tiny_b16_config():
     """Tiny MS-CLIP-S with B/16's strides (stem, branch, adapters) at

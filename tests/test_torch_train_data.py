@@ -324,15 +324,44 @@ def test_shard_index_cache_is_shared_with_jax(tmp_path, tokenizer, writer):
 
 
 def test_train_dataset_refuses_native_decode(pairs_on_disk, monkeypatch):
+    """MSCLIP_NATIVE_DECODE=1 no longer raises: the shard and TSV train
+    datasets decode their JPEGs with the native pipeline (fp32 crops of
+    TRAIN.IMAGE_SIZE, normalized; a seeded bicubic crop, which the PIL
+    transform's bilinear one does not reproduce), and with the library
+    reported unavailable they take PIL: the TSV's sample is then the PIL
+    transform's on the same stream of draws."""
+    import threading
+
+    from msclip_torch import native as N
+
+    def first_sample(native, available=True):
+        with monkeypatch.context() as m:
+            m.setattr(P, "_RNG_LOCAL", threading.local())
+            m.setattr(P, "_RNG_SS", np.random.SeedSequence(11))
+            if not available:
+                m.setattr(N, "_load", lambda: None)
+            if native:
+                m.setenv("MSCLIP_NATIVE_DECODE", "1")
+            else:
+                m.delenv("MSCLIP_NATIVE_DECODE", raising=False)
+            return P.make_train_dataset(cfg)[0][0]
+
     cfg = _train_cfg()
-    cfg.DATASET.TRAIN_SHARD_LIST = pairs_on_disk["shards"]
-    monkeypatch.setenv("MSCLIP_NATIVE_DECODE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP M14"):
-        P.make_train_dataset(cfg)
-    cfg.DATASET.TRAIN_SHARD_LIST = []
-    cfg.DATASET.TRAIN_TSV_LIST = [pairs_on_disk["tsv"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP M14"):
-        P.make_train_dataset(cfg)
+    for key, value in (("TRAIN_SHARD_LIST", pairs_on_disk["shards"]),
+                       ("TRAIN_TSV_LIST", [pairs_on_disk["tsv"]])):
+        cfg.DATASET.TRAIN_SHARD_LIST, cfg.DATASET.TRAIN_TSV_LIST = [], []
+        cfg.DATASET[key] = value
+        plain = first_sample(False)
+        fallback = first_sample(True, available=False)
+        assert fallback.shape == (32, 32, 3) and fallback.dtype == np.float32
+        if key == "TRAIN_TSV_LIST":  # no seed drawn without the library
+            np.testing.assert_array_equal(fallback, plain)
+        if N.native_available():
+            native = first_sample(True)
+            assert native.shape == (32, 32, 3) and native.dtype == np.float32
+            assert not np.array_equal(native, plain)
+    if not N.native_available():
+        pytest.skip(f"the native pipeline did not build: {N.build_error()}")
 
 
 def test_worker_rng_is_one_stream_per_thread():

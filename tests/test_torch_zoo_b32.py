@@ -201,36 +201,26 @@ def test_bundle_manifest_spec_round_trips(name):
     assert back == spec
 
 
-def _takes_model_group(spec, key):
-    """Is ``key`` in a block that ``encode_image``/``encode_text`` run
-    with the tensor-parallel model group (a plain transformer block)?"""
-    m = re.match(r"(visual\.)?transformer\.resblocks\.(\d+)\.", key)
-    return m is not None and not spec.ext.block_has_any(
-        "visual" if m.group(1) else "text", int(m.group(2)))
-
-
 @pytest.mark.parametrize("name", ["vit", "resnet"] + sorted(FAMILIES))
 def test_tensor_parallelism_builds_only_where_every_cut_block_takes_it(name):
     """``TPU.MESH_MODEL 2`` cuts every tensor ``param_dim`` names to one
-    process's part. A config builds with it only if each cut tensor lies
-    in a block that gets the model group and all-reduces; a config with a
-    cut tensor anywhere else is refused."""
+    process's part, and every block that holds one takes the model group
+    (the plain blocks, the plug-in blocks, the Gumbel specific blocks and
+    the Perceiver blocks; ``tests/test_torch_tp_zoo.py`` runs them): every
+    family builds the spec it builds without it. The cut tensors lie in
+    transformer blocks only."""
     cfg = {"vit": vit_config, "resnet": resnet_config}.get(
         name, functools.partial(family_config, name))()
     spec = TM.spec_from_config(cfg)
     params = TM.init_params(spec, torch.Generator().manual_seed(0))
-    elsewhere = sorted(k for k, v in params.items()
-                       if param_dim(k, tuple(v.shape)) is not None
-                       and not _takes_model_group(spec, k))
+    cut = sorted(k for k, v in params.items()
+                 if param_dim(k, tuple(v.shape)) is not None)
+    block = re.compile(r"((visual\.)?transformer\.(resblocks|"
+                       r"perceiver_latent2ori_blocks)\.\d+|"
+                       r"visual\.attnpool)\.")
+    assert all(block.match(k) for k in cut), cut
     cfg.TPU.MESH_MODEL = 2
-    if elsewhere:
-        with pytest.raises(ValueError, match="tensor parallelism"):
-            TM.spec_from_config(cfg)
-    else:
-        assert TM.spec_from_config(cfg) == spec
-    # the refused families are the plug-in blocks and the Perceiver
-    assert bool(elsewhere) == (spec.ext.any_active or spec.perceiver_in_v
-                               or spec.perceiver_in_t)
+    assert TM.spec_from_config(cfg) == spec
 
 
 @pytest.fixture(scope="module")
