@@ -1,7 +1,21 @@
 """Smoke run of the PyTorch/CUDA port (msclip_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every path and every check
+    python3 chip_smoke.py --measure      # also the re-measurements below
     python3 chip_smoke.py --zoo-faults   # phase 19's check on planted faults
+    python3 chip_smoke.py --serve-split  # live serving over two cards
+
+The default run drives every path and holds every kernel against its
+plain version. ``--measure`` adds the phases that only re-measure numbers
+PERF.md records: the in-turns ratios of K5, K6, E1, E2 and the hybrid
+against their yardsticks (``traced_turns``; without it phases 3 and 12
+time each of these kernels alone by CUDA events and leave the ratios
+out), the measurements behind ``ops/tuning.py``'s ``sm_90`` row
+(``tuning``) and the ``torch.compile`` yardsticks (``compile_baselines``).
+``--serve-split`` needs two cards: full-width B/32 served live over
+``cuda:0`` and ``cuda:1`` (``run_serve_split``), its features against one
+card's, K1 captured on each card, and the serve CLI split, on every
+visible card and on one card, each at 1 and 32 clients.
 
 Phases, each printed on its own line and each fatal on failure:
 
@@ -14,9 +28,10 @@ Phases, each printed on its own line and each fatal on failure:
    instructions an element (``cuobjdump -sass``); a bf16 instantiation of
    K1, K2, K5, K6, E1 or E2 that spills registers, wgmma that ptxas
    serializes in K1, K2, K5, K6, E1 or E2, or a bf16 K5/K6/E1/E2
-   instantiation without wgmma fails the run; then, in a fresh process,
-   the fp32 and bf16 turns of K5, K6, E1, E2 and the hybrid against their
-   yardsticks that phases 3 and 12 report (``traced_turns``: the profiler
+   instantiation without wgmma fails the run; then, with ``--measure``,
+   in a fresh process, the fp32 and bf16 turns of K5, K6, E1, E2 and the
+   hybrid against their yardsticks that phases 3 and 12 report
+   (``traced_turns``: the profiler
    traced none of them in a process that had run the other phases
    first), and in two more fresh processes the measurements that set
    ``ops/tuning.py``'s ``sm_90`` row (``measure_tuning``: K1 and K2 with
@@ -120,7 +135,8 @@ Phases, each printed on its own line and each fatal on failure:
    fixture, K1 counted in each;
 17. serve (in a process of its own, ``run_serve``): a B/32 bundle (bf16,
    BN folded, buckets 1/4/16/64, the ImageNet classifier of 1,000 x 80
-   prompts) exported and loaded on the card with a CUDA graph a tower and
+   prompts) exported by the ``export_serving`` CLI (run beside phase 16)
+   and loaded on the card with a CUDA graph a tower and
    bucket; each replay against an eager call bit for bit, both timed (CUDA
    events, and device time from the profiler), with each graph's capture
    seconds, pool and launches; ``InferenceServer`` on 256 JPEGs of 96-320
@@ -146,7 +162,9 @@ Phases, each printed on its own line and each fatal on failure:
    ``attention_launches``), samples/s, peak memory and bytes kept; then
    the zero-shot CLI under ``torchrun`` against phase 4's top-1 and every
    image's predicted class. The six CLI runs share one ``torchrun``
-   process (``dist_worker``);
+   process (``dist_worker``), started before phase 15 and run beside
+   phase 16 (which measures no time; phase 18's samples/s then share the
+   card, and every check holds its runs to references made alone);
 19. zoo (``run_zoo``): plain CLIP ViT-B/32 (``experiments/model/b32.yaml``,
    its text tower 512 wide with 8 heads) and OpenAI's RN50 geometry over
    it (``msclip_torch/config/rn50.json``): zero-shot on 512 synthetic
@@ -208,6 +226,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -299,8 +318,10 @@ def device_and_packages():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+        check=True).stdout.strip().splitlines()
+    for line in smi:  # one line a card
+        print(line, flush=True)
+    smi = smi[0]
     found = {}
     for mod in ("yaml", "regex", "PIL", "ftfy"):
         try:
@@ -470,11 +491,13 @@ def build_kernels():
     (C7510-C7515), or if a bf16 K5, K6, E1 or E2 instantiation holds no
     wgmma."""
     t0 = time.time()
-    spilled, serialized, no_wgmma = [], [], []
     sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE, HT.SOURCE)
-    with cf.ThreadPoolExecutor(len(sources)) as pool:
-        paths = list(pool.map(cuda_build.build, sources))
-    for source, path in zip(sources, paths):
+
+    def build_and_read(source):
+        """One source's build, then its ptxas report and SASS readings
+        (each source read as soon as it is built, beside the others)."""
+        path = cuda_build.build(source)
+        spilled, serialized, no_wgmma = [], [], []
         with open(path + ".log") as f:
             lines = f.read().splitlines()
         # per kernel: "Function properties for <mangled name>", then its
@@ -507,8 +530,18 @@ def build_kernels():
                          if n == 0 and any(r in k for r in WGMMA_REQUIRED)]
             if not any(any(r in k for r in WGMMA_REQUIRED) for k in wgmma):
                 no_wgmma.append(f"no bf16 K5/K6/E1/E2 kernel in {source}")
-        log("build", source=source, seconds=f"{time.time() - t0:.1f}",
+        return (report, extra, f"{time.time() - t0:.1f}",
+                (spilled, serialized, no_wgmma))
+
+    with cf.ThreadPoolExecutor(len(sources)) as pool:
+        results = list(pool.map(build_and_read, sources))
+    faults = [[], [], []]
+    for source, (report, extra, seconds, found) in zip(sources, results):
+        log("build", source=source, seconds=seconds,
             ptxas=json.dumps(report), **extra)
+        for kept, new in zip(faults, found):
+            kept += new
+    spilled, serialized, no_wgmma = faults
     if spilled or serialized or no_wgmma:
         raise AssertionError(f"build check: spills {spilled}; serialized wgmma "
                              f"{serialized}; bf16 K5/K6/E1/E2 without wgmma "
@@ -1695,12 +1728,15 @@ def check_halfblocks(traced):
     ones (:func:`half_check`), at E = 512 (8 heads) at the text shapes of
     b32.yaml and RN50 (``HALF_SHAPES_512``), and K5 untimed at the served
     shapes ``SERVE_HALF_SHAPES``. Times each
-    kernel, its plain version and the port's unfused half: for K5 the
-    turns of :func:`traced_turns` against ``layer_norm`` + ``linear`` + K1
-    + ``linear`` + residual, and the same with SDPA in K1's place; for K6
-    its turns against the unfused MLP half (cuBLAS GEMMs); at the image
-    shape in bf16 also ``torch.compile`` of the plain version. Logs, apart
-    from the measurements, the bytes K5's groups stage from the L2 as
+    kernel, its plain version and, for K5, the port's unfused half with
+    SDPA in K1's place. With ``traced`` (``--measure``) the kernel's time
+    is its turns of :func:`traced_turns`: K5 against ``layer_norm`` +
+    ``linear`` + K1 + ``linear`` + residual, K6 against the unfused MLP
+    half (cuBLAS GEMMs), with ``vs_unfused``; at the image shape in bf16
+    also ``torch.compile`` of the plain version. Without it (None) the
+    kernel is timed alone by CUDA events and the ratios are left out.
+    Logs, apart from the measurements, the bytes K5's groups stage from
+    the L2 as
     :func:`staged_l2_bytes` reckons them and K6's plan (``mlp_plan``).
     Rows at E = 512 go under ``attention_halfblock_e512`` and
     ``mlp_halfblock_e512``."""
@@ -1731,15 +1767,20 @@ def check_halfblocks(traced):
                    "plain_ms": cuda_ms(lambda i: plain(xs[i], *extra),
                                        n_inputs, iters=10),
                    "library_ms": None}
-            # K5 and the unfused half with K1, K6 and the unfused MLP
-            # half, in turns, by event and device time; vs_unfused from
-            # device times
-            row.update(traced[turn_key(
-                "k5" if name == "attention_halfblock" else "k6", B, L,
-                dtype, causal, E=E)])
+            if traced is None:  # event time alone, no ratio
+                row["ms"] = cuda_ms(lambda i: kernel(xs[i], *extra),
+                                    n_inputs)
+            else:
+                # K5 and the unfused half with K1, K6 and the unfused MLP
+                # half, in turns, by event and device time; vs_unfused
+                # from device times
+                row.update(traced[turn_key(
+                    "k5" if name == "attention_halfblock" else "k6", B, L,
+                    dtype, causal, E=E)])
             for key, fn in baselines.items():
                 row[key] = cuda_ms(fn, n_inputs)
-            if dtype == torch.bfloat16 and (B, L, E) == (256, 50, 768):
+            if traced is not None and dtype == torch.bfloat16 \
+                    and (B, L, E) == (256, 50, 768):
                 compiled_ms_later(row, name, plain, xs, extra, n_inputs)
             row["bound_ms"], row["bound_by"] = halfblock_bound(
                 name, B, L, dtype, mask, E)
@@ -2374,9 +2415,11 @@ def check_tuning(traced):
     faults of ``VARIANT_FAULTS`` and :func:`core_out_with_fault` read
     against the same check. E2's qkv is the hybrid's own (LayerNorm and
     the library GEMM of ``hybrid_b``). Times each plain version, and E2's
-    SDPA yardstick; the turns of :func:`traced_turns` give each kernel,
-    K5, the unfused half with K1, the whole hybrid and, for E2, K1 with
-    the out-projection."""
+    SDPA yardstick. With ``traced`` (``--measure``) the turns of
+    :func:`traced_turns` give each kernel, K5, the unfused half with K1,
+    the whole hybrid and, for E2, K1 with the out-projection; without it
+    (None) each kernel is timed alone by CUDA events and the ratios are
+    left out."""
     rows = {"attention_halfblock_variants": [], "core_out_halfblock": []}
     gen = torch.Generator(device="cuda").manual_seed(5)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2389,8 +2432,10 @@ def check_tuning(traced):
             tb = HT.default_tb(B, L, dtype, BF.sm_count(0))
             key = lambda kind, v=None: turn_key(  # noqa: E731
                 kind, B, L, dtype, variant=v)
-            k5 = traced[key("k5")]
-            base = {"k5_ms": k5["ms"], "k5_device_ms": k5["device_ms"]}
+            base = {}
+            if traced is not None:
+                k5 = traced[key("k5")]
+                base = {"k5_ms": k5["ms"], "k5_device_ms": k5["device_ms"]}
             plain = {v: HT.attention_halfblock_variant_plain(x, p, v)
                      for v in ("v2", "v1", "v2c", "v2a")}
             for variant in TUNING_VARIANTS:
@@ -2406,7 +2451,9 @@ def check_tuning(traced):
                            lambda i: HT.attention_halfblock_variant_plain(
                                xs[i], p, variant), n_inputs, iters=10),
                        "library_ms": None, **base,
-                       **traced[key("e1", variant)]}
+                       **(traced[key("e1", variant)] if traced is not None
+                          else {"ms": cuda_ms(j["e1"](variant),
+                                              n_inputs)})}
                 row["bound_ms"], row["bound_by"] = tuning_bound(
                     "v2a" if variant == "v2a" else "variant", B, L, dtype)
                 log("kernel", name="attention_halfblock_variants", **row,
@@ -2420,16 +2467,20 @@ def check_tuning(traced):
                         for f in CORE_OUT_FAULTS}, CORE_OUT_FAULTS, label)
             # E2 in turns with K1 + the out-projection, the whole hybrid in
             # turns with the unfused half
-            hybrid = traced[key("hybrid")]
+            if traced is None:
+                timed_e2 = {"ms": cuda_ms(j["e2"], n_inputs)}
+            else:
+                timed_e2 = {**traced[key("e2")],
+                            **{"hybrid_" + k: v
+                               for k, v in traced[key("hybrid")].items()
+                               if k != "turns_ms"}}
             row = {"B": B, "L": L, "tb": tb,
                    "dtype": str(dtype).replace("torch.", ""), **row,
                    "plain_ms": cuda_ms(lambda i: HT.core_out_plain(
                        xs[i], qkvs[i], p), n_inputs, iters=10),
                    "library_ms": None,
                    "sdpa_matmul_ms": cuda_ms(j["sdpa_matmul"], n_inputs),
-                   **base, **traced[key("e2")],
-                   **{"hybrid_" + k: v for k, v in hybrid.items()
-                      if k != "turns_ms"}}
+                   **base, **timed_e2}
             row["bound_ms"], row["bound_by"] = tuning_bound(
                 "core_out", B, L, dtype)
             log("kernel", name="core_out_halfblock", **row,
@@ -2613,8 +2664,10 @@ def run_transfer(tmp, device="cuda"):
         pred = os.path.join(tmp, f"{key}.npz")
         cfg = transfer_config(ds_yaml, roots[key], "TEST.SAVE_PRED", pred)
         reset_launches()
+        start = time.time()
         value, stats = run_zero_shot(cfg, device=device)
         sync(device)
+        seconds = time.time() - start
         launches = k1_launches_held(
             key, A.fused_attention_qkv.launches, stats["n_image_batches"],
             stats["n_text_chunks"])
@@ -2625,7 +2678,8 @@ def run_transfer(tmp, device="cuda"):
             images_per_s=stats["images_per_sec"],
             classifier_s=stats["classifier_s"],
             image_batches=stats["n_image_batches"],
-            text_chunks=stats["n_text_chunks"], k1_launches=launches)
+            text_chunks=stats["n_text_chunks"], k1_launches=launches,
+            seconds=round(seconds, 1))
         if stats["metric"] != metric or stats["n_images"] != TRANSFER_N:
             raise AssertionError(f"{key}: {stats}")
         if not (math.isfinite(value) and 0.0 <= value <= 100.0
@@ -2678,17 +2732,20 @@ def run_transfer(tmp, device="cuda"):
     del model
 
     # fp32 VOC logits of 16 images: the card (K1) against the CPU (plain)
-    logits = {}
+    logits, seconds = {}, {}
     for dev in (device, "cpu"):
+        start = time.time()
         pred = os.path.join(tmp, f"voc16_{dev}.npz")
         cfg = transfer_config("voc2007.yaml", roots["voc"], "TEST.SAVE_PRED",
                               pred, dtype="float32")
         run_zero_shot(cfg, dataset=Subset(make_dataset(cfg), range(16)),
                       device=dev)
         logits[dev] = np.load(pred)["logits"]
+        seconds[dev] = round(time.time() - start, 1)
     err = float(np.abs(logits[device] - logits["cpu"]).max())
     log("transfer_card_vs_cpu", dataset="voc2007classification",
-        dtype="float32", images=16, logits_err=err, atol=0.1)
+        dtype="float32", images=16, logits_err=err, atol=0.1,
+        seconds=json.dumps(seconds))
     if not (logits[device].shape == (16, 20) and err <= 0.1):
         raise AssertionError(f"fp32 VOC logits, card against CPU: {err}")
 
@@ -2836,8 +2893,6 @@ def write_photo_folder(root, n=NATIVE_IMAGES, classes=NATIVE_CLASSES,
     """An ImageFolder of ``n`` photo-sized JPEGs (``NATIVE_PHOTO`` at q90,
     4:2:0, bilinear from a random 97 x 129 grid, as ``bench.py``'s) in
     ``classes`` folders ``c0 ..``; returns ``root``."""
-    import io
-
     from PIL import Image
 
     seeds = np.random.SeedSequence(seed).spawn(n)
@@ -3258,37 +3313,40 @@ def run_gradcache(resident):
     return total
 
 
-RESUME_OPTS = ("TRAIN.BATCH_SIZE_PER_GPU", 32, "DATASET.NUM_SAMPLES", 160,
+RESUME_OPTS = ("TRAIN.BATCH_SIZE_PER_GPU", 32, "DATASET.NUM_SAMPLES", 128,
                "TRAIN.END_EPOCH", 2, "TRAIN.SAVE_EVERY_STEPS", 3,
                "TRAIN.EMA_DECAY", 0.999, "SWA.ENABLED", True,
                "SWA.BEGIN_EPOCH", 1, "TPU.COMPUTE_DTYPE", "bfloat16",
                "TPU.SEED", 0, "PRINT_FREQ", 1)
-# 2 epochs of 5 steps, killed mid-epoch (2 epochs of 8 and step 6 before
-# the zoo phase took the time)
-RESUME_STEPS, RESUME_AT = 10, 3
+# 2 epochs of 4 steps, killed mid-epoch (2 epochs of 8 and step 6 before
+# the zoo phase took the time; 2 of 5 until PR 17, a depth cut for the
+# time limit)
+RESUME_STEPS, RESUME_AT = 8, 3
 
 
 def run_resume(tmp, transfer_roots):
     """Phase 16: the train CLI at full width in bf16 (batch 32, synthetic,
-    5 steps an epoch, 2 epochs, ``SAVE_EVERY_STEPS 3``, EMA 0.999, SWA
+    4 steps an epoch, 2 epochs, ``SAVE_EVERY_STEPS 3``, EMA 0.999, SWA
     from epoch 1) as a subprocess, SIGKILLed once its step-3 checkpoint
     exists and rerun: it must resume at step 3, fast-forward 3 batches,
-    finish at step 10, and its losses from step 4 on lie within 4x of the
+    finish at step 8, and its losses from step 4 on lie within 4x of the
     largest gap between two uninterrupted runs (in this process,
     ``tools.train.train``; K1, K2 held). Then the EMA and SWA shadows
     through ``checkpoint_load`` into ``run_zero_shot`` (K1 held as in
-    phase 4), one exported by ``export_torch_checkpoint --ckpt`` and read
-    back to the same features bit for bit, and ``tools.finetune --device
-    cuda`` on phase 13's CIFAR-10 fixture with K1 counted."""
+    phase 4), one exported by ``export_torch_checkpoint --ckpt`` (its
+    ``main``, in this process) and read back to the same features bit for
+    bit, and ``tools.finetune --device cuda`` on phase 13's CIFAR-10
+    fixture with K1 counted."""
     from msclip_torch.eval.zero_shot import load_eval_model, run_zero_shot
     from msclip_torch.models.msclip import build_spec
-    from msclip_torch.tools import finetune
+    from msclip_torch.tools import export_torch_checkpoint, finetune
     from msclip_torch.tools.train import train
     from msclip_torch.train.checkpoint import EXTRA_FILE, CheckpointManager
 
     cfg = train_config(*RESUME_OPTS)
     total = [0, 0]
     full = []
+    t0 = time.time()
     for _ in range(2):
         reset_launches()
         A.fused_attention_qkv_bwd.launches = 0
@@ -3301,6 +3359,7 @@ def run_resume(tmp, transfer_roots):
                             B32_BLOCKS * RESUME_STEPS)
         total = [total[0] + got[0], total[1] + got[1]]
         full.append(stats["losses"])
+    log("resume_uninterrupted", runs=2, seconds=round(time.time() - t0, 1))
     out_dir = os.path.join(tmp, "resume")
     cmd = [sys.executable, "-u", "-m", "msclip_torch.tools.train", "--cfg",
            B32_CONFIG, "--device", "cuda", "OUTPUT_DIR", out_dir,
@@ -3369,13 +3428,13 @@ def run_resume(tmp, transfer_roots):
         if stats["n_images"] != 256 or not 0.0 <= value <= 100.0:
             raise AssertionError(f"{shadow} zero-shot: {value}, {stats}")
     exported = os.path.join(tmp, "ema.pth")
-    r = subprocess.run(
-        [sys.executable, "-m", "msclip_torch.tools.export_torch_checkpoint",
-         "--model", B32_CONFIG, "--ckpt", os.path.join(ck, "ema"),
-         "--out", exported, "--device", "cuda"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise AssertionError(f"export: rc {r.returncode}\n{r.stderr[-3000:]}")
+    t0 = time.time()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        export_torch_checkpoint.main([
+            "--model", B32_CONFIG, "--ckpt", os.path.join(ck, "ema"),
+            "--out", exported, "--device", "cuda"])
+    export_s = time.time() - t0
     # a check of the export, not a main-path run: its launches go uncounted
     images = torch.randn(64, 224, 224, 3, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(4))
@@ -3388,7 +3447,8 @@ def run_resume(tmp, transfer_roots):
                 images)
     torch.cuda.synchronize()
     same = torch.equal(*feats.values())
-    log("resume_export", tensors=r.stdout.strip(), same_features=same)
+    log("resume_export", tensors=printed.getvalue().strip(),
+        same_features=same, seconds=round(export_s, 1))
     if not same:
         raise AssertionError("features of the exported EMA shadow differ")
 
@@ -3479,19 +3539,27 @@ def dist_zero_shot_argv(ds, pred, out_dir):
             pred, "OUTPUT_DIR", out_dir]
 
 
-def dist_worker(tmp, ds, pred):
+def dist_worker(tmp, ds, pred, go):
     """Phase 18's process under ``torchrun``: the train CLI's ``main`` in
     each of :data:`DIST_MODES`, then the zero-shot CLI's, with the argv a
     user gives each on the command line, in one process group. Each
     ``main`` leaves the group as its last step; here the next one would
     re-join on the launcher's store, so the group is left once, at the
-    end (one process start-up, not six). Prints ``MODE <name>`` before and
-    ``SECONDS <s>`` after each run, around its ``RESULT`` line."""
+    end (one process start-up, not six). The process is started ahead
+    (:func:`start_dist_worker`): it imports, joins its group and then
+    waits for the file ``go`` before its first run. Prints ``MODE
+    <name>`` before and ``SECONDS <s>`` after each run, around its
+    ``RESULT`` line."""
     from msclip_torch.tools import train as train_cli
     from msclip_torch.tools import zero_shot as zero_shot_cli
     from msclip_torch.utils.comm import init_distributed, shutdown
 
     init_distributed("cuda")
+    deadline = time.time() + DIST_WAIT_S
+    while not os.path.exists(go):
+        if time.time() > deadline:
+            raise SystemExit(f"phase 18 worker: no {go} in {DIST_WAIT_S} s")
+        time.sleep(0.1)
     train_cli.shutdown = zero_shot_cli.shutdown = lambda: None
     runs = [(mode, train_cli.main,
              dist_train_argv(os.path.join(tmp, "dist", mode), opts))
@@ -3506,23 +3574,63 @@ def dist_worker(tmp, ds, pred):
     shutdown()
 
 
-def run_dist_worker(tmp, ds, pred, timeout=900):
-    """:func:`dist_worker` under ``torchrun --nproc_per_node 1`` on this
-    card: ``({mode: (result fields, seconds)}, process seconds)``."""
+DIST_WAIT_S = 1800  # the worker's longest wait for phase 18
+
+
+def start_dist_worker(tmp):
+    """Start :func:`dist_worker` under ``torchrun --nproc_per_node 1`` on
+    this card now, its output to files in ``tmp``: it imports, joins its
+    process group and waits for :func:`let_dist_worker_go`. Returns its
+    handle."""
     from msclip_torch.tools.dryrun import free_port
 
-    script = os.path.join(tmp, "dist_worker.py")
-    with open(script, "w") as f:
+    w = {name: os.path.join(tmp, name) for name in (
+        "dist_worker.py", "synthetic.yaml", "dist_zero_shot.npz", "dist_go",
+        "dist_worker.out", "dist_worker.err")}
+    with open(w["dist_worker.py"], "w") as f:
         f.write(DIST_WORKER)
+    # TEST.SAVE_PRED keeps logits for the logit metrics only (as the JAX
+    # package's file): under top-1 it holds every image's predicted class
+    with open(w["synthetic.yaml"], "w") as f:
+        f.write("DATASET:\n  DATASET: synthetic\n")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
            "1", "--master_addr", "localhost", "--master_port",
-           str(free_port()), script, REPO, tmp, ds, pred]
-    t0 = time.time()
-    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                       timeout=timeout)
-    seconds = time.time() - t0
+           str(free_port()), w["dist_worker.py"], REPO, tmp,
+           w["synthetic.yaml"], w["dist_zero_shot.npz"], w["dist_go"]]
+    with open(w["dist_worker.out"], "w") as out, \
+            open(w["dist_worker.err"], "w") as err:
+        w["proc"] = subprocess.Popen(cmd, cwd=REPO, stdout=out, stderr=err,
+                                     text=True)
+    w["started"] = time.time()
+    return w
+
+
+def let_dist_worker_go(w):
+    """Let the worker of :func:`start_dist_worker` start its runs."""
+    if w["proc"].poll() is not None:
+        with open(w["dist_worker.err"]) as f:
+            raise AssertionError(f"phase 18 worker ended before its go "
+                                 f"({w['proc'].returncode}):\n"
+                                 f"{f.read()[-4000:]}")
+    w["before_go"] = time.time() - w["started"]
+    w["go_at"] = time.time()
+    open(w["dist_go"], "w").close()
+
+
+def finish_dist_worker(w, timeout=900):
+    """Wait for the worker of :func:`start_dist_worker`, once let go:
+    ``({mode: (result fields, seconds)}, seconds from the go to its end,
+    seconds it had run before the go)``."""
+    try:
+        rc = w["proc"].wait(timeout)
+    except subprocess.TimeoutExpired:
+        stop([w["proc"]])
+        raise
+    seconds = time.time() - w["go_at"]
+    with open(w["dist_worker.out"]) as f:
+        stdout = f.read()
     runs, mode = {}, None
-    for ln in r.stdout.splitlines():
+    for ln in stdout.splitlines():
         if ln.startswith("MODE "):
             mode = ln.split()[1]
         elif ln.startswith("RESULT") and mode:
@@ -3530,10 +3638,12 @@ def run_dist_worker(tmp, ds, pred, timeout=900):
                               if "=" in kv)
         elif ln.startswith("SECONDS ") and mode in runs:
             runs[mode] = (runs[mode], float(ln.split()[1]))
-    if r.returncode != 0 or len(runs) != len(DIST_MODES) + 1:
-        raise AssertionError(f"phase 18 worker: rc {r.returncode}\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
-    return runs, seconds
+    if rc != 0 or len(runs) != len(DIST_MODES) + 1:
+        with open(w["dist_worker.err"]) as f:
+            stderr = f.read()
+        raise AssertionError(f"phase 18 worker: rc {rc}\n"
+                             f"{stdout[-2000:]}\n{stderr[-4000:]}")
+    return runs, seconds, w["before_go"]
 
 
 def largest_rel_diff(got, want):
@@ -3657,7 +3767,7 @@ def sharded_readings(losses, params, moment, ref):
             "params_worst": worst, **moments}, ok
 
 
-def run_distributed(tmp, slice_pred):
+def run_distributed(tmp, slice_pred, worker):
     """Phase 18: the train CLI under ``torchrun --nproc_per_node 1`` (NCCL,
     world 1) at full B/32 width in bf16, batch 256, 3 steps, in five modes
     (the gathered full-matrix loss, ``TPU.SHARDED_LOSS`` at 64-column
@@ -3672,8 +3782,11 @@ def run_distributed(tmp, slice_pred):
     process). K1 and K2 held to 23 launches a step in every counted run.
     Then the zero-shot CLI under ``torchrun`` against phase 4's top-1 and
     every image's predicted class. Every CLI run shares one ``torchrun``
-    process (:func:`dist_worker`). Returns the K1 and K2 launches of the
-    runs, the planted ones left out."""
+    process (:func:`dist_worker`), ``worker``: started ahead by
+    :func:`start_dist_worker` with ``tmp``, it ran beside phase 16 and
+    its results are ``worker["runs"]`` (:func:`finish_dist_worker`).
+    Returns the K1 and K2 launches of the runs, the planted ones left
+    out."""
     from msclip_torch.train.checkpoint import CheckpointManager
 
     torch.cuda.empty_cache()  # the torchrun process shares the card
@@ -3681,6 +3794,7 @@ def run_distributed(tmp, slice_pred):
     per_run = B32_BLOCKS * DIST_STEPS
     total = [0, 0]
     refs = []
+    t0 = time.time()
     for _ in range(2):
         refs.append(in_process_run(cfg))
         launches_held("no-group", refs[-1][-1], per_run, per_run)
@@ -3692,23 +3806,21 @@ def run_distributed(tmp, slice_pred):
              "params_rel": largest_rel_diff(ref2, ref_params)}
     log("dist_reference", steps=DIST_STEPS, batch=DIST_BATCH,
         losses=json.dumps(want), rerun_losses=json.dumps(again),
-        rerun_loss_gap=noise["loss"], rerun_params_rel=noise["params_rel"])
+        rerun_loss_gap=noise["loss"], rerun_params_rel=noise["params_rel"],
+        seconds=round(time.time() - t0, 1))
     failed = []
     chunked = train_config(*DIST_OPTS, *DIST_MODES["chunked"][0])
     for name, factors in DIST_PLANTED.items():
+        t0 = time.time()
         losses, params, _, moment = in_process_run(chunked, factors)[:4]
         readings, ok = sharded_readings(losses, params, moment, ref)
-        log("dist_planted", fault=name, **readings, rejected=not ok)
+        log("dist_planted", fault=name, **readings, rejected=not ok,
+            seconds=round(time.time() - t0, 1))
         if ok:
             failed.append(f"planted {name}")
 
-    # TEST.SAVE_PRED keeps logits for the logit metrics only (as the JAX
-    # package's file): under top-1 it holds every image's predicted class
-    ds = os.path.join(tmp, "synthetic.yaml")
-    with open(ds, "w") as f:
-        f.write("DATASET:\n  DATASET: synthetic\n")
-    pred = os.path.join(tmp, "dist_zero_shot.npz")
-    runs, process_s = run_dist_worker(tmp, ds, pred)
+    runs, process_s, waited_s = worker["runs"]
+    pred = worker["dist_zero_shot.npz"]
     for mode, (opts, exact) in DIST_MODES.items():
         out_dir = os.path.join(tmp, "dist", mode)
         fields, seconds = runs[mode]
@@ -3757,7 +3869,8 @@ def run_distributed(tmp, slice_pred):
     log("dist_zero_shot", world=1, top1=top1, phase4_top1=want_top1,
         images=len(got["pred"]), same_predictions=same, seconds=seconds)
     log("dist_process", seconds=round(process_s, 1),
-        start_up=round(process_s - sum(s for _, s in runs.values()), 1))
+        after_go=round(process_s - sum(s for _, s in runs.values()), 1),
+        started_before=round(waited_s, 1))
     if not (same and len(got["pred"]) == 512
             and abs(top1 - round(want_top1, 3)) <= 1e-3):
         failed.append("zero_shot")
@@ -3790,8 +3903,6 @@ TRACED_NAMES = {"attention_fwd": "attention_fwd", "attention_halfblock":
 
 def serve_jpegs(n=SERVE_JPEGS, seed=0):
     """``n`` JPEG bodies of random 8-px colour blocks, 96-320 px a side."""
-    import io
-
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -3837,10 +3948,10 @@ def stream_ms(fn, n_inputs, stream, iters=30, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-# calls a device trace of a bucket (PR 12-15: 30; the profiler's
-# processing of 30 eager calls took 12-28 s a bucket): a depth cut for the
-# time limit
-SERVE_TRACED_CALLS = 10
+# calls a device trace of a bucket (PR 12-15: 30, PR 16: 10; the
+# profiler's processing of 30 eager calls took 12-28 s a bucket): a depth
+# cut for the time limit
+SERVE_TRACED_CALLS = 5
 
 
 def graph_rows(served, label, profiled=(1, 64), eager_profiled=True):
@@ -4065,11 +4176,52 @@ def reset_replays(*served):
                 r.replays = 0
 
 
-def run_serve():
+def export_cmd(bundle):
+    """The ``export_serving`` CLI's command for phase 17's bundle: buckets
+    1/4/16/64 and the ImageNet prompt classifier (1,000 x 80)."""
+    return [sys.executable, "-m", "msclip_torch.tools.export_serving",
+            "--model", B32_CONFIG, "--out", bundle,
+            "--buckets", ",".join(map(str, SERVE_BUCKETS)),
+            "--classify-prompts", "imagenet", *CLI_OPTS]
+
+
+def start_export(tmp):
+    """Start the ``export_serving`` CLI of phase 17's bundle into ``tmp``
+    now, its output to files there (it runs beside phase 16). Returns its
+    handle for :func:`finish_export`."""
+    e = {name: os.path.join(tmp, name) for name in (
+        "b32", "export.out", "export.err")}
+    with open(e["export.out"], "w") as out, \
+            open(e["export.err"], "w") as err:
+        e["proc"] = subprocess.Popen(export_cmd(e["b32"]), cwd=REPO,
+                                     stdout=out, stderr=err, text=True)
+    return e
+
+
+def finish_export(e, timeout=600):
+    """Wait for :func:`start_export`'s CLI: ``(bundle dir, its EXPORTED
+    line)``."""
+    try:
+        rc = e["proc"].wait(timeout)
+    except subprocess.TimeoutExpired:
+        stop([e["proc"]])
+        raise
+    with open(e["export.out"]) as f:
+        exported = [ln for ln in f.read().splitlines()
+                    if ln.startswith("EXPORTED ")]
+    if rc or not exported:
+        with open(e["export.err"]) as f:
+            raise AssertionError(f"export_serving failed ({rc}): "
+                                 f"{f.read()[-3000:]}")
+    return e["b32"], exported[0]
+
+
+def run_serve(exported=None):
     """Phase 17: serving MS-CLIP-S B/32 at full width (seed-0 weights, bf16,
     BN folded). A bundle with buckets 1/4/16/64 and the ImageNet prompt
     classifier (1,000 x 80) exported by the ``export_serving`` CLI on the
-    card and loaded (a CUDA graph a tower and bucket); each graph against
+    card (``exported``: :func:`finish_export`'s bundle, exported ahead;
+    else here) and loaded (a CUDA graph a tower and bucket); each graph against
     eager bit for bit and both timed; ``InferenceServer`` on 256 JPEGs of
     96-320 px with 1 and 32 clients in another process (256 requests
     each), every served embedding against an eager batch-1 call on the
@@ -4085,7 +4237,6 @@ def run_serve():
     each graph's launches. Returns a JSON-able dict."""
     import base64
     import dataclasses
-    import io
 
     from PIL import Image
 
@@ -4111,18 +4262,9 @@ def run_serve():
     out = {"seconds": seconds}
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
-    bundle = os.path.join(tmp, "b32")
-    r = subprocess.run(
-        [sys.executable, "-m", "msclip_torch.tools.export_serving",
-         "--model", B32_CONFIG, "--out", bundle,
-         "--buckets", ",".join(map(str, SERVE_BUCKETS)),
-         "--classify-prompts", "imagenet", *CLI_OPTS],
-        cwd=REPO, capture_output=True, text=True)
-    exported = [ln for ln in r.stdout.splitlines()
-                if ln.startswith("EXPORTED ")]
-    if r.returncode or not exported:
-        raise AssertionError(f"export_serving failed ({r.returncode}): "
-                             f"{r.stderr[-3000:]}")
+    if exported is None:
+        exported = finish_export(start_export(tmp))
+    bundle, exported_line = exported
     lap("export_cli")
     served = load_bundle(bundle, device="cuda")
     classifier, classnames = served.classifier, served.classnames
@@ -4136,7 +4278,7 @@ def run_serve():
     lap("fused_export_load")
     graphs = [r for s in (served, fused) for fns in (s.image_fns, s.text_fns)
               for r in fns.values()]
-    log("serve_load", exported=exported[0],
+    log("serve_load", exported=exported_line,
         classifier_shape=list(classifier.shape),
         seconds=json.dumps(seconds), graphs=len(graphs),
         capture_s=round(sum(r.capture_s for r in graphs), 3),
@@ -4273,13 +4415,14 @@ def run_serve():
     return out
 
 
-def serve_in_subprocess():
+def serve_in_subprocess(exported=None):
     """:func:`run_serve` in a fresh Python process on the same card (the
     profiler traces there; see :func:`traced_turns`); its lines are
     printed through."""
     r = subprocess.run(
-        [sys.executable, "-c", "import json, chip_smoke as C; "
-         "print('SERVE ' + json.dumps(C.run_serve()))"],
+        [sys.executable, "-c", "import json, sys, chip_smoke as C; "
+         "print('SERVE ' + json.dumps(C.run_serve("
+         "json.loads(sys.argv[1]))))", json.dumps(exported)],
         cwd=REPO, capture_output=True, text=True)
     lines = r.stdout.splitlines()
     for ln in lines:
@@ -4290,6 +4433,144 @@ def serve_in_subprocess():
         raise AssertionError(f"serve phase failed ({r.returncode}): "
                              f"{r.stderr[-3000:]}")
     return json.loads(done[-1][len("SERVE "):])
+
+
+# ---------------------------------------------------------------------------
+# --serve-split: live serving split over two cards
+# ---------------------------------------------------------------------------
+
+SPLIT_DEVICES = ("cuda:0", "cuda:1")
+SPLIT_ROWS = 64  # images and prompts held split against one card
+
+
+def split_k1_captured(served):
+    """K1 launches captured into ``served``'s graphs, by card: each
+    split bucket's parts are one graph a card."""
+    out = {}
+    for fns in (served.image_fns, served.text_fns):
+        for bucket in fns.values():
+            for part in bucket.parts:
+                dev = str(part.input.device)
+                out[dev] = out.get(dev, 0) + part.launches["attention_fwd"]
+    return out
+
+
+def split_replayed_k1(served):
+    """K1 launches that ``served``'s replays ran, all cards together."""
+    return sum(part.replays * part.launches["attention_fwd"]
+               for fns in (served.image_fns, served.text_fns)
+               for bucket in fns.values() for part in bucket.parts)
+
+
+def serve_window_pair(name, args, tmp, ref):
+    """The serve CLI in live mode with ``args``: its /healthz, then 1 and
+    32 clients of ``SERVE_REQUESTS`` requests on the JPEGs in
+    ``tmp/jpegs``, every embedding against ``ref`` (least cosine >
+    ``SERVE_MIN_COS``)."""
+    log_path = os.path.join(tmp, f"serve-{name}.log")
+    proc = serve_cli(["--model", B32_CONFIG, *args, *CLI_OPTS], log_path)
+    t0 = time.time()
+    try:
+        url = serving_url(proc, log_path)
+        start_s = time.time() - t0
+        health = http_json(url + "/healthz")
+        host, port = url.split("//")[1].split(":")
+        windows = []
+        for clients in SERVE_CLIENTS:
+            embs, stats = drive_server((host, int(port)), clients,
+                                       SERVE_REQUESTS, tmp)
+            stats["least_cos"] = least_cosine(
+                embs, [ref[i % len(ref)] for i in range(len(embs))])
+            log("serve_split_http", server=name, **stats)
+            windows.append(stats)
+    finally:
+        stop([proc])
+    worst = min(w["least_cos"] for w in windows)
+    if worst <= SERVE_MIN_COS:
+        raise AssertionError(f"{name} server: least cosine {worst}")
+    return {"args": args, "buckets": health["buckets"],
+            "start_s": round(start_s, 1), "windows": windows}
+
+
+def run_serve_split():
+    """``--serve-split``: full-width MS-CLIP-S B/32 (seed-0 weights, bf16,
+    BN folded) served live over ``cuda:0`` and ``cuda:1`` as the serve
+    CLI builds it (``tools.serve.load_live``): a CUDA graph a card, tower
+    and half-bucket, K1 in every block. ``encode_image`` of 64 images and
+    ``encode_text`` of 64 prompts split against the one-card live model's
+    features of the same rows (least cosine > ``SERVE_MIN_COS``, the
+    largest absolute difference beside it); K1's captured launches by
+    card, none on a card fails; then the serve CLI on phase 17's 256
+    JPEGs at 1 and 32 clients: ``--device cuda:0,cuda:1``, no
+    ``--device`` (every visible card) and ``--device cuda:0`` (one card),
+    in that order. Returns a JSON-able dict."""
+    from PIL import Image
+
+    from msclip_torch.serve import pil_to_uint8
+    from msclip_torch.tools import serve as serve_tool
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < len(SPLIT_DEVICES):
+        raise SystemExit(f"chip_smoke --serve-split: {n_cards} card(s) "
+                         f"visible, {len(SPLIT_DEVICES)} needed")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    args = serve_tool.parse_args(["--model", B32_CONFIG, *CLI_OPTS])
+    reset_launches()
+    split = serve_tool.load_live(args, [torch.device(d)
+                                        for d in SPLIT_DEVICES])
+    one = serve_tool.load_live(args, [torch.device(SPLIT_DEVICES[0])])
+    build_s = time.time() - t0
+    captured = split_k1_captured(split)
+    log("serve_split_load", buckets=json.dumps(split.buckets),
+        one_card_buckets=json.dumps(one.buckets),
+        k1_captured_by_card=json.dumps(captured), seconds=round(build_s, 1))
+    if len(captured) != len(SPLIT_DEVICES) or min(captured.values()) == 0:
+        raise AssertionError(f"K1 captured by card: {captured}")
+
+    features = {}
+    reset_replays(one)
+    for tower in ("image", "text"):
+        x = tower_inputs(tower, SPLIT_ROWS, 11, split.image_size)
+        fn = "encode_image" if tower == "image" else "encode_text"
+        got, want = getattr(split, fn)(x), getattr(one, fn)(x)
+        features[tower] = {
+            "rows": SPLIT_ROWS, "least_cos": least_cosine(got, want),
+            "max_abs_diff": float(np.abs(got - want).max()),
+            "max_abs": float(np.abs(want).max())}
+        log("serve_split_features", tower=tower, **features[tower])
+    k1_split = split_replayed_k1(split)
+    if min(f["least_cos"] for f in features.values()) <= SERVE_MIN_COS \
+            or k1_split == 0:
+        raise AssertionError(f"split against one card: {features}, "
+                             f"K1 replayed {k1_split}")
+
+    jpegs = serve_jpegs()
+    crops = [pil_to_uint8(Image.open(io.BytesIO(j)), one.image_size)
+             for j in jpegs]
+    ref = np.concatenate([one.image_fns[1].eager(c[None]) for c in crops])
+    del split, one
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "jpegs"))
+        for i, j in enumerate(jpegs):
+            with open(os.path.join(tmp, "jpegs", f"{i}.jpg"), "wb") as f:
+                f.write(j)
+        servers = {name: serve_window_pair(name, a, tmp, ref) for name, a in (
+            ("split", ["--device", ",".join(SPLIT_DEVICES)]),
+            ("every_card", []),
+            ("one_card", ["--device", SPLIT_DEVICES[0]]))}
+    want = {"split": [2, 4, 16, 64],
+            "every_card": sorted({-(-b // n_cards) * n_cards
+                                  for b in (1, 4, 16, 64)}),
+            "one_card": [1, 4, 16, 64]}
+    got = {k: v["buckets"] for k, v in servers.items()}
+    log("serve_split_servers", buckets=json.dumps(got),
+        cards=n_cards, seconds=round(time.time() - t0, 1))
+    if got != want:
+        raise AssertionError(f"the servers' buckets {got}, not {want}")
+    return {"features": features, "k1_captured_by_card": captured,
+            "k1_replayed_split": k1_split, "servers": servers}
 
 
 # ---------------------------------------------------------------------------
@@ -4389,24 +4670,34 @@ def zoo_inputs(n, size, seed=0):
     return images, torch.from_numpy(ClipTokenizer()(texts))
 
 
+def zoo_weights(cfg):
+    """``(spec, fp32 seed-0 parameters)`` of a zoo config, on the CPU."""
+    from msclip_torch.models.msclip import build_spec, init_params
+
+    spec = build_spec(cfg)  # fp32: also turns TF32 off
+    return spec, init_params(spec, torch.Generator().manual_seed(0))
+
+
 def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True,
-                         n_text=None):
+                         n_text=None, weights=None):
     """fp32 features of ``n`` images and ``n_text`` prompts (default
     ``n``) through the model's entry points, the card with its kernels
     against the CPU with the plain versions, same weights, within
     ``atol``. The card's K1 launches are held to :func:`zoo_k1_blocks`;
     with ``TPU.USE_FUSED_BLOCK`` K5's instead, by width (768 in the ViT,
-    the text tower's in the text tower), and K1 to none. Returns the K1
-    launches (with ``count``)."""
-    from msclip_torch.models.msclip import MSClipModel, build_spec, init_params
+    the text tower's in the text tower), and K1 to none. ``weights``:
+    :func:`zoo_weights` of ``cfg``, drawn ahead. Returns the K1 launches
+    (with ``count``)."""
+    from msclip_torch.models.msclip import MSClipModel
 
-    spec = build_spec(cfg)  # fp32: also turns TF32 off
-    params = init_params(spec, torch.Generator().manual_seed(0))
+    t0 = time.time()
+    spec, params = weights or zoo_weights(cfg)
     n_text = n_text or n
     images, tokens = zoo_inputs(max(n, n_text), spec.image_resolution)
     images, tokens = images[:n], tokens[:n_text]
-    feats = {}
+    feats, seconds = {}, {"init": round(time.time() - t0, 2)}
     for dev in ("cuda", "cpu"):
+        t0 = time.time()
         model = MSClipModel(spec, params).to(dev)
         reset_launches()
         with torch.inference_mode():
@@ -4416,6 +4707,7 @@ def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True,
             torch.cuda.synchronize()
             k1 = A.fused_attention_qkv.launches
             k5 = dict(BF.fused_attention_halfblock.launches_by_width)
+        seconds[dev] = round(time.time() - t0, 2)
     errs = [(a - b).abs().max().item()
             for a, b in zip(feats["cuda"], feats["cpu"])]
     expected = sum(zoo_k1_blocks(spec))
@@ -4429,7 +4721,8 @@ def zoo_card_against_cpu(name, cfg, n=8, atol=ZOO_ATOL, count=True,
     log("zoo_card_vs_cpu", family=name, dtype="float32", n=n, n_text=n_text,
         image_err=errs[0], text_err=errs[1], atol=atol, k1_launches=k1,
         expected=expected, k5_launches=json.dumps(k5),
-        k5_expected=json.dumps(k5_expected), counted=count)
+        k5_expected=json.dumps(k5_expected), counted=count,
+        seconds=json.dumps(seconds))
     if not all(math.isfinite(e) and e <= atol for e in errs):
         raise AssertionError(f"zoo {name}: card and CPU features differ: "
                              f"{errs} > {atol}")
@@ -4510,9 +4803,17 @@ def run_zoo(batch=256):
                              f"{stats['losses']}")
     total = [total[0] + got[0], total[1] + got[1]]
 
-    for name, opts in ZOO_FAMILIES.items():
-        total[0] += zoo_card_against_cpu(name, zoo_config(
-            B32_CONFIG, "TPU.COMPUTE_DTYPE", "float32", *ZOO_DEPTH, *opts))
+    # each family's weights drawn on the CPU while the one before runs
+    cfgs = [(name, zoo_config(B32_CONFIG, "TPU.COMPUTE_DTYPE", "float32",
+                              *ZOO_DEPTH, *opts))
+            for name, opts in ZOO_FAMILIES.items()]
+    with cf.ThreadPoolExecutor(1) as pool:
+        ahead = pool.submit(zoo_weights, cfgs[0][1])
+        for i, (name, cfg) in enumerate(cfgs):
+            weights = ahead.result()
+            if i + 1 < len(cfgs):
+                ahead = pool.submit(zoo_weights, cfgs[i + 1][1])
+            total[0] += zoo_card_against_cpu(name, cfg, weights=weights)
 
     cfg = zoo_config(B32_CONFIG, "TPU.COMPUTE_DTYPE", "bfloat16",
                      "CUSTOM.GUMBEL_LR", 1e-2, *ZOO_DEPTH,
@@ -4698,7 +4999,12 @@ def kernel_line(rows, launches, name, replaces, head, shape, source=None):
     return line
 
 
-def main():
+def main(measure=False):
+    """The default run, or with ``measure`` (``--measure``) also the
+    phases that only re-measure what PERF.md records: the in-turns
+    ratios of K5, K6, E1 and E2 (``traced_turns``), the tuning row's
+    measurements (``tuning``) and the ``torch.compile`` yardsticks
+    (``compile_baselines``)."""
     seconds = {}
     t0 = time.time()
 
@@ -4714,8 +5020,10 @@ def main():
     timed("build", build_kernels)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    traced = timed("traced_turns", traced_turns_in_subprocess)
-    timed("tuning", tuning_in_subprocess)
+    traced = None
+    if measure:
+        traced = timed("traced_turns", traced_turns_in_subprocess)
+        timed("tuning", tuning_in_subprocess)
     attn_rows = timed("k1", check_attention)
     bwd_rows = timed("k2", check_attention_bwd)
     quant_rows = timed("k3_k4", check_quant)
@@ -4730,19 +5038,36 @@ def main():
     timed("fused_card_vs_cpu", card_against_cpu, fused=True)
     tuning_rows = timed("e1_e2", check_tuning, traced)
     tuning_launches, sweep = timed("sweep", run_tuning_sweep)
-    with tempfile.TemporaryDirectory() as tmp:
-        transfer_launches = timed("transfer", run_transfer, tmp)
-        roots = {"cifar": os.path.join(tmp, "cifar")}
-        data_launches = timed("train_data", run_train_data, tmp, resident)
-        native_launches = timed("native", run_native, tmp)
-        gc_launches = timed("gradcache", run_gradcache, resident)
-        resume_launches = timed("resume", run_resume, tmp, roots)
-    serve = timed("serve", serve_in_subprocess)
-    dist_launches = timed("distributed", run_distributed, scratch.name,
-                          slice_pred)
+    worker = export = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            transfer_launches = timed("transfer", run_transfer, tmp)
+            roots = {"cifar": os.path.join(tmp, "cifar")}
+            data_launches = timed("train_data", run_train_data, tmp,
+                                  resident)
+            native_launches = timed("native", run_native, tmp)
+            # phase 18's torchrun process starts up beside phase 15, then
+            # runs beside phase 16 with phase 17's export CLI: phase 16
+            # measures no time, and phases 16 and 18 hold their runs to
+            # references made alone (bit for bit where they can)
+            worker = start_dist_worker(scratch.name)
+            gc_launches = timed("gradcache", run_gradcache, resident)
+            torch.cuda.empty_cache()
+            let_dist_worker_go(worker)
+            export = start_export(scratch.name)
+            resume_launches = timed("resume", run_resume, tmp, roots)
+        worker["runs"] = timed("beside_resume", finish_dist_worker, worker)
+        exported = finish_export(export)
+        serve = timed("serve", serve_in_subprocess, exported)
+        dist_launches = timed("distributed", run_distributed, scratch.name,
+                              slice_pred, worker)
+    finally:
+        stop([p["proc"] for p in (worker, export)
+              if p and p["proc"].poll() is None])
     scratch.cleanup()
     zoo_launches, zoo_k5 = timed("zoo", run_zoo)
-    timed("compile_baselines", run_compile_baselines)
+    if measure:
+        timed("compile_baselines", run_compile_baselines)
     log("seconds", total=round(time.time() - t0, 1), phases=json.dumps(seconds))
     quant = "msclip_torch/csrc/quant.cu"
     fused_src = "msclip_torch/csrc/block_fused.cu"
@@ -4820,10 +5145,21 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--zoo-faults"]:
+    mode = sys.argv[1:]
+    if mode not in ([], ["--measure"], ["--zoo-faults"], ["--serve-split"]):
+        raise SystemExit(f"chip_smoke: unknown arguments {mode}")
+    if mode == ["--zoo-faults"]:
         device_and_packages()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         zoo_planted_faults()
+    elif mode == ["--serve-split"]:
+        device_and_packages()
+        t_split = time.time()
+        print(json.dumps({"serve_split": run_serve_split()}))
+        log("seconds", total=round(time.time() - t_split, 1))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
     else:
-        main()
+        main(measure=mode == ["--measure"])

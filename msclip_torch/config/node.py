@@ -23,6 +23,7 @@ preserved:
 from __future__ import annotations
 
 import ast
+import copy
 import json
 from typing import Any, Iterable, Optional
 
@@ -60,6 +61,10 @@ class CfgNode(dict):
     @property
     def is_open(self) -> bool:
         return dict.get(self, CfgNode._OPEN_KEY, False)
+
+    def set_open(self, flag: bool = True) -> "CfgNode":
+        dict.__setitem__(self, CfgNode._OPEN_KEY, bool(flag))
+        return self
 
     def keys(self):  # hide the meta key
         return [k for k in dict.keys(self) if k != CfgNode._OPEN_KEY]
@@ -148,6 +153,14 @@ class CfgNode(dict):
                 raise KeyError(f"Unknown config key: {full_key}")
 
     # -- misc --------------------------------------------------------------
+    def clone(self) -> "CfgNode":
+        """A deep copy that keeps every node's open flag (``copy.deepcopy``
+        rebuilds a dict subclass from :meth:`items`, which hides it)."""
+        out = CfgNode(open_node=self.is_open)
+        for k, v in self.items():
+            out[k] = v.clone() if isinstance(v, CfgNode) else copy.deepcopy(v)
+        return out
+
     def to_dict(self) -> dict:
         return {
             k: (v.to_dict() if isinstance(v, CfgNode) else v)
@@ -163,6 +176,14 @@ class CfgNode(dict):
 
     def __repr__(self) -> str:
         return f"CfgNode({self.to_dict()!r})"
+
+    # yacs API compatibility no-ops (the reference calls freeze/defrost
+    # around merges; configs stay mutable).
+    def freeze(self) -> None:
+        pass
+
+    def defrost(self) -> None:
+        pass
 
 
 def _parse_literal(value: Any) -> Any:

@@ -2,8 +2,8 @@
 
 Loads the public CLIP prompt data (1,000 ImageNet class names and the 80
 prompt-ensemble templates) from a JSON asset, a byte copy of the JAX
-package's; the reference registries are in
-``lib/dataset/prompts/constants.py:86-92``.
+package's; ``ALL_CLASSES_DICT`` / ``ALL_TEMPLATES_DICT`` mirror the
+reference registries (``lib/dataset/prompts/constants.py:86-92``).
 """
 
 from __future__ import annotations
@@ -35,3 +35,27 @@ def get_templates(dataset: str):
     if dataset not in templates:
         raise ValueError(f"No prompt templates for dataset: {dataset}")
     return templates[dataset]
+
+
+def available_datasets():
+    return sorted(_load()["classes"].keys())
+
+
+class _LazyDict:
+    """Dict-like view matching the reference's ALL_*_DICT access pattern."""
+
+    def __init__(self, kind):
+        self._kind = kind
+
+    def __contains__(self, key):
+        return key in _load()[self._kind]
+
+    def __getitem__(self, key):
+        return _load()[self._kind][key]
+
+    def keys(self):
+        return _load()[self._kind].keys()
+
+
+ALL_CLASSES_DICT = _LazyDict("classes")
+ALL_TEMPLATES_DICT = _LazyDict("templates")

@@ -113,6 +113,7 @@ class ClipTokenizer:
 
     def __init__(self, bpe_path: str = DEFAULT_BPE_PATH):
         self.byte_encoder = byte_to_unicode_table()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
 
         with gzip.open(bpe_path) as f:
             lines = f.read().decode("utf-8").split("\n")
@@ -127,6 +128,7 @@ class ClipTokenizer:
         vocab += ["<|startoftext|>", "<|endoftext|>"]
 
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
         self.merge_rank = {pair: i for i, pair in enumerate(merges)}
         self.sot_token = self.encoder["<|startoftext|>"]
         self.eot_token = self.encoder["<|endoftext|>"]
@@ -134,6 +136,10 @@ class ClipTokenizer:
             "<|startoftext|>": ["<|startoftext|>"],
             "<|endoftext|>": ["<|endoftext|>"],
         }
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.encoder)
 
     # -- core BPE ----------------------------------------------------------
     def _bpe(self, token: str) -> List[str]:
@@ -180,6 +186,11 @@ class ClipTokenizer:
             ids.extend(self.encoder[part] for part in self._bpe(word_bytes))
         return ids
 
+    def decode(self, ids) -> str:
+        text = "".join(self.decoder[int(i)] for i in ids)
+        raw = bytearray(self.byte_decoder[ch] for ch in text)
+        return raw.decode("utf-8", errors="replace").replace("</w>", " ")
+
     # -- batch API -----------------------------------------------------------
     def tokenize(
         self, texts: Union[str, List[str]], context_length: int = 77
@@ -199,8 +210,64 @@ class ClipTokenizer:
             result[i, : len(ids)] = ids
         return result
 
+    def encode_with_idx(self, text: str, input_idxs: List[int]):
+        """Encode while tracking how word positions shift as words split
+        into multiple BPE tokens (reference ``encode_with_idx``
+        ``:171-201``); returns (token ids, adjusted indices)."""
+        cleaned = _clean(text).lower()
+        parsed = word_pattern().findall(cleaned)
+        input_idxs = list(input_idxs)
+        if not (len(cleaned.split(" ")) == len(text.split(" "))
+                == len(parsed)):
+            # re-anchor indices to the parsed word list
+            for ii, input_id in enumerate(input_idxs):
+                refer = text.split(" ")[input_id]
+                if len(refer.split("-")) != 1:
+                    refer = refer.split("-")[-1]
+                hits = [pi for pi, w in enumerate(parsed) if w == refer]
+                if len(hits) != 1 and hits:
+                    dist = [(h - input_id) ** 2 for h in hits]
+                    input_idxs[ii] = hits[dist.index(min(dist))]
+                elif hits:
+                    input_idxs[ii] = hits[0]
+
+        ids: List[int] = []
+        added = [0] * len(input_idxs)
+        for token_idx, word in enumerate(parsed):
+            word_bytes = "".join(
+                self.byte_encoder[b] for b in word.encode("utf-8")
+            )
+            parts = self._bpe(word_bytes)
+            if len(parts) > 1:
+                extra = len(parts) - 1
+                for ii, orig in enumerate(input_idxs):
+                    if token_idx <= orig:
+                        added[ii] += extra
+            ids.extend(self.encoder[p] for p in parts)
+        return ids, [a + i for a, i in zip(added, input_idxs)]
+
+    def tokenize_with_idx(self, texts, context_length: int = 77,
+                          input_idxs=None):
+        """Single-text tokenize that also returns the token positions of
+        the requested word indices (+1 for the SOT shift); reference
+        ``tokenize_with_idx`` ``:203-222``."""
+        if isinstance(texts, str):
+            texts = [texts]
+        assert len(texts) == 1
+        ids, out_idxs = self.encode_with_idx(texts[0], input_idxs or [])
+        ids = [self.sot_token] + ids + [self.eot_token]
+        out_idxs = [i + 1 for i in out_idxs]
+        result = np.zeros((1, context_length), dtype=np.int32)
+        ids = ids[:context_length]
+        result[0, : len(ids)] = ids
+        return result, out_idxs
+
     def __call__(
         self, texts: Union[str, List[str]], context_length: int = 77
     ) -> np.ndarray:
         return self.tokenize(texts, context_length)
 
+
+
+# Alias matching the reference public name (SimpleTokenizer).
+SimpleTokenizer = ClipTokenizer

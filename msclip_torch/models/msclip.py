@@ -29,7 +29,7 @@ from __future__ import annotations
 import math
 import warnings
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -847,3 +847,28 @@ def build_spec(config) -> MSClipSpec:
     spec = spec_from_config(config)
     set_fp32_precision(spec)
     return spec
+
+
+def build_model(config, generator: Optional[torch.Generator] = None,
+                device=None) -> MSClipModel:
+    """The reference factory (``get_clip_model(config)``): an eval
+    :class:`MSClipModel` of the config's spec with random parameters from
+    ``generator`` (default: seeded with ``TPU.SEED``, as the train CLI
+    draws them) on ``device`` (default the card; raises without one)."""
+    from ..eval.device import resolve_device
+
+    spec = build_spec(config)
+    if generator is None:
+        generator = torch.Generator().manual_seed(
+            int(config.TPU.get("SEED", 0)))
+    return MSClipModel(spec, init_params(
+        spec, generator, resolve_device(device or "cuda")))
+
+
+def param_count(params_or_module) -> int:
+    """The number of elements over every tensor of a parameter dict or a
+    module (its parameters and buffers: the BN running statistics count,
+    as in the JAX package's pytree)."""
+    if isinstance(params_or_module, nn.Module):
+        params_or_module = params_or_module.state_dict()
+    return sum(t.numel() for t in params_or_module.values())

@@ -14,7 +14,8 @@ Live mode (the model built in process from its config):
 
 In live mode ``--device`` may list several devices: each batch is split
 across them (``serve/live.py``), the buckets rounded up to multiples of
-their count.
+their count. Without ``--device`` live mode serves over every visible card
+(as the JAX CLI over every local chip); a bundle serves on one.
 
 Before it accepts traffic it captures a CUDA graph per tower and bucket
 (``cuda``, the default) and calls every bucket once; then it prints
@@ -52,7 +53,8 @@ def parse_args(argv=None):
                    help="torch device (default cuda, or cpu under "
                         "MSCLIP_PLATFORM=cpu; 'cpu' runs the plain "
                         "versions eagerly); live mode takes a comma-"
-                        "separated list")
+                        "separated list and defaults to every visible "
+                        "card")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -85,13 +87,25 @@ def load_live(args, devices):
     )
 
 
+def serving_devices(args, default):
+    """The devices to serve on: ``--device``'s list; else, in live mode on
+    the card, every visible card (``serve/live.local_devices``); else
+    ``default`` (the platform's, one device)."""
+    from ..serve.live import local_devices
+
+    if args.device:
+        return [resolve_device(d) for d in args.device.split(",")]
+    if args.model and default == "cuda":
+        return local_devices()
+    return [resolve_device(default)]
+
+
 def main(argv=None):
     device = apply_platform_override()  # MSCLIP_PLATFORM, MSCLIP_DEBUG_NANS
     args = parse_args(argv)
-    args.device = args.device or device
     if bool(args.bundle) == bool(args.model):
         raise SystemExit("pass exactly one of --bundle or --model")
-    devices = [resolve_device(d) for d in args.device.split(",")]
+    devices = serving_devices(args, device)
     if args.bundle and len(devices) > 1:
         raise SystemExit("a bundle serves on one device: run one server a "
                          "card, or --model for several devices")

@@ -367,7 +367,6 @@ def test_port_imports_neither_jax_nor_msclip_tpu():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
-@pytest.mark.slow
 def test_full_width_b32_towers_match_jax():
     """Full-width MS-CLIP-S B/32, folded, fp32."""
     path = os.path.join(REPO, "experiments", "model", "b32-yfcc-msclips.yaml")
@@ -390,7 +389,6 @@ def test_full_width_b32_towers_match_jax():
         atol=ATOL)
 
 
-@pytest.mark.slow
 @pytest.mark.parametrize("folded", [True, False])
 def test_full_width_b16_towers_match_jax(folded):
     """Full-width MS-CLIP-S B/16 (L=197 in the image tower), fp32, with BN

@@ -540,6 +540,90 @@ def test_live_serving_defaults_to_the_card(tiny, monkeypatch):
         live_serving_model(spec, tp)
 
 
+@pytest.mark.parametrize("cards", [1, 2, 3])
+def test_live_serving_defaults_to_every_visible_card(tiny, monkeypatch,
+                                                     cards):
+    """With no devices given, live serving builds over every visible card
+    in order, ``cuda:0`` ... ``cuda:n-1``, as the JAX function over
+    ``jax.local_devices()``: one card takes one model, several a replica
+    a card with the buckets rounded up to multiples of their count. The
+    card and the graphs are patched out; what each device is given is
+    recorded."""
+    from msclip_torch.serve import live
+
+    _, _, spec, tp = tiny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    built = []
+
+    def one_model(spec, params, manifest, classifier, device):
+        built.append((device, manifest["buckets"]))
+        return "model"
+
+    def replica(spec, params, manifest, device, buckets):
+        built.append((device, list(buckets)))
+        return ({b: device for b in buckets}, {b: device for b in buckets})
+
+    monkeypatch.setattr(live, "build_serving_model", one_model)
+    monkeypatch.setattr(live, "device_buckets", replica)
+    want = [torch.device("cuda", i) for i in range(cards)]
+    assert live.local_devices() == want
+    served = live.live_serving_model(spec, tp, buckets=(1, 4),
+                                     image_size=SIZE)
+    assert [d for d, _ in built] == want
+    if cards == 1:
+        assert served == "model" and built[0][1] == [1, 4]
+    else:
+        rounded = sorted({-(-b // cards) * cards for b in (1, 4)})
+        assert served.buckets == rounded
+        assert all(b == [r // cards for r in rounded] for _, b in built)
+        assert [p for p in served.image_fns[rounded[0]].parts] == want
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,platform,want", [
+    (["--model", B32_JSON], None, ["cuda:0", "cuda:1"]),
+    (["--model", B32_JSON, "--device", "cuda:1"], None, ["cuda:1"]),
+    (["--model", B32_JSON, "--device", "cuda:1,cuda:0"], None,
+     ["cuda:1", "cuda:0"]),
+    (["--model", B32_JSON], "cpu", ["cpu"]),
+    (["--bundle", "b"], None, ["cuda:0"]),
+])
+def test_serve_cli_live_mode_takes_every_visible_card(monkeypatch, argv,
+                                                      platform, want):
+    """``tools.serve``: live mode (``--model``) without ``--device`` takes
+    every visible card (two here, patched); ``--device`` pins its list;
+    ``MSCLIP_PLATFORM=cpu`` asks for the CPU; a bundle stays on one card.
+    The model loaders are patched to record their devices and stop."""
+    import msclip_torch.serve as serve_pkg
+    from msclip_torch.tools import serve as serve_tool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    if platform:
+        monkeypatch.setenv("MSCLIP_PLATFORM", platform)
+    else:
+        monkeypatch.delenv("MSCLIP_PLATFORM", raising=False)
+    seen = []
+
+    def load_live(args, devices):
+        seen.extend(devices)
+        raise _Stop
+
+    def load_bundle(path, device):
+        seen.append(device)
+        raise _Stop
+
+    monkeypatch.setattr(serve_tool, "load_live", load_live)
+    monkeypatch.setattr(serve_pkg, "load_bundle", load_bundle)
+    with pytest.raises(_Stop):
+        serve_tool.main(argv)
+    assert seen == [torch.device(d) for d in want]
+
+
 def test_concurrent_burst_no_resets(tiny):
     """2 x 192 requests at 24-way concurrency: no connection is reset
     (the deep listen backlog) and the batcher coalesces (mean batch > 1)."""

@@ -424,7 +424,6 @@ def test_eval_released_tiers_at_tiny_width(ckpt, tmp_path, monkeypatch,
     assert "zero-shot IN-1K top-1" in capsys.readouterr().out
 
 
-@pytest.mark.slow
 def test_eval_released_tier1_full_width(tmp_path):
     """Full-width B/32: random weights -> ``export_state_dict`` -> the
     tier-1 gate as a subprocess on the CPU."""

@@ -457,7 +457,6 @@ def test_int8_refuses_where_jax_does(name):
 # full width
 # ---------------------------------------------------------------------------
 
-@pytest.mark.slow
 def test_full_width_b32_yaml_towers_match_jax():
     """b32.yaml at its published widths: ViT-B/32 (12 blocks at 768, L =
     50) and the 512-wide, 8-head text tower, fp32."""
