@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from ..ops.block_fused import fused_block
+from ..utils.summary import span
 from . import crossattn as X
 from . import layers as L
 from . import resnet as R
@@ -613,7 +614,10 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
     ModifiedResNet tower, or stem -> tokens -> +CLS/+pos/ln_pre -> trunk
     blocks (the Perceiver blocks, the parallel branch and its adapters at
     their layers; the extension families' blocks) -> pool -> ln_post ->
-    proj.
+    proj. Under a profiler the stem (from the input's cast through
+    ``ln_pre``), each branch stage with its adapter and each trunk block
+    run in the spans ``msclip.image.stem``, ``msclip.image.branch`` and
+    ``msclip.image.block`` (``utils.summary.span``).
 
     ``bn``: the BatchNorm context (eval when None). ``generator``: a
     ``torch.Generator`` on the images' device that drives DropPath
@@ -626,15 +630,15 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
     ``[vision_layers, 2]`` (``GUMBEL_SELECT``; the deterministic one when
     None)."""
     bn = bn or S.BNState()
-    # NCHW, contiguous: the CPU build's oneDNN conv backward corrupts the
-    # heap when the stem's input keeps the permuted (channels-last) strides
-    x = images.to(spec.dtype).permute(0, 3, 1, 2).contiguous()
     if spec.vision_resnet_layers:
-        feats = R.apply_modified_resnet(params, x, spec.vision_resnet_layers,
+        feats = R.apply_modified_resnet(params, _nchw(images, spec),
+                                        spec.vision_resnet_layers,
                                         spec.vision_heads, bn)
         return L.l2_normalize(feats) if normalize else feats
     g = spec.grid
-    tokens = image_tokens(params, spec, x, bn)
+    with span("msclip.image.stem"):
+        x = _nchw(images, spec)
+        tokens = image_tokens(params, spec, x, bn)
 
     # with an extension family on, the JAX package runs every block as an
     # extended block, which drops no path
@@ -649,32 +653,43 @@ def encode_image(params, spec: MSClipSpec, images, *, normalize=True,
                                 spec.perceiver_layers.index(idx), tokens,
                                 spec.vision_heads, tp)
         if spec.parallel and idx in spec.lateral_layers:
-            parallel_x, tokens = _lateral(params, spec, idx, x, parallel_x,
-                                          tokens, bn)
+            with span("msclip.image.branch"):
+                parallel_x, tokens = _lateral(params, spec, idx, x,
+                                              parallel_x, tokens, bn)
         prefix = f"visual.transformer.resblocks.{idx}"
         if spec.ext.block_has_any("visual", idx):
-            tokens = extended_block(
-                L.block_params(params, prefix), params, prefix, tokens,
-                spec.vision_heads, spec.ext, "visual", (g, g),
-                eps=spec.ln_eps, bn=bn,
-                action=None if action is None else action[idx],
-                take_shared=None if action is None else take_shared[idx],
-                tp=tp)
+            with span("msclip.image.block"):
+                tokens = extended_block(
+                    L.block_params(params, prefix), params, prefix, tokens,
+                    spec.vision_heads, spec.ext, "visual", (g, g),
+                    eps=spec.ln_eps, bn=bn,
+                    action=None if action is None else action[idx],
+                    take_shared=None if action is None else take_shared[idx],
+                    tp=tp)
             continue
         keep = None
         if dropping:  # drawn here, in block order, for both branches
             keep = tuple(L.drop_path_keep(tokens, spec.vision_drop_path,
                                           generator, rows)
                          for _ in range(2))
-        tokens = block(L.block_params(params, prefix), tokens,
-                       spec.vision_heads, None,
-                       drop_path_rate=spec.vision_drop_path, keep=keep, tp=tp)
+        with span("msclip.image.block"):
+            tokens = block(L.block_params(params, prefix), tokens,
+                           spec.vision_heads, None,
+                           drop_path_rate=spec.vision_drop_path, keep=keep,
+                           tp=tp)
 
     pooled = _pool(tokens, spec, params, "visual.conv_pool")
     pooled = L.layer_norm(pooled, params["visual.ln_post.weight"],
                           params["visual.ln_post.bias"], spec.ln_eps)
     feats = pooled @ params["visual.proj"].to(spec.dtype)
     return L.l2_normalize(feats) if normalize else feats
+
+
+def _nchw(images, spec: MSClipSpec):
+    """``[B, H, W, 3]`` images in the compute dtype, as NCHW. Contiguous:
+    the CPU build's oneDNN conv backward corrupts the heap when the stem's
+    input keeps the permuted (channels-last) strides."""
+    return images.to(spec.dtype).permute(0, 3, 1, 2).contiguous()
 
 
 def _perceiver(params, trunk, spec: MSClipSpec, pi, x, n_head, tp=None):

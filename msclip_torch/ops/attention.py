@@ -22,6 +22,15 @@ Two wrapper features of the JAX function come with it: lane packing
 ``pack * L <= 128`` under a block-diagonal mask, the default from the
 tuning table, ``ops/tuning.py``), and :func:`fused_attention`, the same
 core over head-split ``[B, H, L, D]`` inputs.
+
+Under a profiler the backward kernel runs in the span
+``msclip.attention.bwd`` (``utils.summary.span``), and ``layers.attention``
+opens ``msclip.attention.fwd`` around the forward. Any other kernel that
+runs the attention core alone keeps both spans around its own forward and
+backward: the benchmark's ``attention_ms.train`` reads the spans, not the
+kernels' names. The fused half-block K5 (``ops/block_fused``, eval only)
+merges LN1, the core and the out-projection into one kernel and opens no
+attention span.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.summary import span
 from . import cuda_build
 from .tuning import get_tuning
 
@@ -215,8 +225,10 @@ class FusedAttentionQKV(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         qkv, mask = ctx.saved_tensors
-        return (fused_attention_qkv_bwd(qkv, g.contiguous(), ctx.n_head, mask),
-                None, None)
+        g = g.contiguous()
+        with span("msclip.attention.bwd"):  # on autograd's device thread
+            dqkv = fused_attention_qkv_bwd(qkv, g, ctx.n_head, mask)
+        return dqkv, None, None
 
 
 @functools.lru_cache(maxsize=None)

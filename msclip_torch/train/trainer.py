@@ -65,6 +65,7 @@ from ..parallel.mesh import (
     split_for_model,
     zero1_dims,
 )
+from ..utils.summary import span
 from .averaging import ema_update
 from .optim import DataShards, build_optimizer, clip_by_global_norm_, \
     global_norm, larc_step_
@@ -194,6 +195,20 @@ def gradcache_backward(encode, params, images, tokens, accum_steps: int,
     running statistics are the mean of the microbatches' recorded ones
     (one momentum update from the mean statistics); pass B records
     nothing. Returns ``(loss, bn_updates)``."""
+    loss, bn_updates, pull_back = gradcache_forward(
+        encode, params, images, tokens, accum_steps, label_smoothing,
+        generator_of, emb_loss, rows_of)
+    pull_back()
+    return loss, bn_updates
+
+
+def gradcache_forward(encode, params, images, tokens, accum_steps: int,
+                      label_smoothing: float = 0.0, generator_of=None,
+                      emb_loss=None, rows_of=None):
+    """The first half of :func:`gradcache_backward` (same arguments): pass
+    A and the loss. Returns ``(loss, bn_updates, pull_back)``, where
+    ``pull_back()`` runs the rest: the loss's gradients with respect to
+    the cached embeddings and ``logit_scale``, and pass B."""
     a = accum_steps
     B = images.shape[0]
     if B % a:
@@ -220,14 +235,17 @@ def gradcache_backward(encode, params, images, tokens, accum_steps: int,
     del outs
     scale = params["logit_scale"].detach().requires_grad_()
     loss = emb_loss(fi, ft, scale)
-    d_fi, d_ft, d_scale = torch.autograd.grad(loss, (fi, ft, scale))
-    d_fi, d_ft = d_fi.reshape(a, B // a, -1), d_ft.reshape(a, B // a, -1)
-    for i in range(a):
-        fi_i, ft_i, _ = enc(i)
-        torch.autograd.backward((fi_i, ft_i), (d_fi[i], d_ft[i]))
-    ls = params["logit_scale"]
-    ls.grad = d_scale if ls.grad is None else ls.grad + d_scale
-    return loss.detach(), bn_updates
+
+    def pull_back():
+        d_fi, d_ft, d_scale = torch.autograd.grad(loss, (fi, ft, scale))
+        d_fi, d_ft = d_fi.reshape(a, B // a, -1), d_ft.reshape(a, B // a, -1)
+        for i in range(a):
+            fi_i, ft_i, _ = enc(i)
+            torch.autograd.backward((fi_i, ft_i), (d_fi[i], d_ft[i]))
+        ls = params["logit_scale"]
+        ls.grad = d_scale if ls.grad is None else ls.grad + d_scale
+
+    return loss.detach(), bn_updates, pull_back
 
 
 @dataclass
@@ -324,13 +342,22 @@ def make_train_step(spec: MM.MSClipSpec, clip_grad_norm: float = 0.0,
     ``ring_loss`` the loss (:func:`make_embedding_loss`); with
     ``mesh.model > 1`` the blocks run split over the model group (the
     state from :func:`init_train_state` on the same mesh).
-    ``accum_steps > 1`` takes :func:`gradcache_backward`; ``freeze_bn``
+    ``accum_steps > 1`` takes GradCache (:func:`gradcache_forward`,
+    then its ``pull_back``); ``freeze_bn``
     runs BatchNorm in eval mode; ``larc`` scales AdamW's update
     (:func:`.optim.larc_step_`); ``seed`` (``TPU.SEED``) and the step
     count seed DropPath. ``metrics`` holds the global batch's loss, the
     global norm of the averaged gradients before clipping and the clamped
     ``logit_scale``, as 0-d tensors on the step's device (reading them
-    syncs the device)."""
+    syncs the device).
+
+    Under a profiler the step runs in three spans (``utils.summary.span``):
+    ``msclip.train.forward`` from its start through the loss (GradCache's
+    first pass included), ``msclip.train.backward`` around the backward on
+    the calling thread (autograd launches the backward's kernels from its
+    own device thread, so their device time lies under autograd's node
+    ranges, not under this span), and ``msclip.train.optimizer`` from the
+    gradients' reduction through the EMA update."""
     mesh = mesh or Mesh()
     group = mesh.data_group
     encode = make_encode_fn(spec, freeze_bn, group,
@@ -342,11 +369,6 @@ def make_train_step(spec: MM.MSClipSpec, clip_grad_norm: float = 0.0,
 
     def step(state: TrainState, images, tokens):
         model, optimizer, shards = state.model, state.optimizer, state.shards
-        shards.materialize()
-        params = model.params()
-        optimizer.zero_grad(set_to_none=True)
-        for p in model.parameters():
-            p.grad = None
         micro = images.shape[0] // accum_steps
 
         def generator_of(i):
@@ -361,35 +383,45 @@ def make_train_step(spec: MM.MSClipSpec, clip_grad_norm: float = 0.0,
             step_encode = functools.partial(
                 encode, action_generator=lambda: step_generator(
                     seed, state.step, 0, images.device, GUMBEL_STREAM))
-        if accum_steps > 1:
-            loss, bn_updates = gradcache_backward(
-                step_encode, params, images, tokens, accum_steps,
-                generator_of=generator_of, emb_loss=emb_loss,
-                rows_of=rows_of)
-        else:
-            fi, ft, bn_updates = step_encode(params, images, tokens,
-                                             generator_of(0), rows_of(0))
-            loss = emb_loss(fi, ft, params["logit_scale"])
-            loss.backward()
-            loss = loss.detach()
-        shards.reduce_grads()
-        grads = list(shards.grads().values())
-        grad_norm = global_norm(grads, shards.reduce_norms)
-        if clip_grad_norm > 0:
-            clip_by_global_norm_(grads, clip_grad_norm, grad_norm)
-        if larc:
-            names = shards.opt_names(optimizer)
-            larc_step_(optimizer, reduce_norms=lambda v: shards.reduce_norms(
-                v, names))
-        else:
-            optimizer.step()
-        state.scheduler.step()
-        shards.updated(keep_whole=state.ema is not None)
-        with torch.no_grad():
-            apply_bn_updates(params, bn_updates)
-            params["logit_scale"].clamp_(max=MAX_LOGIT_SCALE)
-            if state.ema is not None:
-                ema_update(state.ema, params, state.ema_decay)
+        with span("msclip.train.forward"):
+            shards.materialize()
+            params = model.params()
+            optimizer.zero_grad(set_to_none=True)
+            for p in model.parameters():
+                p.grad = None
+            if accum_steps > 1:
+                loss, bn_updates, pull_back = gradcache_forward(
+                    step_encode, params, images, tokens, accum_steps,
+                    generator_of=generator_of, emb_loss=emb_loss,
+                    rows_of=rows_of)
+            else:
+                fi, ft, bn_updates = step_encode(params, images, tokens,
+                                                 generator_of(0), rows_of(0))
+                loss = emb_loss(fi, ft, params["logit_scale"])
+                pull_back = loss.backward
+        with span("msclip.train.backward"):
+            pull_back()
+        loss = loss.detach()
+        with span("msclip.train.optimizer"):
+            shards.reduce_grads()
+            grads = list(shards.grads().values())
+            grad_norm = global_norm(grads, shards.reduce_norms)
+            if clip_grad_norm > 0:
+                clip_by_global_norm_(grads, clip_grad_norm, grad_norm)
+            if larc:
+                names = shards.opt_names(optimizer)
+                larc_step_(optimizer,
+                           reduce_norms=lambda v: shards.reduce_norms(
+                               v, names))
+            else:
+                optimizer.step()
+            state.scheduler.step()
+            shards.updated(keep_whole=state.ema is not None)
+            with torch.no_grad():
+                apply_bn_updates(params, bn_updates)
+                params["logit_scale"].clamp_(max=MAX_LOGIT_SCALE)
+                if state.ema is not None:
+                    ema_update(state.ema, params, state.ema_decay)
         shards.release()
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm,

@@ -7,6 +7,8 @@
 * :func:`profile_trace`: a ``torch.profiler`` Chrome trace around a
   region, and :class:`TraceWindow`, the ``MSCLIP_TRACE`` hook of
   zero-shot (batches 3-6) and of the train loop (steps 4-7);
+* :func:`span`: the named ranges the port opens at its layer boundaries,
+  recorded only while a profiler runs;
 * :func:`debug_nans` and :func:`deterministic`: the
   ``TRAIN.DETECT_ANOMALY`` and ``CUDNN.DETERMINISTIC`` switches.
 
@@ -80,6 +82,27 @@ def model_summary(params: Dict[str, torch.Tensor], spec) -> str:
 
 
 _TRACES = itertools.count()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler runs,
+    else a shared null context: with no profiler a span costs one check of
+    torch's enabled flag.
+
+    The port opens these at its layer boundaries (``msclip.image.stem``,
+    ``.branch``, ``.block``, ``msclip.attention.fwd``, ``.bwd``,
+    ``msclip.train.forward``, ``.backward``, ``.optimizer``); the
+    profiler charges each range the device time of the kernels its thread
+    launches inside it, on the clock of the device's own records. The
+    range is a plain function range (``_RecordFunctionFast``), not a user
+    annotation: the profiler gives a user annotation a device-side twin
+    that spans its first to its last kernel, and that twin would fill the
+    device's idle gaps inside the range in any timeline made of the
+    trace's device events."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
