@@ -195,6 +195,16 @@ headers compile and link against it (the native pipeline's two routes),
 and the CUDA toolkit's ``<nvjpeg.h>`` and ``-lnvjpeg`` (``jpeg_probe``),
 without failing the run.
 
+Phase 3 also holds the trunk block's elementwise chain (K7: ``ln``,
+``bias``, ``bias_residual_ln``, ``bias_gelu``, ``bias_residual``) against
+its plain versions at the B/32 and B/16 image batches' rows in fp32 and
+bf16 (the bias kernels bit for bit, the LayerNorms within
+``tests/block_chain_checks.assert_ln_close``), times each in turns with
+its plain version, the eager ops it replaces, against its bytes bound,
+reads each wrapper's host cost, and times whole blocks, eager against
+``layers.chain_block`` (``check_block_chain``); phase 4 holds each K7
+kernel to 11 launches an image batch and 12 a text chunk.
+
 Phase 3 also holds the int8 quantizers, LayerNorm + quant (K3) and
 QuickGELU + quant (K4), against their plain versions in fp32 and bf16
 (K4 bit for bit, and on every bf16 bit pattern, ``k4_exhaustive``; the
@@ -242,6 +252,7 @@ import numpy as np
 import torch
 
 from msclip_torch.ops import attention as A
+from msclip_torch.ops import block_chain as K7
 from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import cuda_build
 from msclip_torch.ops import halfblock_tuning as HT
@@ -491,7 +502,8 @@ def build_kernels():
     (C7510-C7515), or if a bf16 K5, K6, E1 or E2 instantiation holds no
     wgmma."""
     t0 = time.time()
-    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, BF.SOURCE, HT.SOURCE)
+    sources = (A.SOURCE, A.BWD_SOURCE, Q.SOURCE, K7.SOURCE, BF.SOURCE,
+               HT.SOURCE)
 
     def build_and_read(source):
         """One source's build, then its ptxas report and SASS readings
@@ -1535,6 +1547,206 @@ def check_quant():
     return rows
 
 
+CHAIN_ROWS = (256 * 50, 256 * 197)  # B/32 and B/16 image batches of 256
+CHAIN_E = 768
+CHAIN_BITWISE = ("bias", "bias_gelu", "bias_residual")
+HOST_CALLS = 1000  # calls a host-cost reading, on 64 rows
+
+
+@functools.lru_cache(maxsize=None)
+def block_chain_checks():
+    """``tests/block_chain_checks.py``, loaded by path: the card tests'
+    limit of a LayerNorm that sums in another order (``assert_ln_close``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "block_chain_checks", os.path.join(REPO, "tests",
+                                           "block_chain_checks.py"))
+    checks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(checks)
+    return checks
+
+
+def chain_cases(rows, dtype, gen, p=None):
+    """``{name: (kernel, plain, draw, bytes)}`` of each K7 kernel at
+    ``rows`` rows of a width-768 block: ``draw()`` gives one input set,
+    ``bytes`` what one call reads and writes, each byte once (the [N]
+    vectors left out). The block's vectors ``p``: LayerNorm gains ``1 +
+    0.1 z`` with two channels at 30, as the benchmark draws them, biases
+    ``0.1 z``."""
+    E = CHAIN_E
+    item = torch.finfo(dtype).bits // 8
+    if p is None:
+        w = 1 + 0.1 * torch.randn(E, device="cuda", generator=gen)
+        w[:2] = 30.0
+        p = {"w": w, "b": 0.1 * torch.randn(E, device="cuda", generator=gen),
+             **{f"b{n}": 0.1 * torch.randn(n * E, device="cuda",
+                                           generator=gen) for n in (1, 3, 4)}}
+        p = {k: v.to(dtype) for k, v in p.items()}
+
+    def t(n, scale=1.0):
+        return (scale * torch.randn(rows, n * E, device="cuda",
+                                    generator=gen)).to(dtype)
+
+    return {
+        "ln": (K7.ln, K7.ln_plain, lambda: (t(1, 3.0), p["w"], p["b"]),
+               2 * rows * E * item),
+        "bias": (K7.bias, K7.bias_plain, lambda: (t(3), p["b3"]),
+                 2 * rows * 3 * E * item),
+        "bias_residual_ln": (K7.bias_residual_ln, K7.bias_residual_ln_plain,
+                             lambda: (t(1), p["b1"], t(1, 3.0), p["w"],
+                                      p["b"]), 4 * rows * E * item),
+        "bias_gelu": (K7.bias_gelu, K7.bias_gelu_plain,
+                      lambda: (t(4, 2.0), p["b4"]), 2 * rows * 4 * E * item),
+        "bias_residual": (K7.bias_residual, K7.bias_residual_plain,
+                          lambda: (t(1), p["b1"], t(1)),
+                          3 * rows * E * item),
+    }
+
+
+def chain_check(name, got, want, args):
+    """One K7 call against its plain version: ``bias``, ``bias_gelu`` and
+    ``bias_residual`` bit for bit; ``bias_residual_ln``'s residual stream
+    bit for bit and its LayerNorm, as ``ln``'s, within
+    :func:`assert_ln_close`. Returns the largest absolute difference."""
+    assert_ln_close = block_chain_checks().assert_ln_close
+    if name == "ln":
+        assert_ln_close(got, *args)
+        pairs = [(got, want)]
+    elif name == "bias_residual_ln":
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError("bias_residual_ln: the residual stream "
+                                 "differs from the plain version's")
+        assert_ln_close(got[1], want[0], args[3], args[4])
+        pairs = list(zip(got, want))
+    else:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit for bit the plain "
+                                 f"version's")
+        pairs = [(got, want)]
+    return max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+
+
+def host_us(fn, args, n=HOST_CALLS):
+    """The host's microseconds a call of ``fn(*args)`` on small inputs,
+    whose kernels finish well before the next launch."""
+    for _ in range(10):
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def eager_block(p, x, n_head=12):
+    """``transformer_block``'s eager chain, as a step with grad runs it."""
+    from msclip_torch.models import layers as L
+
+    x = x + L.attention(p, L.layer_norm(x, p["ln_1.weight"], p["ln_1.bias"]),
+                        n_head)
+    return x + L.mlp(p, L.layer_norm(x, p["ln_2.weight"], p["ln_2.bias"]))
+
+
+def chain_block_params(gen, dtype=torch.bfloat16):
+    """A width-768 trunk block's tensors: LayerNorm gains ``1 + 0.1 z``
+    with two at 30, biases ``0.02 z``, projections ``0.02 z``."""
+    E, p = CHAIN_E, {}
+    for ln in ("ln_1", "ln_2"):
+        w = 1.0 + 0.1 * torch.randn(E, generator=gen, device="cuda")
+        w[:2] = 30.0
+        p[f"{ln}.weight"] = w
+        p[f"{ln}.bias"] = 0.02 * torch.randn(E, generator=gen, device="cuda")
+    for key, bias, shape in (("attn.in_proj_weight", "attn.in_proj_bias",
+                              (3 * E, E)),
+                             ("attn.out_proj.weight", "attn.out_proj.bias",
+                              (E, E)),
+                             ("mlp.c_fc.weight", "mlp.c_fc.bias", (4 * E, E)),
+                             ("mlp.c_proj.weight", "mlp.c_proj.bias",
+                              (E, 4 * E))):
+        p[key] = 0.02 * torch.randn(shape, generator=gen, device="cuda")
+        p[bias] = 0.02 * torch.randn(shape[0], generator=gen, device="cuda")
+    return {k: v.to(dtype) for k, v in p.items()}
+
+
+def check_block_chain():
+    """K7 against its plain versions, the eager ops it replaces, at the
+    B/32 and B/16 image batches' rows (12,800 and 50,432; E = 768, the
+    bias kernels 3E and 4E wide) in fp32 and bf16 (:func:`chain_check`);
+    each kernel then timed in turns with its plain version (plain, kernel,
+    kernel, plain; event and device time, inputs cycled past the L2),
+    bf16 at both row counts and fp32 at B/16's, against the time of its
+    bytes at the card's bandwidth (``bound_ms``); the plain version is
+    the eager chain the kernel replaces, so it is ``library_ms`` too. The
+    host's microseconds a wrapper call (``host_us``, beside the eager
+    ops'). Last, whole blocks: the eager block and ``layers.chain_block``
+    in turns at both row counts, bf16 (``block`` lines). Returns ``{name:
+    rows}``."""
+    from msclip_torch.models import layers as L
+
+    out = {fn.__name__: [] for fn in K7.KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).replace("torch.", "")
+        for rows in CHAIN_ROWS:
+            cases = chain_cases(rows, dtype, gen)
+            for name, (kernel, plain, draw, nbytes) in cases.items():
+                args = draw()
+                err = chain_check(name, kernel(*args), plain(*args), args)
+                row = {"n_rows": rows, "E": CHAIN_E, "dtype": label,
+                       "max_abs_err": err,
+                       "bitwise": name in CHAIN_BITWISE}
+                log("kernel_check", name=f"block_{name}", **row)
+                out[name].append(row)
+                if dtype == torch.float32 and rows != CHAIN_ROWS[-1]:
+                    continue
+                n_inputs = max(2, math.ceil(2 * L2_BYTES / nbytes))
+                sets = [draw() for _ in range(n_inputs)]
+                t = in_turns(lambda i: kernel(*sets[i]),
+                             lambda i: plain(*sets[i]), n_inputs)
+                small = [a[:64] if a.dim() == 2 else a for a in args]
+                timing = {
+                    "n_rows": rows, "E": CHAIN_E, "dtype": label,
+                    "ms": t["ms"], "device_ms": t["device_ms"],
+                    "plain_ms": t["library_ms"],
+                    "plain_device_ms": t["library_device_ms"],
+                    "vs_plain": t["vs_library"], "turns_ms": t["turns_ms"],
+                    "library_ms": t["library_ms"],
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes",
+                    "host_us": host_us(kernel, small),
+                    "plain_host_us": host_us(plain, small),
+                }
+                if t["device_ms"]:
+                    timing["share_of_bound"] = (timing["bound_ms"]
+                                                / t["device_ms"])
+                if "device_error" in t:
+                    timing["device_error"] = t["device_error"]
+                log("kernel", name=f"block_{name}", **timing,
+                    bound_us=timing["bound_ms"] * 1e3)
+                out[name].append(timing)
+                del sets
+            del cases
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    p = chain_block_params(gen)
+    for rows in CHAIN_ROWS:
+        xs = [torch.randn(256, rows // 256, CHAIN_E, device="cuda",
+                          generator=gen).to(torch.bfloat16) for _ in range(2)]
+        with torch.inference_mode():
+            t = in_turns(lambda i: L.chain_block(p, xs[i], 12),
+                         lambda i: eager_block(p, xs[i]), 2,
+                         one_record=False, iters=10)
+        log("block", n_rows=rows, E=CHAIN_E, dtype="bfloat16",
+            chain_ms=t["ms"], eager_ms=t["library_ms"],
+            chain_device_ms=t["device_ms"],
+            eager_device_ms=t["library_device_ms"],
+            vs_eager=t["vs_library"])
+        del xs
+    return out
+
+
 # torch.compile baselines, timed after the last profiler trace: once a
 # process has run torch.compile, torch.profiler traces no device record
 COMPILE_BASELINES = []
@@ -1843,18 +2055,20 @@ def b32_zero_shot_config(fused=False):
 
 def run_slice(save_pred=""):
     """Zero-shot MS-CLIP-S B/32 at full width through the port's entry
-    point, with the attention kernel's launches counted over the run; with
-    ``save_pred``, its logits go to that ``.npz`` (``TEST.SAVE_PRED``)
-    for phase 18."""
+    point, with the launches of the attention kernel and of each K7
+    kernel counted over the run (each 11 an image batch and 12 a text
+    chunk); with ``save_pred``, its logits go to that ``.npz``
+    (``TEST.SAVE_PRED``) for phase 18. Returns K1's launches and K7's
+    (:func:`chain_launches`)."""
     from msclip_torch.eval.zero_shot import run_zero_shot
 
     cfg = b32_zero_shot_config()
     cfg.TEST.SAVE_PRED = save_pred
     torch.cuda.reset_peak_memory_stats()
-    A.fused_attention_qkv.launches = 0
+    reset_launches()
     value, stats = run_zero_shot(cfg, device="cuda")
     torch.cuda.synchronize()
-    launches = A.fused_attention_qkv.launches
+    launches, chain = A.fused_attention_qkv.launches, chain_launches()
     expected = 11 * stats["n_image_batches"] + 12 * stats["n_text_chunks"]
     log("slice", model="b32-yfcc-msclips", dtype="bfloat16",
         top1=value, n_images=stats["n_images"],
@@ -1863,7 +2077,7 @@ def run_slice(save_pred=""):
         image_batches=stats["n_image_batches"],
         text_chunks=stats["n_text_chunks"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-        attention_launches=launches)
+        attention_launches=launches, chain_launches=json.dumps(chain))
     if stats["n_images"] != 512 or not 0.0 <= value <= 100.0:
         raise AssertionError(f"zero-shot run gave {value} on "
                              f"{stats['n_images']} images")
@@ -1872,7 +2086,10 @@ def run_slice(save_pred=""):
                              f"expected 11 x {stats['n_image_batches']} "
                              f"image batches + 12 x {stats['n_text_chunks']} "
                              f"text chunks = {expected}")
-    return launches
+    if chain != dict.fromkeys(chain, expected):
+        raise AssertionError(f"block chain kernels launched {chain}, "
+                             f"expected {expected} each")
+    return launches, chain
 
 
 def card_against_cpu(atol=1e-3, fused=False):
@@ -2085,6 +2302,13 @@ def reset_launches():
         fn.launches_by_width = dict.fromkeys(BF.WIDTHS, 0)
     HT.attention_halfblock_variant.launches = 0
     HT.core_out_halfblock.launches = 0
+    for fn in K7.KERNELS:
+        fn.launches = 0
+
+
+def chain_launches():
+    """Launches of each K7 kernel since :func:`reset_launches`."""
+    return {fn.__name__: fn.launches for fn in K7.KERNELS}
 
 
 def read_launches():
@@ -4999,6 +5223,19 @@ def kernel_line(rows, launches, name, replaces, head, shape, source=None):
     return line
 
 
+def chain_kernel_lines(rows, launched):
+    """The ``kernels`` entries of K7: one a kernel, its headline B/16's
+    rows in bf16, from :func:`check_block_chain`'s ``rows`` and the
+    slice's launches ``launched`` (:func:`chain_launches`)."""
+    return [kernel_line(rows[name], launched[name], f"block_{name}",
+                        "msclip_tpu/models/layers.py:259 (XLA's fusion)",
+                        headline(rows[name], n_rows=CHAIN_ROWS[-1],
+                                 dtype="bfloat16"),
+                        f"rows={CHAIN_ROWS[-1]} E={CHAIN_E} bfloat16",
+                        f"msclip_torch/csrc/{K7.SOURCE}")
+            for name in rows]
+
+
 def main(measure=False):
     """The default run, or with ``measure`` (``--measure``) also the
     phases that only re-measure what PERF.md records: the in-turns
@@ -5027,8 +5264,9 @@ def main(measure=False):
     attn_rows = timed("k1", check_attention)
     bwd_rows = timed("k2", check_attention_bwd)
     quant_rows = timed("k3_k4", check_quant)
+    chain_rows = timed("k7", check_block_chain)
     half_rows = timed("k5_k6", check_halfblocks, traced)
-    launches = timed("slice", run_slice, slice_pred)
+    launches, chain_launched = timed("slice", run_slice, slice_pred)
     timed("card_vs_cpu", card_against_cpu)
     train_launches, resident = timed("train", run_train_slice)
     timed("train_card_vs_cpu", train_card_against_cpu)
@@ -5102,6 +5340,7 @@ def main(measure=False):
                     "msclip_tpu/ops/quant.py:124",
                     headline(quant_rows["gelu_quant"], dtype="bfloat16"),
                     "B=256 L=197 F=3072 bfloat16", quant),
+        *chain_kernel_lines(chain_rows, chain_launched),
         {**kernel_line(half_rows["attention_halfblock"],
                        k5_launches + serve["k5"] + zoo_k5[768],
                        "attention_halfblock",

@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops import block_chain as K7
 from ..ops.attention import fused_attention_qkv
 from ..ops.quant import gelu_quant, ln_quant, quantize_rows_plain
 from ..ops.tuning import DEFAULT as DEFAULT_TUNING, get_tuning
@@ -324,6 +325,47 @@ def drop_path(x, rate, keep):
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
+def backward_may_follow(p, x) -> bool:
+    """Whether a backward may reach a block on ``x`` with tensors ``p``:
+    outside inference mode, ``x`` or a block tensor requires grad. Grad
+    mode alone does not settle it: under ``no_grad`` such a block records
+    nothing, yet its caller may run it again with grad and pull gradients
+    back through that run (GradCache's two passes), and both runs have to
+    take one chain."""
+    return not torch.is_inference_mode_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.values()))
+
+
+def chain_route(p, x, tp=None, dropping=False) -> bool:
+    """Whether :func:`transformer_block` runs :func:`chain_block`: the
+    plain block (not int8, not tensor parallel), no drop-path, no backward
+    to follow (:func:`backward_may_follow`), on a device, dtype and width
+    the kernels take (``ops/block_chain.takes``)."""
+    return (tp is None and not dropping and "attn.in_proj_weight" in p
+            and K7.takes(x) and not backward_may_follow(p, x))
+
+
+def chain_block(p, x, n_head, mask=None, eps=1e-12):
+    """:func:`transformer_block`'s plain block with its elementwise chain
+    in the five kernels of ``ops/block_chain`` (K7): the same operations
+    and roundings, the LayerNorms' sums in another order. The GEMMs are
+    :func:`linear`'s products without their bias; the attention core runs
+    in the span ``msclip.attention.fwd``, as in :func:`attention`. A
+    contiguous ``x`` of a width the kernels take starts each row 16-byte
+    aligned, as they need."""
+    x = x.contiguous()
+    h = K7.ln(x, p["ln_1.weight"], p["ln_1.bias"], eps)
+    qkv = K7.bias(linear(h, p["attn.in_proj_weight"]), p["attn.in_proj_bias"])
+    with span("msclip.attention.fwd"):
+        ctx = fused_attention_qkv(qkv, n_head, mask)
+    x, h = K7.bias_residual_ln(linear(ctx, p["attn.out_proj.weight"]),
+                               p["attn.out_proj.bias"], x, p["ln_2.weight"],
+                               p["ln_2.bias"], eps)
+    mid = K7.bias_gelu(linear(h, p["mlp.c_fc.weight"]), p["mlp.c_fc.bias"])
+    return K7.bias_residual(linear(mid, p["mlp.c_proj.weight"]),
+                            p["mlp.c_proj.bias"], x)
+
+
 def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
                       keep=None, tp=None):
     """Pre-LN residual attention block (reference ``:1027-1028``), with
@@ -331,12 +373,16 @@ def transformer_block(p, x, n_head, mask=None, eps=1e-12, drop_path_rate=0.0,
     branches' two keep masks ``keep`` (:func:`drop_path_keep`, drawn by the
     caller, so that a rematerialised block's recomputation drops the same
     samples) are given. A quantized block without drop-path at ``L >=
-    int8_min_seq()`` runs :func:`int8_block`. ``tp``: the model group of
-    tensor parallelism (:func:`attention`, :func:`mlp`)."""
+    int8_min_seq()`` runs :func:`int8_block`; where no backward can follow
+    the plain block runs :func:`chain_block` on the card
+    (:func:`chain_route`). ``tp``: the model group of tensor parallelism
+    (:func:`attention`, :func:`mlp`)."""
     dropping = drop_path_rate > 0.0 and keep is not None
     if "attn.in_proj_weight_int8" in p and not dropping \
             and x.shape[1] >= int8_min_seq(x.device):
         return int8_block(p, x, n_head, mask, eps)
+    if chain_route(p, x, tp, dropping):
+        return chain_block(p, x, n_head, mask, eps)
 
     def dp(t, i):
         return drop_path(t, drop_path_rate, keep[i]) if dropping else t

@@ -837,10 +837,23 @@ class MSClipModel(nn.Module):
                 mod.register_parameter(leaf, nn.Parameter(tensor))
             else:
                 mod.register_buffer(leaf, tensor)
+        # each tensor's name, module and leaf, in the order of
+        # named_parameters() then named_buffers(): params() reads the
+        # tensors there at each call (.to() replaces them) instead of
+        # walking the module tree, thousands of submodule visits a call
+        self._slots = [
+            (name, self.get_submodule(name.rpartition(".")[0]),
+             name.rpartition(".")[2], store)
+            for store, named in (("_parameters", self.named_parameters()),
+                                 ("_buffers", self.named_buffers()))
+            for name, _ in named]
 
     def params(self):
-        """The flat reference-layout dict the apply functions take."""
-        return {**dict(self.named_parameters()), **dict(self.named_buffers())}
+        """The flat reference-layout dict the apply functions take: the
+        names and tensors of ``named_parameters()`` then
+        ``named_buffers()``."""
+        return {name: getattr(mod, store)[leaf]
+                for name, mod, leaf, store in self._slots}
 
     def encode_image(self, images, **kw):
         return encode_image(self.params(), self.spec, images, **kw)

@@ -75,6 +75,7 @@ from ..models.msclip import (
     set_fp32_precision,
 )
 from ..ops import attention as A
+from ..ops import block_chain as K7
 from ..ops import block_fused as BF
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
@@ -84,11 +85,12 @@ FORMAT = "msclip_torch/1"
 JAX_FORMAT = 1
 PARAMS_NAME = "params.npz"
 CLASSIFIER_NAME = "classifier.npy"
-# the wrappers of the kernels a served tower launches (K1; K5 in a fused
-# bundle), whose launch counters a capture reads
+# the wrappers of the kernels a served tower launches (K1 and the block
+# chain K7; K5 in a fused bundle), whose launch counters a capture reads
 KERNEL_COUNTERS = {
     "attention_fwd": A.fused_attention_qkv,
     "attention_halfblock": BF.fused_attention_halfblock,
+    **{f"block_{fn.__name__}": fn for fn in K7.KERNELS},
 }
 
 

@@ -1,7 +1,8 @@
 """Where the time of zero-shot MS-CLIP-S eval goes on one CUDA card.
 
     python -m msclip_torch.tools.profile_zero_shot [--iters 10] \
-        [--cfg msclip_torch/config/b16-yfcc-msclips.json] [KEY VALUE ...]
+        [--cfg msclip_torch/config/b16-yfcc-msclips.json] \
+        [--span-steps 4] [KEY VALUE ...]
 
 At full width (B/32 unless ``--cfg`` names another config; the trailing
 overrides, e.g. ``TPU.INT8_EVAL True`` or ``TPU.USE_FUSED_BLOCK True``, are
@@ -14,8 +15,12 @@ device (CUDA events, after warm-up, inputs resident on the card):
 then traces one call of each with ``torch.profiler`` and prints the device
 time by kernel, the shares of the port's kernels (attention, the int8
 quantizers, the fused half-blocks), and the device's idle share of the
-traced window. Last, it runs ``run_zero_shot`` end to end on 2048
-synthetic images. Each result is one JSON line on stdout.
+traced window. With ``--span-steps n`` it traces ``n`` calls of
+``encode_image`` and splits their device time by the ``msclip.*`` spans
+(:func:`span_split`: each kernel charged once, to the innermost and to the
+outermost span open on its launching thread at its launch). Last, it runs
+``run_zero_shot`` end to end on 2048 synthetic images. Each result is one
+JSON line on stdout.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import argparse
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -90,11 +96,66 @@ def kernel_breakdown(fn, names=("attention_fwd", "ln_quant", "gelu_quant",
     return out
 
 
+def span_split(trace, steps):
+    """ms a step of a chrome trace's kernels by the innermost and by the
+    outermost ``msclip.*`` span open on the launching thread at their
+    launch (found by the launch's correlation id). A kernel record that
+    the profiler repeats (name, start and duration equal; it appends
+    stalled launches' kernels to a ``Command Buffer Full`` record) counts
+    once."""
+    launches, ranges, kernels = {}, {}, []
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat", ""), e.get("args", {})
+        if cat == "kernel":
+            kernels.append(e)
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launches[args["correlation"]] = (e["tid"], e["ts"])
+        elif e.get("name", "").startswith("msclip."):
+            ranges.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    inner, outer, seen = {}, {}, set()
+    for k in kernels:
+        key = (k["name"], k["ts"], k["dur"])
+        if key in seen:
+            continue
+        seen.add(key)
+        tid, ts = launches.get(k["args"].get("correlation"), (None, None))
+        open_ = sorted(r for r in ranges.get(tid, ()) if r[0] <= ts <= r[1]) \
+            if ts is not None else []
+        i = open_[-1][2] if open_ else "outside any span"
+        o = open_[0][2] if open_ else "outside any span"
+        inner[i] = inner.get(i, 0.0) + k["dur"] / 1e3 / steps
+        outer[o] = outer.get(o, 0.0) + k["dur"] / 1e3 / steps
+    return inner, outer
+
+
+def traced_spans(fn, steps):
+    """:func:`span_split` of ``steps`` traced calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return span_split(json.load(f), steps)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--cfg", default=CONFIG,
                         help="model config (resolved JSON or YAML)")
+    parser.add_argument("--span-steps", type=int, default=0,
+                        help="also split this many traced encode_image "
+                        "calls by span")
     parser.add_argument("opts", nargs=argparse.REMAINDER,
                         help="config overrides, KEY VALUE ...")
     args = parser.parse_args(argv)
@@ -125,6 +186,12 @@ def main(argv=None):
             ms = device_ms(fn, args.iters)
             emit(phase=name, config=cfg.NAME, opts=args.opts, batch=n, ms=ms,
                  items_per_s=n / ms * 1e3, **kernel_breakdown(fn))
+        if args.span_steps:
+            inner, outer = traced_spans(lambda: model.encode_image(images),
+                                        args.span_steps)
+            emit(phase="encode_image_spans", config=cfg.NAME,
+                 steps=args.span_steps, busy_ms=sum(outer.values()),
+                 outermost=outer, innermost=inner)
 
     cfg.merge_from_list(["DATASET.DATASET", "synthetic",
                          "DATASET.NUM_SAMPLES", 2048,

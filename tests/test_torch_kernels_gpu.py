@@ -17,6 +17,7 @@ import torch
 
 from msclip_torch.models.layers import build_causal_mask
 from msclip_torch.ops import attention as A
+from msclip_torch.ops import block_chain as K7
 from msclip_torch.ops import block_fused as BF
 from msclip_torch.ops import halfblock_tuning as HT
 from msclip_torch.ops import quant as Q
@@ -832,7 +833,9 @@ def test_gradcache_matches_the_one_shot_step_on_the_card(cuda, tmp_path):
     """A small MS-CLIP-S (width 128, heads of 64) in fp32 with frozen BN on
     the card: the ``ACCUM_STEPS 4`` gradients (GradCache) against the
     one-shot step's within 2e-5, with K1 and K2 launched 46a and 23a
-    times per 23 blocks (here 2 x 4 x blocks and 4 x blocks)."""
+    times per 23 blocks (here 2 x 4 x blocks and 4 x blocks), and no
+    block chain kernel (K7) in either: GradCache's no-grad pass runs the
+    eager chain, as its pass with grad does."""
     import json
     import os
 
@@ -867,6 +870,7 @@ def test_gradcache_matches_the_one_shot_step_on_the_card(cuda, tmp_path):
                                       params.items()}, trainable=True).to(cuda)
         before = (A.fused_attention_qkv.launches,
                   A.fused_attention_qkv_bwd.launches)
+        chain_before = [fn.launches for fn in K7.KERNELS]
         if accum == 1:
             loss, _ = TT.make_loss_fn(spec, freeze_bn=True)(
                 model.params(), images, tokens)
@@ -877,6 +881,7 @@ def test_gradcache_matches_the_one_shot_step_on_the_card(cuda, tmp_path):
         torch.cuda.synchronize()
         launches.append((A.fused_attention_qkv.launches - before[0],
                          A.fused_attention_qkv_bwd.launches - before[1]))
+        assert [fn.launches for fn in K7.KERNELS] == chain_before, accum
         grads.append({k: p.grad for k, p in model.named_parameters()
                       if p.grad is not None})
     assert launches == [(blocks, blocks), (8 * blocks, 4 * blocks)]
@@ -927,17 +932,20 @@ def b32_served(tmp_path_factory):
 def test_serving_graph_replay_equals_eager_bitwise(b32_served, bundle):
     """Every bucket of both towers: the replay equals an eager call of the
     same towers on the same padded batch bit for bit, and the capture
-    recorded K1 (unfused) or K5 (fused) once a block."""
+    recorded K1 and each block chain kernel K7 (unfused) or K5 (fused)
+    once a block."""
     import chip_smoke
 
     served = b32_served[bundle]
-    kernel = "attention_fwd" if bundle == "b32" else "attention_halfblock"
+    kernels = (["attention_fwd"] + [f"block_{fn.__name__}"
+                                    for fn in K7.KERNELS]
+               if bundle == "b32" else ["attention_halfblock"])
     blocks = {"image": 11, "text": 12}
     for tower, fns in (("image", served.image_fns),
                        ("text", served.text_fns)):
         for b, r in fns.items():
             assert {k: v for k, v in r.launches.items() if v} == \
-                {kernel: blocks[tower]}, (tower, b)
+                dict.fromkeys(kernels, blocks[tower]), (tower, b)
             for seed in range(2):
                 x = chip_smoke.tower_inputs(tower, b, seed)
                 got = r(x)

@@ -175,6 +175,22 @@ def test_model_module_state_dict_has_reference_keys(tiny):
         TM.encode_image(tp, spec, torch.from_numpy(images)))
 
 
+@pytest.mark.parametrize("trainable", [False, True])
+def test_model_params_are_its_named_tensors(tiny, trainable):
+    """``params()`` holds the names and tensor objects of
+    ``named_parameters()`` then ``named_buffers()``, in that order, also
+    after ``.to()`` has replaced the tensors."""
+    _, _, _, spec, tp = tiny
+    model = TM.MSClipModel(spec, tp, trainable=trainable)
+    for _ in range(2):
+        want = {**dict(model.named_parameters()),
+                **dict(model.named_buffers())}
+        got = model.params()
+        assert list(got) == list(want)
+        assert all(got[k] is want[k] for k in want)
+        model = model.to(torch.float64)
+
+
 @pytest.mark.parametrize("name", RELEASED)
 def test_released_configs_build_with_the_reference_key_set(name):
     """Each released MS-CLIP-S config builds a spec whose key map covers

@@ -314,8 +314,7 @@ def test_gelu_quant_constants_mirror_the_source():
     emulations above take: RN(1 / 127), 1.5 2^23, 2^126, 2^-64."""
     import re
 
-    with open(os.path.join(REPO, "msclip_torch", "csrc", "quant.cu")) as f:
-        src = f.read()
+    src = _quant_sources()
     rcp = re.search(r"kRcp127 = (0x[0-9a-fp.+-]+)f;", src).group(1)
     assert F32(float.fromhex(rcp)) == F32(1) / F32(127)
     assert float(re.search(r"kRintMagic = ([0-9.]+)f;", src).group(1)) \
@@ -326,24 +325,38 @@ def test_gelu_quant_constants_mirror_the_source():
     assert "rcp.approx.ftz.f32" in src and "max.NaN.f32" in src
 
 
+def _quant_sources():
+    """``csrc/quant.cu`` and the LayerNorm row body it includes,
+    ``csrc/ln_row.cuh`` (shared with the block chain K7)."""
+    out = []
+    for name in ("quant.cu", "ln_row.cuh"):
+        with open(os.path.join(REPO, "msclip_torch", "csrc", name)) as f:
+            out.append(f.read())
+    return "\n".join(out)
+
+
 def test_ln_quant_constants_mirror_the_source():
     """K3 in ``csrc/quant.cu`` takes the quantization K4 takes (the scale by
     ``div_rn`` with RN(1 / 127), the quotient by ``div_rn`` with one rounded
     reciprocal a row, the NaN-propagating abs-max, zeros for a non-finite
     scale: the sequences the emulations here check) and the sums the
-    emulation below takes; its widest row is the wrapper's ``MAX_WIDTH``."""
+    emulation below takes (``ln_row`` of ``csrc/ln_row.cuh``); its widest
+    row is the wrapper's ``MAX_WIDTH``."""
     import re
 
-    with open(os.path.join(REPO, "msclip_torch", "csrc", "quant.cu")) as f:
-        src = f.read()
+    src = _quant_sources()
     k3 = src[src.index("ln_quant_kernel(const T*"):src.index("// K4\n")]
-    for piece in ("tree_sum8(v[j])", "sq[j] = fmaf(v[j][i], v[j][i], sq[j]);",
-                  "__fdiv_rn(warp_sum(sum), (float)E)",
-                  "rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq_all), (float)E), eps))",
-                  "affine.run(v[j], wc, bc, rstd);",
+    for piece in ("ln_load<T, C>(v, x + (size_t)row * E, lane, n_chunks);",
+                  "ln_row<T, C>(v, w, b, affine, lane, E, eps);",
                   "row_scale(warp_max_nan(affine.amax()))", "scale_rcp(sc)",
                   "quantize8(v[j], sc, r)"):
         assert piece in k3, piece
+    body = src[src.index("ln_row(float (&v)[C][kChunk]"):]
+    for piece in ("tree_sum8(v[j])", "sq[j] = fmaf(v[j][i], v[j][i], sq[j]);",
+                  "__fdiv_rn(warp_sum(sum), (float)E)",
+                  "rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq_all), (float)E), eps))",
+                  "affine.run(v[j], wc, bc, rstd);"):
+        assert piece in body, piece
     # the affine: bf16 rounded once an op on bf16x2 (equal to an fp32 op
     # rounded to bf16: fp32's 24 bits >= 2 x 8 + 2), fp32 unfused
     for piece in ("__floats2bfloat162_rn(__fmul_rn(v[i], rstd),",
