@@ -58,11 +58,12 @@ def planted(variant):
 def image_gaps(cell, seed, device):
     from benchmark.kinds import eval as eval_kind
 
-    a = R.arch_from_file(cell.config_path)
+    a = manifest.arch(cell.config_path)
     gen = cells.input_generator(seed, device)
     images = cells.make_images(a, cell.traffic, gen, device)
     classifier = cells.make_classifier(a, cell.traffic, gen, device)
-    ref = eval_kind.reference_logits(a, images, classifier, seed, device)
+    ref = eval_kind.reference_logits(manifest.layout(cell.config_path), a,
+                                     images, classifier, seed, device)
     slot = (ref - ref.roll(1, dims=0)).square()
     row = (ref - ref.roll(1, dims=1)).square().mean(dim=-1).sqrt().flatten()
     return {"slot_rms_gap": slot.mean().sqrt().item(),
@@ -88,7 +89,7 @@ def readings(cell, seed, variant, seconds, device, procs):
             "setup")}
         return {**numbers, **{k: v for k, v in info.items()
                               if isinstance(v, float)}}, info
-    a = R.arch_from_file(cell.config_path)
+    a = manifest.arch(cell.config_path)
     batch = cell.traffic["batch"]
     whole = {**cell.traffic, "batch": batch * procs.world}
     rows = slice(procs.rank * batch, (procs.rank + 1) * batch)

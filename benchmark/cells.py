@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
+from . import manifest
 from . import reference as R
 from . import tracing
 
@@ -358,14 +359,16 @@ def reference_readings(cell, a, images, tokens, seed, device, prec=R.FP32,
     """The reference's checked steps from the seed's weights, on this
     process's ``rows`` (a slice) of each global batch: with more than one
     process the reference's step spans them all
-    (:class:`reference.TrainReference`). ``fault``: one planted in the
+    (the layout's ``train_reference``). ``fault``: one planted in the
     reference (``half_batch``, ``no_exchange``)."""
-    opt = R.optim_from_file(cell.config_path, cell.traffic["steps_per_epoch"])
+    layout = manifest.layout(cell.config_path)
     rows = rows or slice(None)
     with full_precision():
-        params = R.draw_params(R.param_layout(a), seed, device)
+        params = R.draw_params(layout.param_layout(a), seed, device)
         p0 = {k: v.clone() for k, v in params.items()}
-        ref = R.TrainReference(params, a, opt, prec, fault)
+        ref = layout.train_reference(params, a, cell.config_path,
+                                     cell.traffic["steps_per_epoch"], prec,
+                                     fault)
         losses, grads = [], None
         for s in range(cell.traffic["check_steps"]):
             loss, g = ref.step(images[s][rows], tokens[s][rows])

@@ -1,5 +1,6 @@
 """Operations and bytes of the cells' work, reckoned from the shapes of a
-configuration (:class:`benchmark.reference.Arch`), whatever kernels run.
+configuration (the ``Arch`` of its layout, ``benchmark/layouts/``), whatever
+kernels run.
 
 Operations are those of the matrix products and convolutions, ``2 m n k``
 each, as ``torch.utils.flop_counter.FlopCounterMode`` counts them on the
@@ -19,9 +20,9 @@ def _conv(c_out, c_in_per_group, k, hw):
     return 2 * c_out * hw * hw * c_in_per_group * k * k
 
 
-def image_flops(a):
-    """One image through ``encode_image``: stem, branch, adapters, trunk,
-    projection."""
+def msclips_image_flops(a):
+    """One image through MS-CLIP-S's ``encode_image``: stem, branch,
+    adapters, trunk, projection."""
     W, R = a.width, a.resolution
     n = len(a.stem_strides)
     total = 0
@@ -50,9 +51,16 @@ def image_flops(a):
         t2b = _out(top, a.t2b_kernels[i], a.t2b_strides[i], a.t2b_paddings[i])
         total += _conv(outs[i], 1, a.t2b_kernels[i], t2b)
         total += _conv(W, outs[i], 1, t2b) + _conv(W, 1, 3, g)
-    L = a.seq
-    total += (a.layers - 1) * block_flops(W, L)
+    total += a.attention_blocks * block_flops(W, a.seq)
     return total + 2 * W * a.embed
+
+
+def vit_image_flops(a):
+    """One image through a plain ViT's ``encode_image``: the patchify
+    convolution, the blocks, the projection."""
+    return (_conv(a.width, 3, a.patch, a.grid)
+            + a.attention_blocks * block_flops(a.width, a.seq)
+            + 2 * a.width * a.embed)
 
 
 def block_flops(width, seq):
@@ -69,13 +77,13 @@ def text_flops(a):
 
 def eval_flops_per_image(a, classes):
     """``encode_image`` and the logits against ``classes`` classes."""
-    return image_flops(a) + 2 * a.embed * classes
+    return a.image_flops() + 2 * a.embed * classes
 
 
 def train_flops_per_sample(a, batch):
     """Forward and backward, three times the forward: both towers and the
     ``[batch, batch]`` logits of the loss. Recomputation is not counted."""
-    return 3 * (image_flops(a) + text_flops(a) + 2 * batch * a.embed)
+    return 3 * (a.image_flops() + text_flops(a) + 2 * batch * a.embed)
 
 
 def attention_fwd_cost(batch, seq, width, heads, causal, dtype_bytes=2):

@@ -7,7 +7,7 @@ import time
 
 import torch
 
-from benchmark import cells
+from benchmark import cells, manifest
 from benchmark import reference as R
 
 KEPT_MARGIN = 1.5  # kept steps over those the warm-up's pace predicts
@@ -27,24 +27,27 @@ def load_program_eval(cfg, spec, params, device):
         checkpoint_load.load_model_params = read
 
 
-def reference_logits(a, images, classifier, seed, device):
-    """The reference's logits of every ring slot, float32."""
+def reference_logits(layout, a, images, classifier, seed, device):
+    """The reference's logits of every ring slot, float32, by the
+    configuration's ``layout`` module."""
     with torch.no_grad(), cells.full_precision():
-        params = R.draw_params(R.param_layout(a), seed, device)
-        return torch.stack([R.zero_shot_logits(params, a, batch, classifier)
+        params = R.draw_params(layout.param_layout(a), seed, device)
+        return torch.stack([layout.zero_shot_logits(params, a, batch,
+                                                    classifier)
                             for batch in images])
 
 
 def run(cell, seed, seconds, trace, device, t_start, opts=()):
     """One eval run. ``opts``: config overrides (the int8 control)."""
-    a = R.arch_from_file(cell.config_path)
+    layout = manifest.layout(cell.config_path)
+    a = manifest.arch(cell.config_path)
     tr = cell.traffic
     ring, batch = tr["ring"], tr["batch"]
     cfg, spec = cells.port_config(cell.config_path, opts)
     gen = cells.input_generator(seed, device)
     images = cells.make_images(a, tr, gen, device)
     classifier = cells.make_classifier(a, tr, gen, device)
-    params = R.draw_params(R.param_layout(a), seed, device)
+    params = R.draw_params(layout.param_layout(a), seed, device)
     cells.sync(device)
     parts = {"setup_imports_and_draw_s": time.perf_counter() - t_start}
     model = load_program_eval(cfg, spec, params, device)
@@ -85,7 +88,7 @@ def run(cell, seed, seconds, trace, device, t_start, opts=()):
     del model, step
     cells.free(device)
 
-    ref = reference_logits(a, images, classifier, seed, device)
+    ref = reference_logits(layout, a, images, classifier, seed, device)
     with torch.no_grad():
         first = max(0, steps - cap)
         worst = torch.zeros((), device=device)

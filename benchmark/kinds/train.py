@@ -12,11 +12,16 @@ import time
 
 import torch
 
-from benchmark import cells
+from benchmark import cells, manifest
 from benchmark import reference as R
 
 
 def run(cell, seed, seconds, trace, device, t_start, opts=()):
+    layout = manifest.layout(cell.config_path)
+    if not hasattr(layout, "train_reference"):
+        raise ValueError(f"{cell.config_path}: the {layout.__name__} layout "
+                         "has no train reference; the train kind cannot "
+                         "check it")
     from msclip_torch.parallel.mesh import mesh_from_config
     from msclip_torch.train.trainer import (
         init_train_state,
@@ -24,7 +29,7 @@ def run(cell, seed, seconds, trace, device, t_start, opts=()):
     )
 
     procs = cells.Processes()
-    a = R.arch_from_file(cell.config_path)
+    a = manifest.arch(cell.config_path)
     tr = cell.traffic
     if procs.world != tr.get("cards", 1):
         raise ValueError(f"{cell.traffic_name} runs on {tr.get('cards', 1)} "
@@ -36,7 +41,7 @@ def run(cell, seed, seconds, trace, device, t_start, opts=()):
     gen = cells.input_generator(seed, device)
     images = cells.make_images(a, whole, gen, device)
     tokens = cells.make_tokens(a, whole, gen, device)
-    params = R.draw_params(R.param_layout(a), seed, device)
+    params = R.draw_params(layout.param_layout(a), seed, device)
     p0 = {k: v.clone() for k, v in params.items()}
     cells.sync(device)
     parts = {"setup_imports_and_draw_s": time.perf_counter() - t_start}

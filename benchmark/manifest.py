@@ -3,8 +3,10 @@
 A configuration is ``configs/<name>.json`` (named by its ``file``), a
 traffic mix ``workloads/<traffic>.json``, whose ``kind`` names the
 module that runs it, ``kinds/<kind>.py``, a cell's correctness limits
-``limits/<cell>.json``, and a metric's reader ``metrics/<metric>.py``, end
-to end or per layer (a ``read(ctx)`` that returns a number or None).
+``limits/<cell>.json``, a metric's reader ``metrics/<metric>.py``, end
+to end or per layer (a ``read(ctx)`` that returns a number or None), and a
+configuration's model layout ``layouts/<MODEL.NAME>.py``: its shapes,
+parameters, work counts and plain reference (``layouts/__init__.py``).
 """
 
 from __future__ import annotations
@@ -13,10 +15,12 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 from dataclasses import dataclass, field
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
+MODULE_NAME = re.compile(r"^[A-Za-z][A-Za-z0-9_]*$")
 
 
 @dataclass
@@ -78,3 +82,20 @@ def reader(metric_name, bench_dir=BENCH_DIR):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def layout(config_path):
+    """The module ``layouts/<MODEL.NAME>.py`` of a configuration file;
+    a ``ValueError`` naming the ``MODEL.NAME`` where there is none."""
+    name = _load_json(config_path).get("MODEL", {}).get("NAME")
+    if not isinstance(name, str) or not MODULE_NAME.match(name) or \
+            not os.path.exists(os.path.join(BENCH_DIR, "layouts",
+                                            name + ".py")):
+        raise ValueError(f"{config_path}: no layout for MODEL.NAME {name!r} "
+                         "(benchmark/layouts/<MODEL.NAME>.py)")
+    return importlib.import_module(f"benchmark.layouts.{name}")
+
+
+def arch(config_path):
+    """The configuration's shapes, by its layout."""
+    return layout(config_path).arch_from_file(config_path)

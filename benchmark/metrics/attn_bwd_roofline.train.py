@@ -19,5 +19,6 @@ def read(ctx):
     text = flops.roofline_seconds(
         flops.attention_bwd_cost(b, a.context, a.text_width, a.text_heads,
                                  True), pk["bf16_flops"], pk["hbm_bytes"])
-    least = ctx.span.steps * ((a.layers - 1) * image + a.text_layers * text)
+    least = ctx.span.steps * (a.attention_blocks * image
+                              + a.text_layers * text)
     return 100.0 * least / seconds

@@ -15,6 +15,6 @@ def read(ctx):
     a, pk = ctx.arch, ctx.peaks
     cost = flops.attention_fwd_cost(ctx.traffic["batch"], a.seq, a.width,
                                     a.heads, causal=False)
-    least = ctx.span.steps * (a.layers - 1) * flops.roofline_seconds(
+    least = ctx.span.steps * a.attention_blocks * flops.roofline_seconds(
         cost, pk["bf16_flops"], pk["hbm_bytes"])
     return 100.0 * least / seconds

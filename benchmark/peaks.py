@@ -33,7 +33,8 @@ def percentile(values, q):
 @dataclass
 class Context:
     """What a metric's reader is handed: the traffic's ``kind``, the
-    configuration's shapes (``reference.Arch``), the traffic's parameters,
+    configuration's shapes (its layout's ``Arch``, ``manifest.arch``), the
+    traffic's parameters,
     the number of cards and the run's ``cells.Outcome``, whose ``span``
     (``tracing.Span``) is the traced span of a ``--trace 1`` run."""
 

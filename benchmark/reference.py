@@ -6,9 +6,12 @@ release, configs ``experiments/model/b{32,16}-yfcc-msclips.yaml``): the
 EarlyconvRes stem as visual resblock 0, the parallel conv branch with its
 lateral top-to-bottom adapters, the trunk of pre-LN blocks whose attention
 and MLP the text tower shares from block 1 on, CLS and EOT pooling,
-symmetric InfoNCE, and AdamW with the release's groups and warm-up. It
-reads the configuration file itself, takes its weights and inputs from
-the caller, and imports nothing but torch.
+symmetric InfoNCE, and AdamW with the release's groups and warm-up. Its
+shapes (:class:`Arch`) come from the configuration file through the
+layout module ``benchmark/layouts/clip_openai_pe_res_v1.py``; it takes its
+weights and inputs from the caller, and imports nothing but torch. Other
+layouts' references (``benchmark/layouts/``) reuse its blocks, draws and
+arithmetic.
 
 Everything runs in float32 with TF32 off (``set_full_precision``), and
 BatchNorm runs unfolded: in eval on the running statistics, in training
@@ -53,7 +56,7 @@ def set_full_precision():
 
 @dataclass(frozen=True)
 class Arch:
-    """The shapes of one released configuration."""
+    """The shapes of one released MS-CLIP-S configuration."""
 
     embed: int
     width: int
@@ -86,37 +89,6 @@ class Arch:
 
     def shared(self, j):
         return 1 <= j < self.layers and j >= self.share_from
-
-
-def arch_from_file(path):
-    """The :class:`Arch` of a configuration file (the release's keys)."""
-    with open(path) as f:
-        cfg = json.load(f)
-    spec, custom = cfg["MODEL"]["SPEC"], cfg["CUSTOM"]
-    vis, txt = spec["VISION"], spec["TEXT"]
-    assert custom["EARLY_CONV"] and custom["EARLY_CONV_RES"] \
-        and custom["EARLY_CONV_NEW_IMPLEMENT"] and custom["PARALLEL_IN_V"] \
-        and custom["PRALLEL_T2B_USECLS"] \
-        and custom["PARALLEL_RESNET_LAYERS"] == [0, 1, 1, 1, 1] \
-        and not custom.get("VISUAL_LAYER_MINUS1", False), \
-        "the reference covers the released MS-CLIP-S layout only"
-    return Arch(
-        embed=spec["EMBED_DIM"], width=vis["WIDTH"], layers=vis["LAYERS"],
-        heads=vis["WIDTH"] // 64, resolution=cfg["TRAIN"]["IMAGE_SIZE"][0],
-        context=txt["CONTEXT_LENGTH"], vocab=txt["VOCAB_SIZE"],
-        text_width=txt["WIDTH"], text_heads=txt["HEADS"],
-        text_layers=txt["LAYERS"],
-        first_k=custom["EARLY_CONV_RES_FIRSTCONV_KERNEL"],
-        stem_strides=tuple(custom.get("EARLY_CONV_RES_STRIDES", [2] * 4)),
-        lateral_layers=tuple(custom["PARALLEL_LATERAL_LAYER"]),
-        par_kernels=tuple(custom.get("PARALLEL_KERNELS", [3] * 5)),
-        par_paddings=tuple(custom.get("PARALLEL_PADDINGS", [1] * 5)),
-        par_strides=tuple(custom.get("PARALLEL_STRIDES", [2] * 5)),
-        t2b_kernels=tuple(custom["PRALLEL_T2B_KERNELS"]),
-        t2b_paddings=tuple(custom["PRALLEL_T2B_PADDINGS"]),
-        t2b_strides=tuple(custom["PRALLEL_T2B_STRIDES"]),
-        share_from=custom.get("N_LAYERS", -1) if custom.get("N_LAYERS", -1)
-        > 0 else 1)
 
 
 # ---------------------------------------------------------------------------

@@ -115,9 +115,7 @@ def main(argv=None):
         return launch(cell, sys.argv[1:] if argv is None else argv)
     device, t_start = join_group() if worker else ("cuda", T_START)
 
-    from benchmark import cells, peaks
-    from benchmark import reference as R
-    from benchmark import tracing
+    from benchmark import cells, peaks, tracing
 
     out = manifest.kind(cell.traffic["kind"])(
         cell, args.seed, args.seconds, bool(args.trace), device, t_start)
@@ -144,7 +142,7 @@ def main(argv=None):
     result = {"correct": out.correct, "attempted": out.attempted,
               "failed": out.failed}
     ctx = peaks.Context(kind=cell.traffic["kind"],
-                        arch=R.arch_from_file(cell.config_path),
+                        arch=manifest.arch(cell.config_path),
                         traffic=cell.traffic, chips=cell.chips, outcome=out)
     if args.trace:
         result["metrics"] = read_metrics(cell.per_layer, ctx)

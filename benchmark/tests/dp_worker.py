@@ -17,8 +17,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from benchmark import cells
-from benchmark import reference as R
+from benchmark import cells, manifest
 from benchmark.kinds import train as train_kind
 from benchmark.tests import helpers
 
@@ -60,7 +59,7 @@ def plant(mode):
 
 
 def readings(cell, seed, rows=None):
-    a = R.arch_from_file(cell.config_path)
+    a = manifest.arch(cell.config_path)
     world = dist.get_world_size() if dist.is_initialized() else 1
     whole = {**cell.traffic, "batch": cell.traffic["batch"] * world}
     gen = cells.input_generator(seed, "cpu")

@@ -12,6 +12,14 @@ float8 (0.024-0.029), so its limit only catches a state left unchanged,
 which reads 1. The running statistics' worst change gap read
 0.0018-0.0040 against float8's 0.031-0.060; statistics left unchanged
 read 1.
+
+``small_clip.json`` is the plain CLIP ViT layout (``MODEL.NAME
+clip_openai``) at the same widths, patch 16 at 96 px (37 tokens), with no
+MS-CLIP-S key. Its eval limit was set the same way (CPU, bfloat16, seeds
+1-5 and ``SEED``): logits rms gap 0.193-0.223 against int8's 0.894-1.222,
+an image given its neighbour's answer 5.50-7.28 and a step given the
+previous step's 5.74-7.87. The worst image's rms gap (0.278-0.522 against
+int8's 1.401-2.171, under three times) is read, not compared.
 """
 
 import os
@@ -19,12 +27,23 @@ import os
 from benchmark import manifest
 
 SEED = 2 ** 31 + 11
-SMALL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "small.json")
+HERE = os.path.dirname(os.path.abspath(__file__))
+SMALL = os.path.join(HERE, "small.json")
+SMALL_CLIP = os.path.join(HERE, "small_clip.json")
 
 
 def eval_cell():
     return manifest.Cell(
         name="small.eval", config="small", config_path=SMALL,
+        traffic_name="eval.small",
+        traffic={"kind": "eval", "batch": 8, "ring": 2, "classes": 100,
+                 "trace_steps": 2},
+        limits={"logit_rms_gap": 0.45}, chips=1)
+
+
+def clip_eval_cell():
+    return manifest.Cell(
+        name="small_clip.eval", config="small_clip", config_path=SMALL_CLIP,
         traffic_name="eval.small",
         traffic={"kind": "eval", "batch": 8, "ring": 2, "classes": 100,
                  "trace_steps": 2},

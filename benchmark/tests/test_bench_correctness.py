@@ -112,7 +112,7 @@ def test_a_loss_over_half_the_batch_fails(monkeypatch):
 
 
 def control_numbers(cell, seed, device, **kw):
-    a = R.arch_from_file(cell.config_path)
+    a = manifest.arch(cell.config_path)
     gen = cells.input_generator(seed, device)
     images = cells.make_images(a, cell.traffic, gen, device)
     tokens = cells.make_tokens(a, cell.traffic, gen, device)

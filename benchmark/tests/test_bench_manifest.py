@@ -1,6 +1,8 @@
 """``BENCHMARK.json`` and the files it names: every configuration,
-traffic mix, limits file and per-layer reader is found and well formed,
-and the file keeps to the contract's shapes and names."""
+traffic mix, limits file, layout and per-layer reader is found and well
+formed, and the file keeps to the contract's shapes and names; on one
+synthetic traced span every reader of a cell reads a number, the value it
+read before the layouts were looked up by ``MODEL.NAME``."""
 
 import json
 import os
@@ -8,7 +10,8 @@ import re
 
 import pytest
 
-from benchmark import manifest
+from benchmark import cells, manifest, peaks, tracing
+from benchmark.tests import helpers
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -83,29 +86,86 @@ def test_every_metric_file_is_named():
                      + BENCH["per_layer"]}
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_every_metric_of_a_cell_reads_a_number(cell, monkeypatch):
-    """Each metric a cell reports reads a number from a run's outcome and
-    a traced span with every kind of record the readers look for."""
-    from benchmark import cells, peaks, tracing
-    from benchmark import reference as R
+def test_every_config_has_a_layout():
+    for c in BENCH["configs"]:
+        path = os.path.join(manifest.ROOT, c["file"])
+        assert manifest.arch(path).attention_blocks > 0
 
+
+# every kind of record the readers look for
+OPS = {"aten::convolution": 0.1, "aten::convolution_backward": 0.1,
+       "Optimizer.step#AdamW.step": 0.01, "msclip.train.forward": 0.08,
+       "msclip.attention.fwd": 0.004, "msclip.attention.bwd": 0.012,
+       "autograd::engine::evaluate_function: FusedAttentionQKVBackward": 0.2}
+CLIP_EVAL = "small_clip.eval"  # the plain ViT layout under the eval metrics
+
+
+def cell_of(name):
+    """A cell of ``BENCHMARK.json``, or the small plain-ViT eval cell with
+    the metrics of ``b32.eval.bs256``."""
+    if name != CLIP_EVAL:
+        return manifest.find_cell(BENCH, name)
+    c = helpers.clip_eval_cell()
+    like = manifest.find_cell(BENCH, "b32.eval.bs256")
+    c.end_to_end, c.per_layer = like.end_to_end, like.per_layer
+    return c
+
+
+def synthetic_readings(c, monkeypatch):
+    """``{metric: value}`` of every metric of cell ``c`` on one fixed run
+    outcome and traced span, through the layout lookup."""
     monkeypatch.setattr(peaks, "card_peaks",
                         lambda: peaks.PEAKS["NVIDIA H100 80GB HBM3"])
-    c = manifest.find_cell(BENCH, cell)
     span = tracing.Span(
         steps=4, window_s=1.2, event_s=1.2, busy_s=1.1,
         kernels={"attention_fwd_kernel": [44, 0.01],
                  "attention_bwd_kernel": [92, 0.02],
                  "ncclDevKernel_AllReduce": [8, 0.03]},
-        ops={"aten::convolution": 0.1, "aten::convolution_backward": 0.1,
-             "Optimizer.step#AdamW.step": 0.01})
+        ops=dict(OPS))
     out = cells.Outcome(setup_s=10.0, window_s=30.0, steps=100, items=25600,
                         step_s=[0.3] * 100, memory_peak_bytes=1,
                         attempted=25600, failed=0, span=span)
     ctx = peaks.Context(kind=c.traffic["kind"],
-                        arch=R.arch_from_file(c.config_path),
+                        arch=manifest.arch(c.config_path),
                         traffic=c.traffic, chips=c.chips, outcome=out)
-    for m in c.end_to_end + c.per_layer:
-        value = manifest.reader(m["name"])(ctx)
-        assert isinstance(value, float) and value > 0, m["name"]
+    return {m["name"]: manifest.reader(m["name"])(ctx)
+            for m in c.end_to_end + c.per_layer}
+
+
+@pytest.mark.parametrize("cell", CELLS + [CLIP_EVAL])
+def test_every_metric_of_a_cell_reads_a_number(cell, monkeypatch):
+    """Each metric a cell reports reads a number from a run's outcome and
+    a traced span with every kind of record the readers look for."""
+    for name, value in synthetic_readings(cell_of(cell),
+                                          monkeypatch).items():
+        assert isinstance(value, float) and value > 0, name
+
+
+# what each reader read on the synthetic span when the shapes came from
+# ``reference.arch_from_file`` and MS-CLIP-S's counts were hard-wired
+PARENT_READINGS = {
+    "b32.eval.bs256": {
+        "images_per_s": 853.3333333333334, "step_ms_p90": 300.0,
+        "setup_s": 10.0, "device_idle.eval": 8.333333333333325,
+        "mfu.eval": 0.8844996551398719,
+        "attn_fwd_roofline.eval": 10.329256119402986},
+    "b32.train.bs256": {
+        "samples_per_s": 853.3333333333334, "step_ms_p90": 300.0,
+        "setup_s": 10.0, "device_idle.train": 8.333333333333325,
+        "mfu.train": 6.095787371421638,
+        "attn_bwd_roofline.train": 24.223804656716418,
+        "conv_ms.train": 50.0, "optimizer_ms.train": 2.5,
+        "forward_ms.train": 20.0, "backward_ms.train": 50.0,
+        "attention_ms.train": 4.0},
+    "b16.eval.bs256": {
+        "images_per_s": 853.3333333333334, "step_ms_p90": 300.0,
+        "setup_s": 10.0, "device_idle.eval": 8.333333333333325,
+        "mfu.eval": 3.1336442836858778,
+        "attn_fwd_roofline.eval": 40.697269110447756},
+}
+
+
+@pytest.mark.parametrize("cell", sorted(PARENT_READINGS))
+def test_the_readers_read_what_they_read_before(cell, monkeypatch):
+    assert synthetic_readings(cell_of(cell), monkeypatch) \
+        == PARENT_READINGS[cell]

@@ -10,7 +10,7 @@ import time
 import pytest
 import torch
 
-from benchmark import cells
+from benchmark import cells, manifest
 from benchmark.kinds import eval as eval_kind
 from benchmark.kinds import train as train_kind
 from benchmark import reference as R
@@ -43,7 +43,7 @@ def test_towers_match_the_port():
     from msclip_torch.models.msclip import MSClipModel
 
     cfg, spec = cells.port_config(helpers.SMALL, FP32)
-    a = R.arch_from_file(helpers.SMALL)
+    a = manifest.arch(helpers.SMALL)
     p = R.draw_params(R.param_layout(a), 11, "cpu")
     gen = cells.input_generator(11, "cpu")
     traffic = {"ring": 1, "batch": 4, "caption_tokens": [5, 40]}
@@ -58,6 +58,27 @@ def test_towers_match_the_port():
             got = model.encode_text(tokens)
             assert torch.allclose(got, R.encode_text(p, a, tokens),
                                   atol=2e-6)
+
+
+def test_the_clip_image_tower_matches_the_port():
+    """The plain ViT layout's reference against the port's
+    ``encode_image``, unfolded and folded (nothing to fold), float32."""
+    from msclip_torch.data.transforms import normalize_uint8
+    from msclip_torch.models.folding import fold_params_for_eval
+    from msclip_torch.models.msclip import MSClipModel
+
+    cfg, spec = cells.port_config(helpers.SMALL_CLIP, FP32)
+    layout = manifest.layout(helpers.SMALL_CLIP)
+    a = manifest.arch(helpers.SMALL_CLIP)
+    p = R.draw_params(layout.param_layout(a), 11, "cpu")
+    images = cells.make_images(a, {"ring": 1, "batch": 4},
+                               cells.input_generator(11, "cpu"), "cpu")[0]
+    with torch.no_grad():
+        want = layout.encode_image(p, a, images)
+        for params in (p, fold_params_for_eval(p, spec)):
+            got = MSClipModel(spec, params).encode_image(
+                normalize_uint8(images))
+            assert torch.allclose(got, want, atol=2e-6)
 
 
 def test_eval_cell_matches_the_reference_in_float32():
@@ -77,7 +98,7 @@ def test_train_step_matches_the_reference_in_float32():
 
 def test_lower_precision_reference_departs():
     """The rounding hook changes the numbers, by more in float8."""
-    a = R.arch_from_file(helpers.SMALL)
+    a = manifest.arch(helpers.SMALL)
     p = R.draw_params(R.param_layout(a), 2, "cpu")
     images = torch.randint(0, 256, (2, a.resolution, a.resolution, 3),
                            dtype=torch.uint8)

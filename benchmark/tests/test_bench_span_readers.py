@@ -5,7 +5,6 @@ kind or in a trace without its span (the parent of the spans, say)."""
 import pytest
 
 from benchmark import cells, manifest, peaks, tracing
-from benchmark import reference as R
 from benchmark.tests import helpers
 
 STEPS = 4
@@ -37,7 +36,7 @@ def context(kind, ops):
     out = cells.Outcome(setup_s=1.0, window_s=1.0, steps=10, items=80,
                         step_s=[0.1] * 10, memory_peak_bytes=1,
                         attempted=80, failed=0, span=span)
-    return peaks.Context(kind=kind, arch=R.arch_from_file(cell.config_path),
+    return peaks.Context(kind=kind, arch=manifest.arch(cell.config_path),
                          traffic=cell.traffic, chips=1, outcome=out)
 
 
